@@ -1,0 +1,113 @@
+"""Per-tile big-splat lane binning.
+
+Counterpart of ``godotgaussiansplatting_tpu/ops/bigbin.py``. The BigSet
+lanes (ops/blocks2.py) are binned per render GROUP of horizontally
+contiguous tiles (GROUP = 1: per tile) at lane granularity with the same
+two-level supertile compaction as ops/binning2.py. The BigSet table is
+globally sorted by (depth16, source index), so lane index order is front to
+back and each tile's list comes out exactly depth-sorted. Tiles with more
+than ``obig`` lanes keep the closest ones; the dropped tail is counted in
+``overflow``.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..config import RasterizerConfig
+from .binning2 import SUPER, supertile_origins
+from .blocks2 import DEPTH_INVALID, GATE_OFF, PAYLOAD_WIDTH, _CULL_FAR
+
+GROUP = 1  # tiles per render group; the render kernel runs one tile a block
+
+
+class TileBigs(NamedTuple):
+    bigpay: torch.Tensor      # (TG, PW, OBIG) f32 per-group lane payloads,
+                              # front to back; dead lanes sanitized
+    tile_nbig: torch.Tensor   # (TG,) i32 live lane count
+    overflow: torch.Tensor    # () i32 group-lane pairs dropped by caps
+    big_prefix: torch.Tensor  # (TG, 128) i32 inclusive prefix count of live
+                              # lanes over 128 depth16 buckets (depth >> 9):
+                              # the render kernel's straddle gate
+
+
+def bin_bigs(bigs, cfg: RasterizerConfig, obig: int = 128,
+             supertile_cap: int = 2048, tile_row_offset: int = 0) -> TileBigs:
+    gx, gy = cfg.tile_dims
+    gx2 = -(-gx // GROUP)
+    TG = gx2 * gy
+    N = bigs.table.shape[0]
+    C1 = min(supertile_cap, N)
+    OB = min(obig, C1)
+    dev = bigs.table.device
+    sgx, sgy, ssx, ssy = supertile_origins(gx, gy, dev)
+    NS = sgx * sgy
+
+    r = bigs.rect.to(torch.int64)
+    sup_x0 = ssx * SUPER
+    sup_y0 = ssy * SUPER + tile_row_offset
+    covers = ((r[:, 0][None] < sup_x0 + SUPER) & (r[:, 2][None] > sup_x0)
+              & (r[:, 1][None] < sup_y0 + SUPER) & (r[:, 3][None] > sup_y0)
+              & bigs.valid[None])                   # (NS, N)
+
+    iota = torch.arange(N, dtype=torch.int64, device=dev)
+    key1 = torch.where(covers, iota[None], N)
+    k1s = torch.sort(key1, dim=1, stable=True).values[:, :C1]
+    cand_valid = k1s != N
+    cand = torch.where(cand_valid, k1s, 0)
+    over_l1 = covers.sum() - cand_valid.sum()
+
+    rects_c = r[cand]                               # (NS, C1, 4)
+
+    GPR = SUPER // GROUP
+    NGS = SUPER * GPR
+    gxi = torch.arange(GPR, dtype=torch.int64, device=dev)
+    gyi = torch.arange(SUPER, dtype=torch.int64, device=dev)
+    wx0 = ssx[:, 0][:, None] * SUPER + gxi[None] * GROUP     # (NS, GPR)
+    wy = ssy[:, 0][:, None] * SUPER + gyi[None] + tile_row_offset
+    wxx = wx0[:, None, :].expand(NS, SUPER, GPR).reshape(NS, NGS)
+    wyy = wy[:, :, None].expand(NS, SUPER, GPR).reshape(NS, NGS)
+
+    covers_t = ((rects_c[:, None, :, 0] < wxx[:, :, None] + GROUP)
+                & (wxx[:, :, None] < rects_c[:, None, :, 2])
+                & (rects_c[:, None, :, 1] <= wyy[:, :, None])
+                & (wyy[:, :, None] < rects_c[:, None, :, 3])
+                & cand_valid[:, None])              # (NS, NGS, C1)
+
+    if N > 0xFFFF:
+        raise ValueError("big_cap beyond 65535 needs a second sort operand")
+    pos = torch.arange(C1, dtype=torch.int64, device=dev)[None, None]
+    key2 = torch.where(covers_t, (pos << 16) | cand[:, None, :], C1 << 16)
+    k2s = torch.sort(key2, dim=2, stable=True).values[:, :, :OB]
+    hit = (k2s >> 16) != C1
+    sel = torch.where(hit, k2s & 0xFFFF, 0)
+    nbig = covers_t.sum(dim=2)
+    over_l2 = torch.clamp(nbig - OB, min=0).sum()
+    nbig = torch.clamp(nbig, max=OB)
+
+    def to_tiles(a):
+        extra = a.shape[2:]
+        a = a.reshape(sgy, sgx, SUPER, GPR, *extra).movedim(2, 1)
+        a = a.reshape(sgy * SUPER, sgx * GPR, *extra)
+        return a[:gy, :gx2].reshape(TG, *extra)
+
+    sel_t = to_tiles(sel)                           # (TG, OB)
+    hit_t = to_tiles(hit)
+    tp = bigs.table[sel_t.reshape(-1)]
+    tp = tp.reshape(TG, OB, PAYLOAD_WIDTH).transpose(1, 2)   # (TG, PW, OB)
+    dead = torch.tensor(
+        [GATE_OFF] + [0.0] * 8
+        + [_CULL_FAR, _CULL_FAR, 0.0, DEPTH_INVALID, 0.0, 0.0, 0.0],
+        dtype=torch.float32, device=dev)
+    tp = torch.where(hit_t[:, None, :], tp, dead[None, :, None]).contiguous()
+
+    d_i = torch.clamp(tp[:, 12, :], 0.0, 65535.0).to(torch.int64) >> 9
+    bkt = torch.arange(128, dtype=torch.int64, device=dev)[None, :, None]
+    hist = ((d_i[:, None, :] == bkt) & hit_t[:, None, :]).sum(dim=2)
+    prefix = torch.cumsum(hist, dim=1).to(torch.int32)
+
+    return TileBigs(bigpay=tp, tile_nbig=to_tiles(nbig).to(torch.int32),
+                    overflow=(over_l1 + over_l2).to(torch.int32),
+                    big_prefix=prefix)

@@ -1,0 +1,454 @@
+"""Block frame: 128-splat blocks with packed per-lane words, plus big lanes.
+
+Counterpart of ``godotgaussiansplatting_tpu/ops/blocks2.py`` (the part the
+fused projection feeds: ``build_block_frame2_words`` and its helpers).
+
+  * big splats (anisotropic extent >= BIG_RADIUS) are extracted first into
+    a globally depth-sorted BigSet lane table, binned per tile at lane
+    granularity (ops/bigbin.py);
+  * the remaining splats are cut into blocks of BLOCK_SIZE, either straight
+    from the load-time curve order (cluster="bricks", no per-frame sort) or
+    after a per-superblock stable row sort by (screen-cell Morton, depth16)
+    (cluster="screen");
+  * each block carries its lanes' packed words (words payload) or the
+    cooked 16-row power features, plus tile rect, an 8x4 coverage bitmap
+    over the rect and its depth range.
+
+Packed u32 words travel as int32 bit patterns (CPU torch lacks shifts and
+compares on uint32); they are widened with ``& 0xFFFFFFFF`` into int64
+before any shift, compare or sort.
+
+Cooked payload layout (PAYLOAD_WIDTH=16 f32 rows per lane, shared by chain
+blocks and BigSet lane tables):
+    0..5   f0..f5   power features about the lane's centre (rows 14/15);
+                    f0 includes ln(opacity) clamped to <= -1e-3; invalid
+                    lanes: f0=-1e4, f1..f5=0
+    6..8   r, g, b  colour (invalid: 0)
+    9..10  ix, iy   image position (invalid: -1e6)
+    11     rx|ry    anisotropic half-widths as a bf16 bit-pair
+    12     rank (chain blocks: (depth16<<16 | idx>>7) ^ sign, bitcast) or
+           depth16 as f32 (big tables)
+    13     idx      source splat index, bitcast
+    14..15 bcx, bcy feature centre
+Words payload layout ((B, 8, S) int32): [key, ix, iy, pc1, pc2, rgb9e5,
+idx, rx|ry bf16 pair].
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..config import RasterizerConfig
+from .blocks import SUPERBLOCK
+
+BLOCK_SIZE = 128          # splats per block
+PAYLOAD_WIDTH = 16        # f32 rows per lane of the cooked payload
+DEPTH_INVALID = 3.0e38    # depth sentinel for culled/padded lanes
+GATE_OFF = -1.0e4         # exp(GATE_OFF) == 0 in f32
+_CULL_FAR = -1.0e6
+U32_MAX = 0xFFFFFFFF      # the u32 "inf" sentinel of sort keys
+
+
+# --- u32 words carried as int32 bit patterns ---------------------------------
+
+def u32(x: torch.Tensor) -> torch.Tensor:
+    """int32 bit pattern -> int64 holding the unsigned value."""
+    return x.to(torch.int64) & U32_MAX
+
+
+def i32(x: torch.Tensor) -> torch.Tensor:
+    """int64 holding an unsigned 32-bit value -> int32 bit pattern."""
+    return torch.where(x >= 2**31, x - 2**32, x).to(torch.int32)
+
+
+def _bits16(x: torch.Tensor) -> torch.Tensor:
+    """int64 in [0, 0xFFFF] -> int16 with the same bits."""
+    return torch.where(x >= 2**15, x - 2**16, x).to(torch.int16)
+
+
+def _f32_from_bits(x: torch.Tensor) -> torch.Tensor:
+    """Exact power-of-two f32 from an integer tensor of biased exponents."""
+    return (x.to(torch.int32) << 23).view(torch.float32)
+
+
+def _pack_f16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Two f32 tensors -> one int32 word of IEEE f16 halves (a low, b high),
+    round-to-nearest-even with subnormals kept."""
+    ah = a.to(torch.float16).view(torch.int16).to(torch.int64) & 0xFFFF
+    bh = b.to(torch.float16).view(torch.int16).to(torch.int64) & 0xFFFF
+    return i32(ah | (bh << 16))
+
+
+def _unpack_f16(w: torch.Tensor):
+    wu = u32(w)
+    a = _bits16(wu & 0xFFFF).view(torch.float16).float()
+    b = _bits16(wu >> 16).view(torch.float16).float()
+    return a, b
+
+
+def _round_bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).float()
+
+
+def _pack_rgb9e5(r, g, b) -> torch.Tensor:
+    """Non-negative RGB -> one int32 word: 9-bit mantissas and a shared 5-bit
+    exponent e with 2^(e-1) <= max channel < 2^e."""
+    m = torch.maximum(torch.maximum(r, g), b)
+    eb = ((torch.clamp(m, min=1e-12).view(torch.int32) >> 23) & 0xFF) - 126
+    e = torch.clamp(eb, -15, 16)
+    s = _f32_from_bits(9 - e + 127)
+
+    def q(c):
+        return torch.clamp(torch.round(c * s), 0.0, 511.0).to(torch.int64)
+
+    return i32(q(r) | (q(g) << 9) | (q(b) << 18)
+               | ((e.to(torch.int64) + 15) << 27))
+
+
+def _unpack_rgb9e5(w: torch.Tensor):
+    wu = u32(w)
+    e = ((wu >> 27) & 0x1F) - 15
+    s = _f32_from_bits(e - 9 + 127)
+
+    def d(sh):
+        return ((wu >> sh) & 0x1FF).float() * s
+
+    return d(0), d(9), d(18)
+
+
+def _pack_bf16_pair(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Two f32 tensors -> one f32 tensor holding bf16 bit-pairs (a low)."""
+    ah = a.to(torch.bfloat16).view(torch.int16).to(torch.int64) & 0xFFFF
+    bh = b.to(torch.bfloat16).view(torch.int16).to(torch.int64) & 0xFFFF
+    return i32(ah | (bh << 16)).view(torch.float32)
+
+
+def _unpack_bf16_pair(w: torch.Tensor):
+    """int32 bf16 bit-pair word -> (low, high) as f32 (exact)."""
+    wu = u32(w)
+    return (i32((wu & 0xFFFF) << 16).view(torch.float32),
+            i32((wu >> 16) << 16).view(torch.float32))
+
+
+def extents_from_conic(ca, cb, cc, op):
+    """Anisotropic alpha-reach half-widths (rx, ry), bf16-rounded.
+
+    Per axis, beyond sigma_axis * sqrt(2 ln(255 op)) the splat's alpha is
+    below 1/255, the reference's own cutoff; the cut is capped by the
+    reference's square radius R = op^0.2 * 2.5 * sqrt(lambda_max). The
+    values are rounded to bf16 so rects and the render gate agree exactly."""
+    det = torch.clamp(ca * cc - cb * cb, min=1e-20)
+    sxx = torch.clamp(cc / det, min=0.0)
+    syy = torch.clamp(ca / det, min=0.0)
+    m = 0.5 * (sxx + syy)
+    lam = m + torch.sqrt(torch.clamp(m * m - 1.0 / det, min=0.0))
+    R = torch.pow(torch.clamp(op, min=0.0), 0.2) * 2.5 * torch.sqrt(lam)
+    vis = torch.sqrt(2.0 * torch.clamp(
+        torch.log(torch.clamp(op, min=1e-8) * 255.0), min=0.125))
+    rx = torch.minimum(R, vis * torch.sqrt(sxx))
+    ry = torch.minimum(R, vis * torch.sqrt(syy))
+    return _round_bf16(rx), _round_bf16(ry)
+
+
+def adaptive_cell_shift(P: int, gx: int, gy: int,
+                        blocks_per_cell: int = 8) -> int:
+    """Smallest cell shift s (cell edge = 2^s tiles) such that each cell's
+    depth column holds ~blocks_per_cell blocks of BLOCK_SIZE splats."""
+    target_cells = max(P // (BLOCK_SIZE * blocks_per_cell), 1)
+    s = 0
+    while s < 8 and (-(-gx // (1 << s))) * (-(-gy // (1 << s))) > target_cells:
+        s += 1
+    return s
+
+
+class BlockFrame2(NamedTuple):
+    """Per-frame block-level state feeding binning and the render kernel."""
+
+    payload: torch.Tensor     # (B, 8, S) i32 words or (B, 16, S) f32 cooked
+    rect: torch.Tensor        # (B, 4) i32 block tile rect [x0, y0, x1, y1)
+    bitmap: torch.Tensor      # (B,) i32 bits of the 8x4 coverage bitmap
+    min_depth: torch.Tensor   # (B,) i32 min depth16 over valid members
+    max_depth: torch.Tensor   # (B,) i32 max depth16 over valid members
+    num_valid: torch.Tensor   # (B,) i32 surviving splats per block
+    num_culled_pairs: torch.Tensor  # () i32 splat-tile pair count
+
+
+class BigSet(NamedTuple):
+    """Globally depth-sorted big-splat lanes (see module docstring)."""
+
+    table: torch.Tensor     # (big_cap, PW) f32 cooked rows; centre = round(pos)
+    depth16: torch.Tensor   # (big_cap,) i32 (invalid = 0xFFFF)
+    rect: torch.Tensor      # (big_cap, 4) i32 per-lane tile rect
+    valid: torch.Tensor     # (big_cap,) bool
+    residual: torch.Tensor  # () i32 bigs beyond capacity (left in chains)
+
+
+def default_big_cap(P: int) -> int:
+    """Static lane capacity of the big-splat extraction (<= 40960)."""
+    return min(P, max(BLOCK_SIZE * 8,
+                      min(P // 64, 40960) // BLOCK_SIZE * BLOCK_SIZE))
+
+
+def _big_chunk_width(P: int, sb_size: int) -> int:
+    """Big-candidate chunk width: 1024, else a smaller power-of-two divisor
+    of P."""
+    for c in (1024, 512, 256, 128):
+        if P % c == 0:
+            return min(c, sb_size)
+    return sb_size
+
+
+def _select_big_lanes(bkey: torch.Tensor, big_cap: int):
+    """(R, CW) int32 chunk keys ((depth16 << 10) | col, or U32_MAX) -> the
+    globally closest big_cap lanes: (tk_idx (big_cap,) int64 flat source
+    positions, tk_ok (big_cap,) bool). Candidates beyond a chunk's window or
+    the cap stay in their chains."""
+    R, CW = bkey.shape
+    KC = min(CW, max(CW // 4, 4 * big_cap // max(R, 1)))
+    bk_s = torch.sort(u32(bkey), dim=1).values
+    win = bk_s[:, :KC]
+    row0 = (torch.arange(R, dtype=torch.int64, device=bkey.device)
+            * CW)[:, None]
+    pos_w = torch.where(win != U32_MAX, row0 + (win & 0x3FF),
+                        torch.zeros_like(win))
+    gk = (win >> 10).reshape(-1)
+    gks, order = torch.sort(gk, stable=True)
+    gidx = pos_w.reshape(-1)[order]
+    cap = min(big_cap, R * KC)
+    tk_idx = gidx[:cap]
+    tk_ok = gks[:cap] != (U32_MAX >> 10)
+    if cap < big_cap:
+        pad = big_cap - cap
+        tk_idx = torch.cat([tk_idx, tk_idx.new_zeros(pad)])
+        tk_ok = torch.cat([tk_ok, tk_ok.new_zeros(pad)])
+    return tk_idx, tk_ok
+
+
+def _tile_rect(ix, iy, rx, ry, gx, gy, ts):
+    """Tile rect [x0, y0, x1, y1) of centres +- half-widths (int32)."""
+    x0 = torch.clamp((ix - rx) / ts, 0.0, float(gx)).to(torch.int32)
+    y0 = torch.clamp((iy - ry) / ts, 0.0, float(gy)).to(torch.int32)
+    x1 = torch.clamp(torch.ceil((ix + rx) / ts), 0.0, float(gx)).to(torch.int32)
+    y1 = torch.clamp(torch.ceil((iy + ry) / ts), 0.0, float(gy)).to(torch.int32)
+    return x0, y0, x1, y1
+
+
+def _build_big_set(ops, ok, depth16, residual, gx, gy, ts) -> BigSet:
+    """Operand rows of the taken lanes -> BigSet (cooked table rows)."""
+    ix, iy, ca, cb, cc, r, g, b, op, idx = ops
+    valid = ok
+    bcx = torch.clamp(torch.round(ix), 0.0, 16383.0)
+    bcy = torch.clamp(torch.round(iy), 0.0, 16383.0)
+    ixr = ix - bcx
+    iyr = iy - bcy
+    ln_op = torch.clamp(torch.log(torch.clamp(op, min=1e-37)), max=-1e-3)
+    f0q = -0.5 * (ca * ixr * ixr + cc * iyr * iyr) - cb * ixr * iyr
+    zero = torch.zeros_like(ix)
+    f0 = torch.where(valid, f0q + ln_op, torch.full_like(ix, GATE_OFF))
+    f1 = torch.where(valid, ca * ixr + cb * iyr, zero)
+    f2 = torch.where(valid, cc * iyr + cb * ixr, zero)
+    f3 = torch.where(valid, -0.5 * ca, zero)
+    f4 = torch.where(valid, -0.5 * cc, zero)
+    f5 = torch.where(valid, -cb, zero)
+    far = torch.full_like(ix, _CULL_FAR)
+    ix_p = torch.where(valid, ix, far)
+    iy_p = torch.where(valid, iy, far)
+    rx, ry = extents_from_conic(ca, cb, cc, op)
+    rx_p = torch.where(valid, rx, zero)
+    ry_p = torch.where(valid, ry, zero)
+    depth_f = torch.where(valid, (depth16 & 0xFFFF).float(),
+                          torch.full_like(ix, DEPTH_INVALID))
+    idx_f = idx.to(torch.int32).view(torch.float32)
+    table = torch.stack([
+        f0, f1, f2, f3, f4, f5,
+        torch.where(valid, r, zero), torch.where(valid, g, zero),
+        torch.where(valid, b, zero),
+        ix_p, iy_p, _pack_bf16_pair(rx_p, ry_p), depth_f, idx_f, bcx, bcy,
+    ], dim=1)                                      # (big_cap, PW)
+    x0, y0, x1, y1 = _tile_rect(ix_p, iy_p, rx_p, ry_p, gx, gy, ts)
+    rect = torch.where(valid[:, None], torch.stack([x0, y0, x1, y1], dim=-1),
+                       torch.zeros((ix.shape[0], 4), dtype=torch.int32,
+                                   device=ix.device))
+    return BigSet(table=table, depth16=(depth16 & 0xFFFF).to(torch.int32),
+                  rect=rect, valid=valid, residual=residual)
+
+
+def _or_reduce(bits: torch.Tensor, dim: int) -> torch.Tensor:
+    """Bitwise OR of non-negative int64 values (< 2^32) along ``dim``."""
+    out = torch.zeros_like(bits.select(dim, 0))
+    for j in range(32):
+        out |= ((bits >> j) & 1).amax(dim=dim) << j
+    return out
+
+
+def _frame_from_stage1(s1, B: int, S: int, cfg: RasterizerConfig,
+                       num_culled_pairs, words: bool = False) -> BlockFrame2:
+    """Stage-1 operand rows -> BlockFrame2.
+
+    s1: 7-tuple of int32 word tensors (key, ix bits, iy bits, f16(ca|cb),
+    f16(cc|op), rgb9e5, source idx), any shape reshapeable to (B, S).
+    words=True keeps the (B, 8, S) word image as the payload (the render
+    kernel unpacks in-kernel); otherwise the 16-row f32 payload is cooked.
+    Block meta (rect, bitmap, depth range, num_valid) is the same either
+    way."""
+    gx, gy = cfg.tile_dims
+    ts = float(cfg.tile_size)
+
+    def blk(x):
+        return x.reshape(B, S)
+
+    key_b = u32(blk(s1[0]))
+    depth_b = key_b & 0xFFFF
+    ix = blk(s1[1]).view(torch.float32)
+    iy = blk(s1[2]).view(torch.float32)
+    ca, cb = _unpack_f16(blk(s1[3]))
+    cc, op = _unpack_f16(blk(s1[4]))
+    idx_s = blk(s1[6])
+    valid = key_b != U32_MAX
+    rx, ry = extents_from_conic(ca, cb, cc, op)
+
+    nv = valid.sum(dim=1).to(torch.int32)
+    far = torch.full_like(ix, _CULL_FAR)
+    zero = torch.zeros_like(ix)
+    ix_p = torch.where(valid, ix, far)
+    iy_p = torch.where(valid, iy, far)
+    rx_p = torch.where(valid, rx, zero)
+    ry_p = torch.where(valid, ry, zero)
+
+    if words:
+        payload = torch.stack(
+            [blk(s1[0]), blk(s1[1]), blk(s1[2]), blk(s1[3]), blk(s1[4]),
+             blk(s1[5]), blk(s1[6]),
+             _pack_bf16_pair(rx_p, ry_p).view(torch.int32)], dim=1)
+    else:
+        r, g, b = _unpack_rgb9e5(blk(s1[5]))
+        nv_safe = torch.clamp(nv, min=1).float()
+        ix_v = torch.where(valid, ix, zero)
+        iy_v = torch.where(valid, iy, zero)
+        bcx = torch.clamp(torch.round(ix_v.sum(dim=1) / nv_safe), 0.0, 16383.0)
+        bcy = torch.clamp(torch.round(iy_v.sum(dim=1) / nv_safe), 0.0, 16383.0)
+        ixr = ix - bcx[:, None]
+        iyr = iy - bcy[:, None]
+        ln_op = torch.clamp(torch.log(torch.clamp(op, min=1e-37)), max=-1e-3)
+        f0q = -0.5 * (ca * ixr * ixr + cc * iyr * iyr) - cb * ixr * iyr
+        f0 = torch.where(valid, f0q + ln_op, torch.full_like(ix, GATE_OFF))
+        f1 = torch.where(valid, ca * ixr + cb * iyr, zero)
+        f2 = torch.where(valid, cc * iyr + cb * ixr, zero)
+        f3 = torch.where(valid, -0.5 * ca, zero)
+        f4 = torch.where(valid, -0.5 * cc, zero)
+        f5 = torch.where(valid, -cb, zero)
+        rank = ((depth_b << 16) | ((idx_s.to(torch.int64) >> 7) & 0xFFFF)) \
+            ^ 0x80000000
+        payload = torch.stack([
+            f0, f1, f2, f3, f4, f5,
+            torch.where(valid, r, zero), torch.where(valid, g, zero),
+            torch.where(valid, b, zero),
+            ix_p, iy_p, _pack_bf16_pair(rx_p, ry_p),
+            i32(rank).view(torch.float32), idx_s.view(torch.float32),
+            bcx[:, None].expand(B, S), bcy[:, None].expand(B, S),
+        ], dim=1)
+
+    # --- block tile rect / coverage bitmap / depth range --------------------
+    srx0, sry0, srx1, sry1 = _tile_rect(ix_p, iy_p, rx_p, ry_p, gx, gy, ts)
+    bigc = 1 << 20
+    srx0 = torch.where(valid, srx0, bigc)
+    sry0 = torch.where(valid, sry0, bigc)
+    srx1 = torch.where(valid, srx1, -bigc)
+    sry1 = torch.where(valid, sry1, -bigc)
+
+    lo = torch.stack([srx0.amin(dim=1), sry0.amin(dim=1)], -1)
+    hi = torch.stack([srx1.amax(dim=1), sry1.amax(dim=1)], -1)
+    empty = ~valid.any(dim=1)
+    block_rect = torch.where(
+        empty[:, None], torch.zeros((B, 4), dtype=torch.int32,
+                                    device=ix.device),
+        torch.cat([lo, torch.maximum(hi, lo)], dim=-1).to(torch.int32))
+
+    bx0g, by0g = block_rect[:, 0:1], block_rect[:, 1:2]
+    sw = torch.clamp(-(-(block_rect[:, 2:3] - bx0g) // 8), min=1)
+    sh_ = torch.clamp(-(-(block_rect[:, 3:4] - by0g) // 4), min=1)
+    cx0 = torch.clamp((srx0 - bx0g) // sw, 0, 7)
+    cx1 = torch.clamp(torch.maximum(-(-(srx1 - bx0g) // sw), cx0 + 1), max=8)
+    cy0 = torch.clamp((sry0 - by0g) // sh_, 0, 3)
+    cy1 = torch.clamp(torch.maximum(-(-(sry1 - by0g) // sh_), cy0 + 1), max=4)
+    colmask = ((1 << cx1.to(torch.int64)) - (1 << cx0.to(torch.int64)))
+    bits = torch.zeros_like(colmask)
+    for yrow in range(4):
+        bits = bits | torch.where((cy0 <= yrow) & (yrow < cy1),
+                                  colmask << (8 * yrow), 0)
+    bits = torch.where(valid, bits, 0)
+    bitmap = i32(_or_reduce(bits, 1))
+
+    min_depth = torch.where(valid, depth_b, 0xFFFF).amin(dim=1)
+    max_depth = torch.where(valid, depth_b, 0).amax(dim=1)
+    min_depth = torch.where(empty, 0xFFFF, min_depth).to(torch.int32)
+    max_depth = torch.where(empty, 0xFFFF, max_depth).to(torch.int32)
+
+    return BlockFrame2(
+        payload=payload, rect=block_rect, bitmap=bitmap,
+        min_depth=min_depth, max_depth=max_depth, num_valid=nv,
+        num_culled_pairs=torch.as_tensor(num_culled_pairs).to(torch.int32),
+    )
+
+
+def build_block_frame2_words(words, cfg: RasterizerConfig,
+                             num_splats: int | None = None,
+                             big_cap: int | None = None,
+                             words_payload: bool = False):
+    """Fused-projection outputs (ops/projection_kernel.ProjWords) ->
+    (BlockFrame2, BigSet). The projection already packed every per-splat
+    operand, so this runs only the big selection, the optional stage-1
+    sort and the block build. ``num_splats`` is accepted for signature
+    parity; the projection already chose the cell granularity."""
+    del num_splats
+    P = words.key.shape[1]
+    S = BLOCK_SIZE
+    sb_size = min(SUPERBLOCK, P)
+    if P % sb_size:
+        raise ValueError(f"splat capacity {P} must be a multiple of {sb_size}")
+    SB = P // sb_size
+    B = P // S
+    gx, gy = cfg.tile_dims
+    ts = float(cfg.tile_size)
+    dev = words.key.device
+
+    cnt = words.cnt.reshape(-1, 128).to(torch.int64)
+    num_big = cnt[:, 0].sum()
+    nt_total = cnt[:, 1].sum()
+
+    if big_cap is None:
+        big_cap = default_big_cap(P)
+    big_cap = max(big_cap, S)
+    tk_idx, tk_ok = _select_big_lanes(words.bkey, big_cap)
+    taken = torch.zeros(P, dtype=torch.bool, device=dev)
+    taken[tk_idx[tk_ok]] = True
+
+    key_flat = words.key.reshape(P)
+    dep_tk = torch.where(tk_ok, u32(key_flat[tk_idx]) & 0xFFFF, U32_MAX)
+    ca_tk, cb_tk = _unpack_f16(words.pc1.reshape(P)[tk_idx])
+    cc_tk, op_tk = _unpack_f16(words.pc2.reshape(P)[tk_idx])
+    r_tk, g_tk, b_tk = _unpack_rgb9e5(words.rgb9.reshape(P)[tk_idx])
+    bigs = _build_big_set(
+        (words.ix.reshape(P)[tk_idx].view(torch.float32),
+         words.iy.reshape(P)[tk_idx].view(torch.float32),
+         ca_tk, cb_tk, cc_tk, r_tk, g_tk, b_tk, op_tk, tk_idx),
+        tk_ok, dep_tk,
+        residual=(num_big - tk_ok.sum()).to(torch.int32),
+        gx=gx, gy=gy, ts=ts)
+
+    def srows(a):
+        return a.reshape(SB, sb_size)
+
+    key = torch.where(srows(taken), -1, srows(words.key)).to(torch.int32)
+    idx = torch.arange(P, dtype=torch.int32, device=dev)
+    ops = (key, srows(words.ix), srows(words.iy), srows(words.pc1),
+           srows(words.pc2), srows(words.rgb9), srows(idx))
+    if cfg.cluster == "bricks":   # static curve-order bricks: no sort
+        s1 = ops
+    else:
+        order = torch.sort(u32(key), dim=1, stable=True).indices
+        s1 = tuple(torch.gather(a, 1, order) for a in ops)
+    return _frame_from_stage1(s1, B, S, cfg, nt_total.to(torch.int32),
+                              words=words_payload), bigs

@@ -1,0 +1,112 @@
+"""The port's CUDA kernels and their dispatch.
+
+Tests marked ``gpu`` need a CUDA device and skip without one; on the card
+they build the kernels from godotgaussiansplatting_torch/csrc and hold each
+against its plain-torch version. Run them there with
+
+    python -m pytest tests/test_torch_cuda.py -m gpu
+
+The unmarked tests check, on any machine, that CPU tensors take the plain
+path without touching a kernel and that a kernel wrapper refuses CPU
+tensors instead of falling back.
+"""
+
+import pytest
+import torch
+
+import godotgaussiansplatting_torch as gt
+from godotgaussiansplatting_torch import kernels
+from godotgaussiansplatting_torch.ops import projection_kernel as pk
+from godotgaussiansplatting_torch.ops import render_v3 as rv
+from godotgaussiansplatting_torch.ops.bigbin import bin_bigs
+from godotgaussiansplatting_torch.ops.binning2 import bin_blocks2
+from godotgaussiansplatting_torch.ops.blocks2 import (
+    adaptive_cell_shift, build_block_frame2_words)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    return torch.device("cuda")
+
+
+def _cloud(device, n=40_000, scale=0.12):
+    return gt.fast_cloud_view(gt.mortonize(gt.synthetic_scene(
+        n, seed=4, scale_range=(0.005, scale), surfaces=True,
+        device=device)))
+
+
+def _proj_args(cloud, cfg):
+    uni = gt.make_uniforms(gt.Camera.reset_pose(), cfg, device=cloud.device)
+    vec = pk.frame_uniform_vector(uni.view, uni.proj, uni.camera_pos,
+                                  uni.model_scale, uni.time, cfg)
+    gx, gy = cfg.tile_dims
+    return (cloud.means, cloud.cov3d, cloud.opacity, cloud.sh,
+            cloud.upload_time, vec, cfg,
+            adaptive_cell_shift(cloud.num_splats, gx, gy))
+
+
+def test_cpu_frame_launches_no_kernel():
+    kernels.reset_launch_counts()
+    cfg = gt.RasterizerConfig(width=64, height=64).fast_defaults()
+    cloud = _cloud(None, n=2000, scale=0.05)
+    out = gt.render_frame_fast(cloud, gt.make_uniforms(
+        gt.Camera.reset_pose(), cfg), cfg)
+    assert out.image.device.type == "cpu"
+    assert kernels.launch_counts() == {"projection": 0, "render_v3": 0}
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    cfg = gt.RasterizerConfig(width=64, height=64).fast_defaults()
+    cloud = _cloud(None, n=2000, scale=0.05)
+    with pytest.raises(ValueError, match="CUDA"):
+        pk._project_words_cuda(*_proj_args(cloud, cfg))
+    rows = torch.zeros((4, 8, 128), dtype=torch.int32)
+    payload = torch.zeros((1, 8, 128), dtype=torch.int32)
+    bigpay = torch.zeros((4, 16, 128))
+    bigla = torch.zeros((4, 128, 1024)).transpose(1, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        rv._render_cuda(rows, payload, bigpay, bigla, cfg, 2, 128, True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("size", [(640, 480), (1920, 1080)])
+def test_projection_kernel_matches_plain(cuda, size):
+    cfg = gt.RasterizerConfig(width=size[0], height=size[1]).fast_defaults()
+    args = _proj_args(_cloud(cuda), cfg)
+    wk = pk._project_words_cuda(*args)
+    wr = pk.project_words_reference(*args)
+    for f in pk.ProjWords._fields:
+        assert torch.equal(getattr(wk, f), getattr(wr, f)), f
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile,batch_u,early_exit", [
+    (32, 2, True), (32, 1, False), (16, 4, True), (16, 3, True)])
+def test_render_kernel_matches_plain(cuda, tile, batch_u, early_exit):
+    cfg = gt.RasterizerConfig(width=320, height=224, tile_size=tile,
+                              batch_u=batch_u).fast_defaults()
+    cloud = _cloud(cuda)
+    uni = gt.make_uniforms(gt.Camera.reset_pose(), cfg, device=cuda,
+                           heatmap=1.0)
+    words = pk.project_words(cloud.means, cloud.cov3d, cloud.opacity,
+                             cloud.sh, cloud.upload_time, uni.view, uni.proj,
+                             uni.camera_pos, uni.model_scale, uni.time, cfg,
+                             num_splats=cloud.num_splats)
+    bf, bigs = build_block_frame2_words(words, cfg, words_payload=True)
+    bins = bin_blocks2(bf, cfg)
+    tbig = bin_bigs(bigs, cfg)
+    rows = rv.pack_tile_rows_v3(bins.tile_blocks, bins.tile_nblocks,
+                                tbig.tile_nbig, bins.tile_minmax,
+                                bins.tile_candidates, uni.heatmap_factor, cfg,
+                                tile_big_prefix=tbig.big_prefix)
+    bigla = rv.prepass_big_la(tbig.bigpay, cfg)
+    mb = -(-bins.tile_blocks.shape[1] // batch_u)
+    args = (rows, bf.payload, tbig.bigpay, bigla, cfg, batch_u, mb)
+    tk = rv._render_cuda(*args, early_exit)
+    tr = rv.render_tiles_v3_reference(*args, early_exit)
+    assert torch.isfinite(tk).all()
+    assert int((rows[:, 0, 4] > 0).sum()) > 0, "no resident big lanes"
+    assert float((tk[:, :5] - tr[:, :5]).abs().max()) <= 1e-3
+    assert torch.equal(tk[:, 5:], tr[:, 5:])
