@@ -2,24 +2,54 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from godotgaussiansplatting_torch/csrc, then:
+Builds the port's CUDA kernels from godotgaussiansplatting_torch/csrc (one
+nvcc per source, all started together), then:
 
-1. device: the card's name and power limit, and the kernels' build time;
+1. device: the card's name and power limit, the kernels' build time, and
+   the render kernels' occupancy and the v4 kernel's shared memory per
+   (tile, U, GT);
 2. projection kernel against its plain-torch version on a 1M-splat surface
    scene at 1920x1080 (fast_defaults()): key, bkey and cnt bit-equal,
    pc1/pc2/rgb9 within one unit in the last place per packed field, ix/iy
    within 1e-3 px;
-3. render kernel against its plain-torch version at 512x512 on 200K splats
-   (scales up to 0.12, so tiles carry resident big lanes), heatmap 0 and 1: RGB PSNR >= 50 dB, t_final within 1e-3, finite output;
-4. full frame: render_frame_fast at 1920x1080 on the 5.8M-splat scene of
-   bench.py over 8 orbit cameras; finite images, pairs > 0, both kernels
-   launched by the frame, a finite pick on the centre tile; the median
-   frame and stage times (CUDA events, after one warm-up frame) and the
-   peak device memory.
+3. the v3 render kernel on the word payload against its plain-torch
+   version at 512x512 on 200K splats (scales up to 0.12, so tiles carry
+   resident big lanes), heatmap 0 and 1: RGB PSNR >= 50 dB, t_final within
+   1e-3, finite output;
+3b. the v3 kernel on the cooked payload against its plain version on the
+   same scene, at the shapes of RasterizerConfig(quality="fast") (readable
+   projection, screen clustering, tile 16, U=4), heatmap 0 and 1, at the
+   same tolerances; and against the word kernel on the same blocks:
+   >= 60 dB;
+3c. the v4 lockstep kernel (RasterizerConfig(kernel="v4").fast_defaults():
+   tile 32, U=2, GT=4) against its plain version (>= 50 dB, t_final within
+   1e-3) and bit-equal to the cooked v3 kernel on the same inputs, at
+   512x512 and at 480x480 (225 tiles: the last group of four is padded);
+4. full frame: render_frame_fast at 1920x1080 under fast_defaults() on the
+   5.8M-splat scene of bench.py over 8 orbit cameras; finite images,
+   pairs > 0, every kernel of the path launched by the frame, a centre
+   pick that is a splat mean; the median frame and stage times (CUDA
+   events, after one warm-up frame) and the peak device memory;
+5. the same on the same cloud for RasterizerConfig(kernel="v4")
+   .fast_defaults() (projection and v4 kernels) and for
+   RasterizerConfig(quality="fast") (readable projection, cooked v3);
+   then, once every configuration is timed, torch.profiler over three
+   more frames of each: the device's busy share and its top kernels;
+6. every kernel on the inputs its 1080p frame gives it (the reset camera):
+   the projection held to its plain version as in phase 2, each render
+   kernel to its plain version (which composites the tiles in chunks) as
+   in phase 3, each timed beside its bound; the v4
+   kernel at GT 1, 2 and 4 also bit-equal to the cooked v3 kernel there.
 
-Any failed check raises, and the script exits non-zero. Without a CUDA
-device it raises before printing any result. The last two lines are the
-kernels' JSON record and {"ok": true, "device": {...}}.
+The launch counters are set to 0 just before each full-frame path and read
+just after it; the `launches` of a kernel come from the path that runs it.
+The other numbers of the kernels line come from phase 6, the main paths'
+inputs. `bound_ms` is the larger of the bytes the kernel must move over
+3.35 TB/s and its operations over 67 TFLOP/s (f32), counted from this
+run's inputs (see `proj_bound` and `render_bound`). Any failed check
+raises, and the script exits non-zero. Without a CUDA device it raises
+before printing any result. The last three lines are the card's name and
+power limit, the kernels' JSON record and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -37,15 +67,38 @@ import godotgaussiansplatting_torch as gt
 from godotgaussiansplatting_torch import kernels
 from godotgaussiansplatting_torch.ops import projection_kernel as pk
 from godotgaussiansplatting_torch.ops import render_v3 as rv
+from godotgaussiansplatting_torch.ops import render_v4 as r4
 from godotgaussiansplatting_torch.ops.bigbin import bin_bigs
 from godotgaussiansplatting_torch.ops.binning2 import bin_blocks2
 from godotgaussiansplatting_torch.ops.blocks2 import (
-    _bits16, adaptive_cell_shift, build_block_frame2_words, u32)
+    _bits16, adaptive_cell_shift, build_block_frame2, build_block_frame2_words,
+    u32)
+from godotgaussiansplatting_torch.ops.projection import project_splats
 
-PROJ_SRC = "godotgaussiansplatting_torch/csrc/projection.cu"
-PROJ_TPU = "godotgaussiansplatting_tpu/ops/projection_pallas.py:133"
-RENDER_SRC = "godotgaussiansplatting_torch/csrc/render_v3.cu"
-RENDER_TPU = "godotgaussiansplatting_tpu/ops/render_pallas3.py:178"
+CSRC = "godotgaussiansplatting_torch/csrc/"
+TPU = "godotgaussiansplatting_tpu/ops/"
+KERNELS = {   # name -> (source, the TPU kernel it replaces)
+    "projection": (CSRC + "projection.cu", TPU + "projection_pallas.py:133"),
+    "render_v3": (CSRC + "render_v3.cu", TPU + "render_pallas3.py:178"),
+    "render_v3_cooked": (CSRC + "render_v3.cu", TPU + "render_pallas3.py:380"),
+    "render_v4": (CSRC + "render_v4.cu", TPU + "render_pallas4.py:66"),
+}
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
+F32_OPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
+# Operations per splat of the fused projection: view and clip transforms,
+# fade-in, EWA covariance and eigen radius, tile rect, depth key, degree-3
+# SH colour (~200 of them) and the packing, each transcendental counted as
+# one operation.
+PROJ_OPS_PER_SPLAT = 400
+# Operations per (pixel, chain lane that passes the tile's coverage gate)
+# of the render: the six-term power (10), the clamp, exp and log1p (3), the
+# prefix add, the weight's exp and product (3) and the three colour sums
+# (6). A lane that fails the gate is dropped when it is decoded.
+RENDER_OPS_PER_LANE = 22
+# Operations per (pixel, resident big lane): the prefix and chain-mass adds
+# (2), the weight's two exps and difference (3), the three colour sums (6)
+# and the t_final sum (1).
+RENDER_OPS_PER_BIG = 12
 
 
 def log(msg: str) -> None:
@@ -71,18 +124,75 @@ def time_ms(fn, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
+def time_once(fn):
+    """(result, ms) of one call."""
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def bound(n_bytes: float, n_ops: float) -> dict:
+    """The least time the card could take: bytes over the memory rate or
+    operations over the f32 rate, whichever is larger."""
+    tb = n_bytes / HBM_BYTES_PER_S * 1e3
+    to = n_ops / F32_OPS_PER_S * 1e3
+    return {"bound_ms": max(tb, to),
+            "bound_by": "bytes" if tb >= to else "operations"}
+
+
+def record(name: str, err: float, ms: float, plain_ms: float,
+           bnd: dict) -> dict:
+    src, tpu = KERNELS[name]
+    return {"name": name, "route": "cuda", "source": src, "replaces": tpu,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bnd,
+            "library_ms": None}
+
+
+def psnr(a: torch.Tensor, b: torch.Tensor) -> float:
+    mse = float(((a[:3].clamp(0, 1) - b[:3].clamp(0, 1)) ** 2).mean())
+    return 10 * np.log10(1.0 / max(mse, 1e-20))
+
+
 def phase_device() -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     card = smi.stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
-    for name in ("projection", "render_v3"):
+    kernels.build(*kernels.SIGNATURES)
+    wall = time.perf_counter() - t0
+    for name in kernels.SIGNATURES:
         kernels.library(name)
     log(f"[1 device] {torch.cuda.get_device_name(0)} | torch "
         f"{torch.__version__} cuda {torch.version.cuda} | kernels built in "
-        f"{time.perf_counter() - t0:.1f} s "
+        f"{wall:.1f} s "
         f"({json.dumps({k: round(v, 1) for k, v in kernels.build_seconds.items()})})")
+    occ = {f"v3 tile {t} U={u} {'cooked' if c else 'words'}":
+           rv.resident_blocks("render_v3", t, u, c)
+           for t, u in ((32, 2), (16, 4)) for c in (0, 1)}
+    log(f"[1 device] render_v3 resident blocks on the card: {json.dumps(occ)}")
+    lib = kernels.library("render_v4")
+    have = lib.gs_smem_optin()
+    shapes = []
+    for tile, U in ((32, 2), (16, 4), (32, 4), (16, 2)):
+        for GT in (1, 2, 3, 4):
+            need = lib.gs_render_v4_smem_bytes(U, GT, 128)
+            fits = need <= have
+            shapes.append({"tile": tile, "U": U, "GT": GT, "smem": need,
+                           "fits": fits, "resident_blocks":
+                           rv.resident_blocks("render_v4", tile, U, GT, 128)
+                           if fits else None})
+    log(f"[1 device] render_v4 shared memory per block at OBIG 128 (opt-in "
+        f"limit {have} B): {json.dumps(shapes)}")
     return card
 
 
@@ -96,12 +206,19 @@ def _f16_ulps(a, b):
     return worst
 
 
-def phase_projection(n: int, width: int, height: int) -> dict:
-    dev = torch.device("cuda")
-    cloud = gt.fast_cloud_view(gt.mortonize(gt.synthetic_scene(
-        n, seed=1, surfaces=True, device=dev)))
-    cfg = gt.RasterizerConfig(width=width, height=height).fast_defaults()
-    uni = gt.make_uniforms(gt.Camera.reset_pose(), cfg, device=dev)
+def proj_bound(args, words) -> dict:
+    """Each input splat array read once, each output word written once;
+    PROJ_OPS_PER_SPLAT operations per splat slot."""
+    means, cov3d, opacity, sh, upload_time, vec = args[:6]
+    P = means.shape[0]
+    return bound(nbytes(means, cov3d, opacity, sh, upload_time, vec)
+                 + nbytes(*words), P * PROJ_OPS_PER_SPLAT)
+
+
+def projection_vs_plain(tag: str, cloud, cfg, plain_reps: int):
+    """The projection kernel against its plain version on one camera:
+    (max |d ix,iy|, kernel ms, plain ms, bound)."""
+    uni = gt.make_uniforms(gt.Camera.reset_pose(), cfg, device=cloud.device)
     vec = pk.frame_uniform_vector(uni.view, uni.proj, uni.camera_pos,
                                   uni.model_scale, uni.time, cfg)
     gx, gy = cfg.tile_dims
@@ -125,94 +242,248 @@ def phase_projection(n: int, width: int, height: int) -> dict:
         int((((ka >> s) & 0x1FF) - ((kb >> s) & 0x1FF)).abs().max()) <= 1
         for s in (0, 9, 18))
     ms = time_ms(lambda: pk._project_words_cuda(*args), 20)
-    plain_ms = time_ms(lambda: pk.project_words_reference(*args), 3)
-    log(f"[2 projection] {n} splats {width}x{height}: valid "
+    plain_ms = time_ms(lambda: pk.project_words_reference(*args), plain_reps)
+    bnd = proj_bound(args, wk)
+    w, h = cfg.target_size
+    log(f"[{tag}] {cloud.num_splats} splats {w}x{h}: valid "
         f"{int(valid.sum())}, mismatching words {json.dumps(bad)}, "
         f"max |d ix,iy| {ix_err:.3g} px, f16 max ulps {pc_ulps}, rgb9e5 "
-        f"within 1 ulp {rgb_ok}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        f"within 1 ulp {rgb_ok}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms,"
+        f" bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
     for f in ("key", "bkey", "cnt"):
-        check(bad[f] == 0, f"projection: {f} differs on {bad[f]} entries")
-    check(ix_err <= 1e-3, f"projection: ix/iy error {ix_err}")
-    check(pc_ulps <= 1, f"projection: f16 halves {pc_ulps} ulps apart")
-    check(rgb_ok, "projection: rgb9e5 fields more than 1 ulp apart")
-    return {"name": "projection", "route": "cuda", "source": PROJ_SRC,
-            "replaces": PROJ_TPU, "max_abs_err": ix_err, "ms": ms,
-            "plain_ms": plain_ms}
+        check(bad[f] == 0, f"{tag}: {f} differs on {bad[f]} entries")
+    check(ix_err <= 1e-3, f"{tag}: ix/iy error {ix_err}")
+    check(pc_ulps <= 1, f"{tag}: f16 halves {pc_ulps} ulps apart")
+    check(rgb_ok, f"{tag}: rgb9e5 fields more than 1 ulp apart")
+    return ix_err, ms, plain_ms, bnd
 
 
-def _frame_inputs(cloud, cfg, heatmap: float):
+def phase_projection(n: int, width: int, height: int) -> float:
+    cloud = gt.fast_cloud_view(gt.mortonize(gt.synthetic_scene(
+        n, seed=1, surfaces=True)))
+    cfg = gt.RasterizerConfig(width=width, height=height).fast_defaults()
+    return projection_vs_plain("2 projection", cloud, cfg, 3)[0]
+
+
+def _frame_inputs(cloud, cfg, heatmap: float, words: bool):
+    """The render kernels' inputs for one camera: through the fused
+    projection (cfg.projection_kernel) or the readable projection and
+    screen clustering, on the word or the cooked payload."""
     dev = cloud.device
     uni = gt.make_uniforms(gt.Camera.reset_pose(), cfg, device=dev,
                            heatmap=heatmap)
-    words = pk.project_words(cloud.means, cloud.cov3d, cloud.opacity,
-                             cloud.sh, cloud.upload_time, uni.view, uni.proj,
-                             uni.camera_pos, uni.model_scale, uni.time, cfg,
-                             num_splats=cloud.num_splats)
-    bf, bigs = build_block_frame2_words(words, cfg, words_payload=True)
-    bins = bin_blocks2(bf, cfg)
+    args = (cloud.means, cloud.cov3d, cloud.opacity, cloud.sh,
+            cloud.upload_time, uni.view, uni.proj, uni.camera_pos,
+            uni.model_scale, uni.time, cfg)
+    if cfg.projection_kernel:
+        bf, bigs = build_block_frame2_words(
+            pk.project_words(*args, num_splats=cloud.num_splats), cfg,
+            words_payload=words)
+    else:
+        bf, bigs = build_block_frame2(project_splats(*args), cfg,
+                                      num_splats=cloud.num_splats,
+                                      words_payload=words)
     tbig = bin_bigs(bigs, cfg, obig=cfg.big_tile_capacity)
-    rows = rv.pack_tile_rows_v3(bins.tile_blocks, bins.tile_nblocks,
-                                tbig.tile_nbig, bins.tile_minmax,
-                                bins.tile_candidates, uni.heatmap_factor,
-                                cfg, tile_big_prefix=tbig.big_prefix)
-    bigla = rv.prepass_big_la(tbig.bigpay, cfg)
-    U = cfg.batch_u
-    return (rows, bf.payload, tbig.bigpay, bigla, cfg, U,
-            -(-bins.tile_blocks.shape[1] // U))
+    rows, bigla, U, max_batches = rv.tile_inputs(
+        bin_blocks2(bf, cfg), tbig, uni.heatmap_factor, cfg)
+    return (rows, bf.payload, tbig.bigpay, bigla, cfg, U, max_batches)
 
 
-def phase_render(n: int, size: int) -> dict:
-    dev = torch.device("cuda")
-    cloud = gt.fast_cloud_view(gt.mortonize(gt.synthetic_scene(
-        n, seed=2, scale_range=(0.005, 0.12), surfaces=True, device=dev)))
-    cfg = gt.RasterizerConfig(width=size, height=size).fast_defaults()
-    worst = 0.0
-    times = []
-    for hm in (0.0, 1.0):
-        args = _frame_inputs(cloud, cfg, hm)
-        rows = args[0]
-        tk = rv._render_cuda(*args, early_exit=True)
-        tr = rv.render_tiles_v3_reference(*args, early_exit=True)
-        torch.cuda.synchronize()
-        ik, tfk = rv.assemble_image_v3(tk, cfg)
-        ir, tfr = rv.assemble_image_v3(tr, cfg)
-        finite = bool(torch.isfinite(tk).all())
-        mse = float(((ik[:3].clamp(0, 1) - ir[:3].clamp(0, 1)) ** 2).mean())
-        psnr = 10 * np.log10(1.0 / max(mse, 1e-20))
-        tf_err = float((tfk - tfr).abs().max())
-        err = float((tk[:, :5] - tr[:, :5]).abs().max())
-        worst = max(worst, err)
-        nb = rows[:, 0, 0]
-        log(f"[3 render] {n} splats {size}x{size} heatmap {hm}: PSNR "
-            f"{psnr:.2f} dB, max |d t_final| {tf_err:.3g}, max |d| {err:.3g},"
-            f" finite {finite}; tiles {rows.shape[0]}, blocks/tile mean "
+def _processed_ids(rows, processed):
+    """(tile, block id) of every block a render call processed: the first
+    ``processed`` (output channel 5) entries of each tile's list."""
+    TG = rows.shape[0]
+    ids = rows[:, 1:3].reshape(TG, 256).to(torch.int64) & 0x7FFFFF
+    pos = torch.arange(256, device=rows.device)[None]
+    tile, slot = torch.nonzero(pos < processed[:, None], as_tuple=True)
+    return tile, ids[tile, slot]
+
+
+def active_lanes(args, processed) -> tuple[int, int]:
+    """(lanes of the processed blocks that pass their tile's coverage gate,
+    all lanes of the processed blocks), from the plain version's decode."""
+    rows, payload, _, _, cfg = args[:5]
+    dev = rows.device
+    tile, bid = _processed_ids(rows, processed)
+    ox, oy = rv._tile_origins(rows.shape[0], cfg, 0, dev)
+    oy = oy + rows[:, 0, 3].float()
+    decode = (rv._decode_cooked if payload.dtype == torch.float32
+              else rv._decode_words)
+    n, step = 0, 8192
+    for a in range(0, tile.numel(), step):
+        t = tile[a:a + step]
+        pay = payload[bid[a:a + step]]
+        live = torch.ones((t.numel(), pay.shape[2]), dtype=torch.bool,
+                          device=dev)
+        n += int(decode(pay, live, ox[t], oy[t], float(cfg.tile_size))[3]
+                 .sum())
+    return n, tile.numel() * payload.shape[2]
+
+
+def render_bound(args, processed: torch.Tensor):
+    """Work of one render call from this run's data: ``processed`` blocks
+    per tile (output channel 5). Bytes: the tile rows, the big payload, the
+    log-alpha maps of the tiles' resident big lanes and the payload of each
+    distinct processed block read once, the (TG, 8, NPX) output written
+    once. Operations: RENDER_OPS_PER_LANE per (pixel, lane of a processed
+    block that passes the tile's coverage gate) and RENDER_OPS_PER_BIG per
+    (pixel, resident big lane). Returns the bound and the share of the
+    processed blocks' lanes that pass the gate."""
+    rows, payload, bigpay, bigla, cfg = args[:5]
+    TG = rows.shape[0]
+    NPX = cfg.tile_size ** 2
+    n_blocks = int(torch.unique(_processed_ids(rows, processed)[1]).numel())
+    lane_bytes = payload[0].numel() * payload.element_size()
+    n_big = int(rows[:, 0, 4].sum())
+    n_bytes = (nbytes(rows, bigpay) + n_big * NPX * 4
+               + n_blocks * lane_bytes + TG * 8 * NPX * 4)
+    active, lanes = active_lanes(args, processed)
+    n_ops = (active * RENDER_OPS_PER_LANE + n_big * RENDER_OPS_PER_BIG) * NPX
+    return bound(n_bytes, n_ops), active / max(lanes, 1)
+
+
+def _describe(rows, processed):
+    nb = rows[:, 0, 0]
+    return (f"tiles {rows.shape[0]}, blocks/tile mean "
             f"{float(nb.float().mean()):.1f} max {int(nb.max())}, tiles with "
             f"bigs {int((rows[:, 0, 4] > 0).sum())}, blocks processed "
-            f"{int(tk[:, 5, 0].sum())} of {int(nb.sum())}")
-        check(finite, "render: non-finite kernel output")
-        check(psnr >= 50.0, f"render: PSNR {psnr:.2f} dB < 50")
-        check(tf_err <= 1e-3, f"render: t_final error {tf_err}")
+            f"{int(processed.sum())} of {int(nb.sum())}")
+
+
+def _hold(tag, tk, tr, cfg, v4: bool = False) -> float:
+    """Hold a render kernel's output to its plain version's: RGB PSNR >= 50
+    dB, t_final within 1e-3, finite. Returns max |d| of channels 0-4."""
+    asm, chans = ((r4.assemble_image_v4, r4.tile_channels_v4) if v4
+                  else (rv.assemble_image_v3, rv.tile_channels_v3))
+    ik, tfk = asm(tk, cfg)
+    ir, tfr = asm(tr, cfg)
+    finite = bool(torch.isfinite(tk).all())
+    p = psnr(ik, ir)
+    tf_err = float((tfk - tfr).abs().max())
+    err = float((chans(tk, cfg)[..., :5] - chans(tr, cfg)[..., :5])
+                .abs().max())
+    log(f"[{tag}] PSNR vs plain {p:.2f} dB, max |d t_final| {tf_err:.3g}, "
+        f"max |d| {err:.3g}, finite {finite}")
+    check(finite, f"{tag}: non-finite kernel output")
+    check(p >= 50.0, f"{tag}: PSNR {p:.2f} dB < 50")
+    check(tf_err <= 1e-3, f"{tag}: t_final error {tf_err}")
+    return err
+
+
+def _render_vs_plain(tag, args):
+    """The v3 kernel against its plain version on one set of inputs."""
+    tk = rv._render_cuda(*args, early_exit=True)
+    tr = rv.render_tiles_v3_reference(*args, early_exit=True)
+    torch.cuda.synchronize()
+    err = _hold(f"{tag}; {_describe(args[0], tk[:, 5, 0])}", tk, tr, args[4])
+    return tk, err
+
+
+def _time_render(tag, fn_kernel, fn_plain, args, processed):
+    ms = time_ms(fn_kernel, 10)
+    plain_ms = time_ms(fn_plain, 2)
+    bnd, share = render_bound(args, processed)
+    log(f"[{tag}] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}; lanes past the "
+        f"coverage gate {100 * share:.1f}%)")
+
+
+def render_cloud(n: int):
+    return gt.fast_cloud_view(gt.mortonize(gt.synthetic_scene(
+        n, seed=2, scale_range=(0.005, 0.12), surfaces=True)))
+
+
+def phase_render(cloud, size: int) -> float:
+    """Phase 3: the v3 kernel on the word payload (fast_defaults())."""
+    cfg = gt.RasterizerConfig(width=size, height=size).fast_defaults()
+    worst = 0.0
+    for hm in (0.0, 1.0):
+        args = _frame_inputs(cloud, cfg, hm, words=True)
+        tk, err = _render_vs_plain(f"3 render {size}x{size} heatmap {hm}",
+                                   args)
+        worst = max(worst, err)
         if hm == 0.0:
-            ms = time_ms(lambda: rv._render_cuda(*args, early_exit=True), 10)
-            plain_ms = time_ms(lambda: rv.render_tiles_v3_reference(
-                *args, early_exit=True), 2)
-            times = [ms, plain_ms]
-    log(f"[3 render] kernel {times[0]:.4f} ms, plain {times[1]:.4f} ms")
-    return {"name": "render_v3", "route": "cuda", "source": RENDER_SRC,
-            "replaces": RENDER_TPU, "max_abs_err": worst, "ms": times[0],
-            "plain_ms": times[1]}
+            _time_render(
+                "3 render", lambda: rv._render_cuda(*args, early_exit=True),
+                lambda: rv.render_tiles_v3_reference(*args, early_exit=True),
+                args, tk[:, 5, 0])
+    return worst
 
 
-def phase_frame(n: int, width: int, height: int, frames: int) -> dict:
-    dev = torch.device("cuda")
+def phase_render_cooked(cloud, size: int) -> float:
+    """Phase 3b: the v3 kernel on the cooked payload at the shapes of
+    RasterizerConfig(quality="fast"), and against the word kernel on the
+    same blocks."""
+    cfg = gt.RasterizerConfig(width=size, height=size, quality="fast")
+    worst = 0.0
+    for hm in (0.0, 1.0):
+        args = _frame_inputs(cloud, cfg, hm, words=False)
+        check(args[1].dtype == torch.float32 and args[1].shape[1] == 16,
+              "3b: the payload is not the cooked one")
+        tk, err = _render_vs_plain(f"3b cooked {size}x{size} tile "
+                                   f"{cfg.tile_size} U={args[5]} heatmap "
+                                   f"{hm}", args)
+        worst = max(worst, err)
+        wargs = _frame_inputs(cloud, cfg, hm, words=True)
+        tw = rv._render_cuda(*wargs, early_exit=True)
+        p = psnr(rv.assemble_image_v3(tk, cfg)[0],
+                 rv.assemble_image_v3(tw, cfg)[0])
+        log(f"[3b cooked] heatmap {hm}: cooked vs word kernel PSNR {p:.2f} dB")
+        check(p >= 60.0, f"3b: cooked vs words PSNR {p:.2f} dB < 60")
+        if hm == 0.0:
+            _time_render(
+                "3b cooked", lambda: rv._render_cuda(*args, early_exit=True),
+                lambda: rv.render_tiles_v3_reference(*args, early_exit=True),
+                args, tk[:, 5, 0])
+    return worst
+
+
+def phase_render_v4(cloud, sizes) -> float:
+    """Phase 3c: the v4 kernel against its plain version, and bit-equal to
+    the cooked v3 kernel on the same inputs."""
+    worst = 0.0
+    for size in sizes:
+        cfg = gt.RasterizerConfig(width=size, height=size,
+                                  kernel="v4").fast_defaults()
+        GT = cfg.lockstep_gt
+        args = _frame_inputs(cloud, cfg, 1.0, words=False)
+        t4 = r4._render_v4_cuda(*args, GT, True)
+        t3 = rv._render_cuda(*args, early_exit=True)
+        tr = r4.render_tiles_v4_reference(*args, GT, True)
+        torch.cuda.synchronize()
+        T = cfg.num_tiles
+        T4 = t4.shape[0]
+        tag = (f"3c v4 {size}x{size} GT={GT}, {T} tiles in {T4} groups "
+               f"({T4 * GT - T} padded slots)")
+        worst = max(worst, _hold(tag, t4, tr, cfg, v4=True))
+        i4, tf4 = r4.assemble_image_v4(t4, cfg)
+        i3, tf3 = rv.assemble_image_v3(t3, cfg)
+        same = (torch.equal(i4, i3) and torch.equal(tf4, tf3) and torch.equal(
+            r4.tile_channels_v4(t4, cfg), rv.tile_channels_v3(t3, cfg)))
+        log(f"[3c v4 {size}x{size}] bit-equal to the cooked v3 kernel {same}")
+        check(same, "3c: v4 kernel differs from the cooked v3 kernel")
+        if size == sizes[0]:
+            _time_render(
+                "3c v4", lambda: r4._render_v4_cuda(*args, GT, True),
+                lambda: r4.render_tiles_v4_reference(*args, GT, True),
+                args, t3[:, 5, 0])
+    return worst
+
+
+def frame_cloud(n: int):
     t0 = time.perf_counter()
     cloud = gt.fast_cloud_view(gt.mortonize(gt.synthetic_scene(
-        n, seed=42, extent=4.0, scale_range=(0.004, 0.03), surfaces=True,
-        device=dev)))
-    setup_s = time.perf_counter() - t0
-    cfg = gt.RasterizerConfig(width=width, height=height).fast_defaults()
+        n, seed=42, extent=4.0, scale_range=(0.004, 0.03), surfaces=True)))
+    return cloud, time.perf_counter() - t0
+
+
+def phase_frame(tag: str, cloud, cfg, frames: int, expect) -> dict:
+    """Drive render_frame_fast_staged over an orbit: the launch counters
+    are set to 0 just before the timed frames and read just after."""
+    dev = cloud.means.device
+    width, height = cfg.target_size
     cams = gt.orbit_trajectory(frames, radius=5.0, target=(0, 0, 6.0))
-    unis = [gt.make_uniforms(c, cfg, device=dev) for c in cams]
+    unis = [gt.make_uniforms(c, cfg) for c in cams]
     out = gt.render_frame_fast(cloud, unis[0], cfg)       # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -227,28 +498,133 @@ def phase_frame(n: int, width: int, height: int, frames: int) -> dict:
         b.record()
         stages.append(timer.times_ms())
         frame_ms.append(a.elapsed_time(b))
-        check(bool(torch.isfinite(out.image).all()), "frame: non-finite image")
-        check(int(out.stats.num_pairs) > 0, "frame: no splat-tile pairs")
+        check(out.image.device.type == "cuda", f"{tag}: image not on the card")
+        check(bool(torch.isfinite(out.image).all()),
+              f"{tag}: non-finite image")
+        check(int(out.stats.num_pairs) > 0, f"{tag}: no splat-tile pairs")
     launches = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     gx, gy = cfg.tile_dims
     centre = (gy // 2) * gx + gx // 2
     pick = gt.pick_splat_position_fast(out, centre, cloud, 1.0, cfg)
-    check(bool(torch.isfinite(pick).all()), f"frame: centre pick {pick}")
+    check(bool(torch.isfinite(pick).all()), f"{tag}: centre pick {pick}")
     d_pick = float((cloud.means[:cloud.num_splats] - pick).norm(dim=1).min())
-    check(d_pick < 1e-4, f"frame: centre pick is not a splat mean ({d_pick})")
-    for name in ("projection", "render_v3"):
-        check(launches[name] > 0, f"frame: kernel {name} never launched")
+    check(d_pick < 1e-4, f"{tag}: centre pick is not a splat mean ({d_pick})")
+    for name in expect:
+        check(launches[name] > 0, f"{tag}: kernel {name} never launched")
     med = {k: statistics.median(s[k] for s in stages) for k in stages[0]}
-    log(f"[4 frame] {n} splats {width}x{height}, {frames} orbit frames: "
-        f"median {statistics.median(frame_ms):.3f} ms/frame (all "
+    log(f"[{tag}] {cloud.num_splats} splats {width}x{height}, tile "
+        f"{cfg.tile_size} U={cfg.batch_u or rv.default_batch_u(cfg.tile_size)}"
+        f" kernel {cfg.kernel} projection_kernel {cfg.projection_kernel} "
+        f"words {cfg.words_payload} cluster {cfg.cluster}, {frames} orbit "
+        f"frames: median {statistics.median(frame_ms):.3f} ms/frame (all "
         f"{[round(x, 3) for x in frame_ms]}), median stages "
         f"{json.dumps({k: round(v, 3) for k, v in med.items()})}, peak "
         f"memory {peak / 2**30:.2f} GiB, pairs {int(out.stats.num_pairs)}, "
         f"overflow {int(out.stats.num_overflow)}, launches "
-        f"{json.dumps(launches)}, centre pick {pick.tolist()}, scene set-up "
-        f"{setup_s:.1f} s")
+        f"{json.dumps(launches)}, centre pick {pick.tolist()}")
     return launches
+
+
+def profile_frames(tag: str, cloud, cfg, frames: int = 3) -> None:
+    """torch.profiler over ``frames`` orbit frames (after a warm-up): the
+    device's busy time (the union of its kernels' intervals) over the
+    device span, and the kernels with the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    cams = gt.orbit_trajectory(frames, radius=5.0, target=(0, 0, 6.0))
+    unis = [gt.make_uniforms(c, cfg) for c in cams]
+    gt.render_frame_fast(cloud, unis[0], cfg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for uni in unis:
+            gt.render_frame_fast(cloud, uni, cfg)
+        torch.cuda.synchronize()
+    ivs = sorted((e.time_range.start, e.time_range.end)
+                 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    check(bool(ivs), f"{tag} profile: no device activity was traced")
+    busy, end = 0.0, ivs[0][0]
+    for a, b in ivs:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    span = ivs[-1][1] - ivs[0][0]
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + e.time_range.elapsed_us())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    log(f"[{tag} profile] {frames} frames: device busy {busy / 1e3:.3f} ms "
+        f"of a {span / 1e3:.3f} ms device span ({100 * busy / span:.1f}%), "
+        f"{len(ivs)} device activities; top by device ms per frame "
+        f"{json.dumps({n[:60]: round(t / 1e3 / frames, 3) for n, t in top})}")
+
+
+def _render_1080p(name, cfg, args, kernel, plain) -> dict:
+    """One render kernel on its 1080p frame's inputs: held to its plain
+    version (one call, timed), then timed beside its bound."""
+    tk = kernel()
+    tr, plain_ms = time_once(plain)
+    v4 = name == "render_v4"
+    processed = (r4.tile_channels_v4(tk, cfg)[:, 0, 5] if v4
+                 else tk[:, 5, 0])
+    tag = (f"6 {name} 1080p tile {cfg.tile_size} U={args[5]}"
+           f"{f' GT={cfg.lockstep_gt}' if v4 else ''}")
+    err = _hold(f"{tag}; {_describe(args[0], processed)}", tk, tr, cfg, v4)
+    del tk, tr
+    ms = time_ms(kernel, 5)
+    bnd, share = render_bound(args, processed)
+    log(f"[{tag}] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (one call, "
+        f"tiles in chunks), bound {bnd['bound_ms']:.4f} ms "
+        f"({bnd['bound_by']}; lanes past the coverage gate "
+        f"{100 * share:.1f}%)")
+    return {"err": err, "ms": ms, "plain_ms": plain_ms, "bnd": bnd,
+            "processed": processed}
+
+
+def phase_kernels_1080p(cloud, base, worst: dict) -> list:
+    """Phase 6: every kernel on the inputs of the 1080p frame that runs it
+    (the reset camera), held to its plain version and timed beside its
+    bound; the v4 kernel at GT 1, 2 and 4 also bit-equal to the cooked v3
+    kernel. Returns the kernels' records (``worst``: the largest error of
+    the earlier phases)."""
+    e, ms, plain_ms, bnd = projection_vs_plain(
+        "6 projection 1080p", cloud, base.fast_defaults(), 2)
+    rec = [record("projection", max(worst["projection"], e), ms, plain_ms,
+                  bnd)]
+    for name, cfg, words in (
+            ("render_v3", base.fast_defaults(), True),
+            ("render_v3_cooked", base.replace(quality="fast"), False),
+            ("render_v4", base.replace(kernel="v4").fast_defaults(), False)):
+        args = _frame_inputs(cloud, cfg, 0.0, words)
+        GT = cfg.lockstep_gt
+        if name == "render_v4":
+            r = _render_1080p(
+                name, cfg, args, lambda: r4._render_v4_cuda(*args, GT, True),
+                lambda: r4.render_tiles_v4_reference(*args, GT, True))
+        else:
+            r = _render_1080p(
+                name, cfg, args,
+                lambda: rv._render_cuda(*args, early_exit=True),
+                lambda: rv.render_tiles_v3_reference(*args, True))
+        rec.append(record(name, max(worst[name], r["err"]), r["ms"],
+                          r["plain_ms"], r["bnd"]))
+    # the last args are the v4 frame's cooked tile-32 inputs
+    t3 = rv._render_cuda(*args, early_exit=True)
+    c3 = rv.tile_channels_v3(t3, cfg)
+    res = {"render_v3_cooked tile 32 U=2": time_ms(
+        lambda: rv._render_cuda(*args, early_exit=True), 5)}
+    for GT in (1, 2, 4):
+        t4 = r4._render_v4_cuda(*args, GT, True)
+        check(torch.equal(r4.tile_channels_v4(t4, cfg), c3),
+              f"6: v4 at GT={GT} differs from the cooked v3 kernel at 1080p")
+        res[f"render_v4 GT={GT} tile 32 U=2"] = time_ms(
+            lambda: r4._render_v4_cuda(*args, GT, True), 5)
+    log(f"[6 v4 vs cooked v3 1080p] bit-equal at GT 1, 2 and 4; kernel ms "
+        f"on the same inputs {json.dumps(res)}")
+    return rec
 
 
 def main() -> int:
@@ -256,9 +632,30 @@ def main() -> int:
         raise SystemExit("chip_smoke: no CUDA device; nothing was measured")
     torch.backends.cuda.matmul.allow_tf32 = False
     card = phase_device()
-    rec = [phase_projection(1_000_000, 1920, 1080),
-           phase_render(200_000, 512)]
-    launches = phase_frame(5_800_000, 1920, 1080, 8)
+    worst = {"projection": phase_projection(1_000_000, 1920, 1080)}
+    cloud = render_cloud(200_000)
+    worst["render_v3"] = phase_render(cloud, 512)
+    worst["render_v3_cooked"] = phase_render_cooked(cloud, 512)
+    worst["render_v4"] = phase_render_v4(cloud, (512, 480))
+    del cloud
+    cloud, setup_s = frame_cloud(5_800_000)
+    log(f"[4 frame] scene set-up {setup_s:.1f} s")
+    base = gt.RasterizerConfig(width=1920, height=1080)
+    launches = {}
+    frames = (("4 frame fast_defaults", base.fast_defaults(),
+               ("projection", "render_v3")),
+              ("5 frame v4", base.replace(kernel="v4").fast_defaults(),
+               ("projection", "render_v4")),
+              ("5 frame quality=fast", base.replace(quality="fast"),
+               ("render_v3_cooked",)))
+    for tag, cfg, expect in frames:
+        counts = phase_frame(tag, cloud, cfg, 8, expect)
+        for name in expect:
+            launches.setdefault(name, counts[name])
+    # profiled after every timed frame, so no timed frame follows a trace
+    for tag, cfg, _ in frames:
+        profile_frames(tag, cloud, cfg)
+    rec = phase_kernels_1080p(cloud, base, worst)
     for r in rec:
         r["launches"] = launches[r["name"]]
     log(card)

@@ -3,12 +3,14 @@
 Counterpart of ``godotgaussiansplatting_tpu/config.py``: the same frozen
 dataclass with the same fields, defaults, ``target_size``, ``tile_dims`` and
 ``fast_defaults()``, so one config value means the same frame in both
-packages. A few fields steer only the TPU kernels' memory layout or schedule;
+packages. Two fields steer only the TPU kernels' memory layout or schedule;
 they are accepted here so configs stay interchangeable, and have no effect:
 
 - ``kernel_vmem_mb``: the TPU's scoped vector-memory budget;
-- ``lockstep_gt``: tiles per grid step of the TPU's v4 kernel;
 - ``slab_u``: batches pre-gathered into a slab for the TPU's DMA pipeline.
+
+``lockstep_gt`` is the number of tiles the v4 kernel composites together
+(ops/render_v4.py), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -60,18 +62,21 @@ class RasterizerConfig:
     big_capacity: Optional[int] = None
     # Fast path: resident big lanes per tile (ops/bigbin.py).
     big_tile_capacity: int = 128
-    # Render kernel generation. Only "v3" is ported; "v4" raises.
+    # Render kernel generation: "v3" (ops/render_v3.py) or "v4", the
+    # lockstep kernel on the cooked payload (ops/render_v4.py).
     kernel: str = "v3"
     # Fast path: blocks per compositing batch (U); None = auto by tile size.
     batch_u: Optional[int] = None
     slab_u: int = 0                       # TPU-only; no effect here
-    lockstep_gt: int = 4                  # TPU-only; no effect here
+    lockstep_gt: int = 4                  # v4: tiles composited together
     kernel_vmem_mb: Optional[int] = None  # TPU-only; no effect here
-    # Fast path: fused projection kernel (ops/projection_kernel.py). Only
-    # True is ported; False raises in render_frame_fast.
+    # Fast path: fused projection kernel (ops/projection_kernel.py); False
+    # runs the readable projection (ops/projection.py) and the screen
+    # clustering of ops/blocks2.build_block_frame2.
     projection_kernel: bool = False
     # Fast path: ship the render kernel the (B, 8, S) word image and unpack
-    # in-kernel. fast_defaults() forces it on for v3, as the JAX package does.
+    # in-kernel; False cooks the (B, 16, S) f32 payload. fast_defaults()
+    # forces it on for v3 and off for v4, as the JAX package does.
     words_payload: bool = False
     # Fast-path block clustering: "screen" (per-frame cell/depth row sort)
     # or "bricks" (static runs of the load-time curve order).

@@ -2,8 +2,9 @@
 
 Each kernel source has a plain C interface. At first use it is compiled
 with ``nvcc`` for Hopper (sm_90a) into ``build/kernels/`` at the repository
-root, under a name that carries a hash of the source, and loaded with
-``ctypes``. Nothing is compiled when this module is imported, and a missing
+root, under a name that carries a hash of the source and the shared
+headers (csrc/*.cuh), and loaded with ``ctypes``; :func:`build` compiles
+several sources at once. Nothing is compiled when this module is imported, and a missing
 ``nvcc`` or a failed build raises: there is no fallback.
 
 Every wrapper that launches a kernel calls :func:`count_launch` right after
@@ -31,19 +32,29 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# C signatures: every function returns cudaGetLastError() as an int.
+# C signatures: every launcher returns cudaGetLastError() as an int.
 SIGNATURES = {
     "projection": {
         "gs_project_words": [_P] * 14 + [_I] * 8 + [_F] * 3 + [_P],
     },
     "render_v3": {
         "gs_render_v3": [_P] * 6 + [_I] * 8 + [_P],
-        "gs_render_v3_max_blocks": [_I, _I],
+        "gs_render_v3_cooked": [_P] * 6 + [_I] * 8 + [_P],
+        "gs_render_v3_max_blocks": [_I] * 3,
+    },
+    "render_v4": {
+        "gs_render_v4": [_P] * 6 + [_I] * 9 + [_P],
+        "gs_render_v4_max_blocks": [_I] * 4,
+        "gs_render_v4_smem_bytes": [_I] * 3,
+        "gs_smem_optin": [],
     },
 }
+# One launch counter per kernel a wrapper launches (the v3 library holds
+# two: the word and the cooked payload).
+COUNTERS = ("projection", "render_v3", "render_v3_cooked", "render_v4")
 
 _libs: dict = {}
-_launches = {name: 0 for name in SIGNATURES}
+_launches = {name: 0 for name in COUNTERS}
 build_seconds: dict = {}
 
 
@@ -54,27 +65,51 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def _so_path(name: str) -> Path:
+    """The library's path: its name and a hash of its source, the shared
+    headers and the flags."""
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for hdr in sorted(CSRC.glob("*.cuh")):
+        h.update(hdr.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def build(*names: str) -> None:
+    """Build the named libraries that are not built yet: one ``nvcc`` per
+    source, all started together. Every compiler process is waited for
+    before a failure raises."""
+    jobs = []
+    for name in names:
+        so = _so_path(name)
+        if name in _libs or so.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        jobs.append((name, so, tmp, proc, time.perf_counter()))
+    failed = []
+    for name, so, tmp, proc, t0 in jobs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name}.cu:\n{err}")
+            continue
+        os.replace(tmp, so)
+        build_seconds[name] = time.perf_counter() - t0
+        so.with_suffix(".log").write_text(err)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def library(name: str) -> ctypes.CDLL:
     """The compiled kernel library ``name`` (built on first use)."""
     lib = _libs.get(name)
     if lib is not None:
         return lib
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    so = BUILD_DIR / f"lib{name}-{digest}.so"
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {src.name}:\n{proc.stderr}")
-        os.replace(tmp, so)
-        build_seconds[name] = time.perf_counter() - t0
-        (BUILD_DIR / f"lib{name}-{digest}.log").write_text(proc.stderr)
-    lib = ctypes.CDLL(str(so))
+    build(name)
+    lib = ctypes.CDLL(str(_so_path(name)))
     for fn, argtypes in SIGNATURES[name].items():
         f = getattr(lib, fn)
         f.argtypes = argtypes

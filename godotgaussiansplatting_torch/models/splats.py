@@ -3,7 +3,9 @@
 Counterpart of ``godotgaussiansplatting_tpu/models/splats.py``. Scenes are
 generated with ``numpy.random.default_rng(seed)`` and the covariance is built
 in numpy, so the same seed gives bit-identical arrays in both packages; the
-tensors are then placed on the requested device.
+tensors are then placed on the requested device: the card unless the caller
+asks for another (``device="cpu"`` runs the plain versions). Without a card
+the default raises.
 """
 
 from __future__ import annotations
@@ -80,7 +82,7 @@ def build_covariance(scales: np.ndarray, quats_xyzw: np.ndarray) -> np.ndarray:
 
 
 def cloud_from_numpy(means, cov3d, opacity, sh, upload_time,
-                     num_splats: int, device=None) -> SplatCloud:
+                     num_splats: int, device="cuda") -> SplatCloud:
     """SplatCloud from already padded host arrays — e.g. the JAX package's
     SplatCloud fields as numpy — so both packages compute on the same
     state. ``sh`` may be (P, 16, 3) f32 or planar (48, P) bf16-valued."""
@@ -97,7 +99,8 @@ def cloud_from_numpy(means, cov3d, opacity, sh, upload_time,
 
 def from_arrays(means, scales, quats_xyzw, opacities, sh,
                 upload_time: float | np.ndarray = 0.0,
-                capacity: Optional[int] = None, device=None) -> SplatCloud:
+                capacity: Optional[int] = None,
+                device="cuda") -> SplatCloud:
     """Build a SplatCloud from host arrays: post-sigmoid ``opacities``,
     linear ``scales``, (N, 16, 3) coeff-major ``sh`` (lower degrees are
     zero-padded)."""
@@ -143,7 +146,7 @@ def fast_cloud_view(cloud: SplatCloud, planar_sh: bool = True) -> SplatCloud:
 
 def synthetic_scene(num_splats: int, seed: int = 0, extent: float = 4.0,
                     scale_range: tuple = (0.005, 0.05), sh_degree: int = 3,
-                    surfaces: bool = False, device=None) -> SplatCloud:
+                    surfaces: bool = False, device="cuda") -> SplatCloud:
     """Deterministic random scene for tests and benchmarks; the same seed
     gives the same arrays as the JAX package's synthetic_scene."""
     rng = np.random.default_rng(seed)

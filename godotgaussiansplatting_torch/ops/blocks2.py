@@ -1,7 +1,9 @@
 """Block frame: 128-splat blocks with packed per-lane words, plus big lanes.
 
-Counterpart of ``godotgaussiansplatting_tpu/ops/blocks2.py`` (the part the
-fused projection feeds: ``build_block_frame2_words`` and its helpers).
+Counterpart of ``godotgaussiansplatting_tpu/ops/blocks2.py``: the block
+build from the fused projection's words (``build_block_frame2_words``) and
+from the readable projection's ProjectedSplats (``build_block_frame2``),
+with their shared helpers.
 
   * big splats (anisotropic extent >= BIG_RADIUS) are extracted first into
     a globally depth-sorted BigSet lane table, binned per tile at lane
@@ -41,7 +43,7 @@ from typing import NamedTuple
 import torch
 
 from ..config import RasterizerConfig
-from .blocks import SUPERBLOCK
+from .blocks import BIG_RADIUS, SUPERBLOCK
 
 BLOCK_SIZE = 128          # splats per block
 PAYLOAD_WIDTH = 16        # f32 rows per lane of the cooked payload
@@ -79,6 +81,14 @@ def _pack_f16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     ah = a.to(torch.float16).view(torch.int16).to(torch.int64) & 0xFFFF
     bh = b.to(torch.float16).view(torch.int16).to(torch.int64) & 0xFFFF
     return i32(ah | (bh << 16))
+
+
+def _spread8(v: torch.Tensor) -> torch.Tensor:
+    """Spread the low 8 bits of int64 v to the even bit positions (Morton)."""
+    v = (v | (v << 4)) & 0x0F0F
+    v = (v | (v << 2)) & 0x3333
+    v = (v | (v << 1)) & 0x5555
+    return v
 
 
 def _unpack_f16(w: torch.Tensor):
@@ -452,3 +462,98 @@ def build_block_frame2_words(words, cfg: RasterizerConfig,
         s1 = tuple(torch.gather(a, 1, order) for a in ops)
     return _frame_from_stage1(s1, B, S, cfg, nt_total.to(torch.int32),
                               words=words_payload), bigs
+
+
+def build_block_frame2(prj, cfg: RasterizerConfig,
+                       num_splats: int | None = None,
+                       big_cap: int | None = None,
+                       words_payload: bool = False):
+    """ProjectedSplats (ops/projection.py; padded P = B * S splats in load
+    order) -> (BlockFrame2, BigSet).
+
+    The per-splat operands are packed here (f16 conic and opacity pairs,
+    rgb9e5 colour), the big splats are extracted by chunked candidate keys
+    ((depth16 << 10) | column), and the rest are clustered: per superblock,
+    a stable sort by the stage-1 key (screen-cell Morton << 16 | depth16,
+    with the cell edge from ``adaptive_cell_shift``), or the static bricks
+    of the load order. ``num_splats`` (default: the capacity) picks the
+    cell. The JAX package's ``GS_BLOCKS_GATHER`` variant (a TPU A/B knob
+    with the same result) is not carried over."""
+    S = BLOCK_SIZE
+    P = prj.valid.shape[0]
+    sb_size = min(SUPERBLOCK, P)
+    if P % sb_size:
+        raise ValueError(f"splat capacity {P} must be a multiple of {sb_size}")
+    B = P // S
+    SB = P // sb_size
+    gx, gy = cfg.tile_dims
+    ts = float(cfg.tile_size)
+    dev = prj.valid.device
+
+    def srows(a):
+        return a.reshape(SB, sb_size, *a.shape[1:])
+
+    valid_sb = srows(prj.valid)
+    depth_sb = srows(prj.depth16).to(torch.int64)
+    ipos_sb = srows(prj.image_pos)
+    conic = srows(prj.conic)
+    color = srows(prj.color)
+
+    cell = adaptive_cell_shift(num_splats or P, gx, gy)
+    ctx = torch.clamp((ipos_sb[..., 0] / ts).to(torch.int32), 0, gx - 1).to(
+        torch.int64) >> cell
+    cty = torch.clamp((ipos_sb[..., 1] / ts).to(torch.int32), 0, gy - 1).to(
+        torch.int64) >> cell
+    morton = _spread8(ctx & 0xFF) | (_spread8(cty & 0xFF) << 1)
+
+    # --- big-lane extraction before clustering ------------------------------
+    if big_cap is None:
+        big_cap = default_big_cap(P)
+    big_cap = max(big_cap, S)
+    rx_sb, ry_sb = extents_from_conic(conic[..., 0], conic[..., 1],
+                                      conic[..., 2], color[..., 3])
+    is_big = (torch.maximum(rx_sb, ry_sb) >= BIG_RADIUS) & valid_sb
+    CW = _big_chunk_width(P, sb_size)
+    R = P // CW
+    colv = torch.arange(CW, dtype=torch.int64, device=dev)[None]
+    bkey = torch.where(is_big.reshape(R, CW),
+                       (depth_sb.reshape(R, CW) << 10) | colv, U32_MAX)
+    tk_idx, tk_ok = _select_big_lanes(i32(bkey), big_cap)
+    taken = torch.zeros(P, dtype=torch.bool, device=dev)
+    taken[tk_idx[tk_ok]] = True
+
+    payload_words = (
+        ipos_sb[..., 0].contiguous().view(torch.int32),
+        ipos_sb[..., 1].contiguous().view(torch.int32),
+        _pack_f16(conic[..., 0], conic[..., 1]),
+        _pack_f16(conic[..., 2], color[..., 3]),
+        _pack_rgb9e5(color[..., 0], color[..., 1], color[..., 2]))
+
+    def gath(a):
+        return a.reshape(P)[tk_idx]
+
+    dep_tk = torch.where(tk_ok, gath(depth_sb), U32_MAX)
+    ca_tk, cb_tk = _unpack_f16(gath(payload_words[2]))
+    cc_tk, op_tk = _unpack_f16(gath(payload_words[3]))
+    r_tk, g_tk, b_tk = _unpack_rgb9e5(gath(payload_words[4]))
+    bigs = _build_big_set(
+        (gath(ipos_sb[..., 0]), gath(ipos_sb[..., 1]),
+         ca_tk, cb_tk, cc_tk, r_tk, g_tk, b_tk, op_tk, tk_idx),
+        tk_ok, dep_tk,
+        residual=(is_big.sum() - tk_ok.sum()).to(torch.int32),
+        gx=gx, gy=gy, ts=ts)
+
+    # --- stage 1: per-superblock (cell Morton, depth16) clustering ----------
+    key = torch.where(valid_sb & ~taken.reshape(SB, sb_size),
+                      ((morton & 0x7FFF) << 16) | depth_sb, U32_MAX)
+    idx = torch.arange(P, dtype=torch.int32, device=dev).reshape(SB, sb_size)
+    ops = (i32(key),) + payload_words + (idx,)
+    if cfg.cluster == "bricks":   # static curve-order bricks: no sort
+        s1 = ops
+    else:
+        order = torch.sort(key, dim=1, stable=True).indices
+        s1 = tuple(torch.gather(a, 1, order) for a in ops)
+    frame = _frame_from_stage1(s1, B, S, cfg,
+                               prj.num_tiles.sum().to(torch.int32),
+                               words=words_payload)
+    return frame, bigs

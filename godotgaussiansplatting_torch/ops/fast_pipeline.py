@@ -1,11 +1,21 @@
-"""The fast frame: projection -> blocks -> binning -> v3 composite.
+"""The fast frame: projection -> blocks -> binning -> composite.
 
-Counterpart of ``godotgaussiansplatting_tpu/ops/fast_pipeline.py`` for the
-shipped fast path (``RasterizerConfig.fast_defaults()``): the fused
-projection kernel, the word payload and the v3 render kernel. Two kernels
-run per frame (csrc/projection.cu and csrc/render_v3.cu); the stages between
-them are sorts, gathers and elementwise torch ops. CPU tensors take every
-stage's plain-torch version.
+Counterpart of ``godotgaussiansplatting_tpu/ops/fast_pipeline.py``. The
+config picks each stage:
+
+  * projection: the fused projection kernel (``projection_kernel``,
+    csrc/projection.cu) or the readable projection (ops/projection.py)
+    with the screen clustering of ``blocks2.build_block_frame2``;
+  * payload: the (B, 8, S) words (``words_payload``) or the cooked
+    (B, 16, S) f32 rows;
+  * render: the v3 kernel (csrc/render_v3.cu, one entry point per payload)
+    or the v4 lockstep kernel (``kernel="v4"``, csrc/render_v4.cu), which
+    reads the cooked payload only.
+
+The shipped frame (``RasterizerConfig.fast_defaults()``) is the fused
+projection, the words and v3. The stages between the kernels are sorts,
+gathers and elementwise torch ops. CPU tensors take every stage's
+plain-torch version.
 """
 
 from __future__ import annotations
@@ -20,10 +30,12 @@ from ..models.splats import SplatCloud
 from .bigbin import GROUP, TileBigs, bin_bigs
 from .binning2 import TileBins2, bin_blocks2
 from .blocks2 import (BLOCK_SIZE, DEPTH_INVALID, _unpack_bf16_pair,
-                      build_block_frame2_words, u32)
+                      build_block_frame2, build_block_frame2_words, u32)
 from .pipeline import FrameStats, FrameUniforms
+from .projection import ProjectedSplats, project_splats
 from .projection_kernel import project_words
 from .render_v3 import assemble_image_v3, render_tiles_v3
+from .render_v4 import assemble_image_v4, render_tiles_v4
 
 
 class FastFrameOutput(NamedTuple):
@@ -33,23 +45,27 @@ class FastFrameOutput(NamedTuple):
     tile_blocks: torch.Tensor   # (T, C2) i32
     tile_nblocks: torch.Tensor  # (T,) i32
     tile_t0: torch.Tensor       # (T,) f32 pixel (0, 0) transmittance per tile
-    payload: torch.Tensor       # (B, 8, S) i32 block word payload
+    payload: torch.Tensor       # (B, 8, S) i32 words or (B, 16, S) f32 cooked
     tile_bigpay: torch.Tensor   # (T, 16, OBIG) f32 per-tile big-lane payload
     tile_nbig: torch.Tensor     # (T,) i32
 
 
 def _check_supported(cfg: RasterizerConfig) -> None:
-    if not cfg.projection_kernel:
-        raise NotImplementedError(
-            "projection_kernel=False (the readable projection) is not ported "
-            "yet: ROADMAP queue 1 #8")
-    if cfg.kernel != "v3":
-        raise NotImplementedError(
-            "kernel='v4' is not ported yet: ROADMAP queue 2 #3")
-    if not cfg.words_payload:
-        raise NotImplementedError(
-            "the cooked 16-row payload (words_payload=False) is not ported "
-            "yet: ROADMAP queue 2 #2b")
+    if cfg.kernel not in ("v3", "v4"):
+        raise ValueError(f"unknown render kernel {cfg.kernel!r}")
+    if cfg.kernel == "v4" and cfg.words_payload:
+        raise ValueError(
+            "words_payload is a v3-kernel feature (the lockstep v4 kernel "
+            "reads the cooked 16-row payload)")
+
+
+def _slim_projection(prj: ProjectedSplats) -> ProjectedSplats:
+    """Drop the ProjectedSplats fields the fast path never reads (the
+    per-splat tile rect and square radius: blocks2 rebuilds anisotropic
+    extents from the conic and opacity), so they are freed before the
+    block build."""
+    return prj._replace(rect=prj.rect.new_zeros((1, 4)),
+                        radius=prj.radius.new_zeros((1,)))
 
 
 class StageTimer:
@@ -85,31 +101,42 @@ def render_frame_fast_staged(cloud: SplatCloud, uniforms: FrameUniforms,
                              timer: StageTimer | None = None
                              ) -> FastFrameOutput:
     """The fast frame in four stages (Projection, Blocks, Binning, Render),
-    each timed by ``timer`` when one is passed."""
+    each timed by ``timer`` when one is passed. Raises ValueError for
+    ``kernel="v4"`` with the word payload, as the JAX package does."""
     _check_supported(cfg)
     stage = timer.stage if timer is not None else (
         lambda name: contextlib.nullcontext())
-    with stage("Projection"):
-        words = project_words(
-            cloud.means, cloud.cov3d, cloud.opacity, cloud.sh,
+    args = (cloud.means, cloud.cov3d, cloud.opacity, cloud.sh,
             cloud.upload_time, uniforms.view, uniforms.proj,
-            uniforms.camera_pos, uniforms.model_scale, uniforms.time, cfg,
-            num_splats=cloud.num_splats)
+            uniforms.camera_pos, uniforms.model_scale, uniforms.time, cfg)
+    with stage("Projection"):
+        if cfg.projection_kernel:
+            prj = project_words(*args, num_splats=cloud.num_splats)
+        else:
+            prj = _slim_projection(project_splats(*args))
     with stage("Blocks"):
-        bf, bigs = build_block_frame2_words(words, cfg,
-                                            words_payload=cfg.words_payload,
-                                            big_cap=cfg.big_capacity)
+        if cfg.projection_kernel:
+            bf, bigs = build_block_frame2_words(
+                prj, cfg, words_payload=cfg.words_payload,
+                big_cap=cfg.big_capacity)
+        else:
+            bf, bigs = build_block_frame2(
+                prj, cfg, num_splats=cloud.num_splats,
+                words_payload=cfg.words_payload, big_cap=cfg.big_capacity)
     with stage("Binning"):
         bins: TileBins2 = bin_blocks2(bf, cfg, supertile_cap=supertile_cap,
                                       tile_cap=tile_cap)
         tile_bigs: TileBigs = bin_bigs(bigs, cfg,
                                        obig=obig or cfg.big_tile_capacity)
     with stage("Render"):
-        tiles = render_tiles_v3(bf.payload, bins, tile_bigs,
-                                uniforms.heatmap_factor, cfg,
-                                early_exit=early_exit, lowp=lowp,
-                                batch_u=batch_u)
-        image, t_final = assemble_image_v3(tiles, cfg)
+        if cfg.kernel == "v4":
+            render, assemble = render_tiles_v4, assemble_image_v4
+        else:
+            render, assemble = render_tiles_v3, assemble_image_v3
+        tiles = render(bf.payload, bins, tile_bigs, uniforms.heatmap_factor,
+                       cfg, early_exit=early_exit, lowp=lowp,
+                       batch_u=batch_u)
+        image, t_final = assemble(tiles, cfg)
     stats = FrameStats(
         num_pairs=bf.num_culled_pairs,
         num_overflow=bins.overflow + tile_bigs.overflow,
@@ -147,20 +174,32 @@ def _pick_fast(frame: FastFrameOutput, tile_id: int, means: torch.Tensor,
     entries = frame.tile_blocks[tile_id].to(torch.int64)
     entry_ok = entries >= 0
     ids = torch.where(entry_ok, entries & 0x7FFFFF, 0)
-    pays = frame.payload[ids]                                  # (C2, 8, S)
+    pays = frame.payload[ids]                      # (C2, 8 or 16, S)
     gx2 = -(-gx // GROUP)
     gid = (tile_id // gx) * gx2 + (tile_id % gx) // GROUP
     bigp = frame.tile_bigpay[gid]                              # (16, OB)
-    ix = torch.cat([pays[:, 1].reshape(-1).view(torch.float32), bigp[9]])
-    iy = torch.cat([pays[:, 2].reshape(-1).view(torch.float32), bigp[10]])
-    rw = torch.cat([pays[:, 7].reshape(-1), bigp[11].view(torch.int32)])
-    rx, ry = _unpack_bf16_pair(rw)
-    d_chain = (u32(pays[:, 0].reshape(-1)) & 0xFFFF).float()
+    if pays.dtype == torch.int32:
+        # words: [key, ix, iy, pc1, pc2, rgb9, idx, rx|ry]
+        ix_c = pays[:, 1].reshape(-1).view(torch.float32)
+        iy_c = pays[:, 2].reshape(-1).view(torch.float32)
+        rw_c = pays[:, 7].reshape(-1)
+        d_chain = (u32(pays[:, 0].reshape(-1)) & 0xFFFF).float()
+        idx_c = u32(pays[:, 6].reshape(-1))
+    else:
+        # cooked: ix, iy, rx|ry in rows 9-11, the sign-flipped rank in 12
+        ix_c = pays[:, 9].reshape(-1)
+        iy_c = pays[:, 10].reshape(-1)
+        rw_c = pays[:, 11].reshape(-1).view(torch.int32)
+        rank = u32(pays[:, 12].reshape(-1).view(torch.int32)) ^ 0x80000000
+        d_chain = (rank >> 16).float()
+        idx_c = u32(pays[:, 13].reshape(-1).view(torch.int32))
+    ix = torch.cat([ix_c, bigp[9]])
+    iy = torch.cat([iy_c, bigp[10]])
+    rx, ry = _unpack_bf16_pair(torch.cat([rw_c, bigp[11].view(torch.int32)]))
     d_chain = torch.where(d_chain >= 65535.0, DEPTH_INVALID, d_chain)
     d_big = torch.where(bigp[12] >= 65535.0, DEPTH_INVALID, bigp[12])
     depth = torch.cat([d_chain, d_big])
-    idx = torch.cat([u32(pays[:, 6].reshape(-1)),
-                     u32(bigp[13].view(torch.int32))])
+    idx = torch.cat([idx_c, u32(bigp[13].view(torch.int32))])
     lane_ok = torch.cat([entry_ok[:, None].expand(-1, S).reshape(-1),
                          torch.ones(bigp.shape[1], dtype=torch.bool,
                                     device=dev)])

@@ -28,8 +28,9 @@ class FrameUniforms(NamedTuple):
 
 def make_uniforms(camera, cfg: RasterizerConfig, model_scale: float = 1.0,
                   time: float = 1e9, heatmap: float = 0.0,
-                  device=None) -> FrameUniforms:
-    """Uniforms from a models.camera.Camera, on ``device``."""
+                  device="cuda") -> FrameUniforms:
+    """Uniforms from a models.camera.Camera, on ``device`` (the card unless
+    the caller asks for another; without a card the default raises)."""
     w, h = cfg.target_size
 
     def t(a):

@@ -38,8 +38,8 @@ from .. import kernels
 from ..config import RasterizerConfig
 from .blocks import BIG_RADIUS
 from .blocks2 import (SUPERBLOCK, U32_MAX, _big_chunk_width, _pack_f16,
-                      _pack_rgb9e5, adaptive_cell_shift, extents_from_conic,
-                      i32)
+                      _pack_rgb9e5, _spread8, adaptive_cell_shift,
+                      extents_from_conic, i32)
 from .sh import SH_C0, SH_C1, SH_C2, SH_C3
 
 
@@ -83,13 +83,6 @@ def frame_uniform_vector(view, proj, camera_pos, model_scale, time,
         torch.as_tensor(time, dtype=f32, device=dev).reshape(1),
         focal, 1.0 / tan_fov_inv,
     ]).to(f32).contiguous()
-
-
-def _spread8(v):
-    v = (v | (v << 4)) & 0x0F0F
-    v = (v | (v << 2)) & 0x3333
-    v = (v | (v << 1)) & 0x5555
-    return v
 
 
 def project_words_reference(means, cov3d, opacity, sh, upload_time,

@@ -1,7 +1,9 @@
 """Batch-exact tile compositing with resident big lanes (the v3 render).
 
-Counterpart of ``godotgaussiansplatting_tpu/ops/render_pallas3.py`` for the
-word payload. Per tile:
+Counterpart of ``godotgaussiansplatting_tpu/ops/render_pallas3.py``, for
+both payloads: the (B, 8, 128) int32 words (``cfg.words_payload``) and the
+cooked (B, 16, 128) f32 rows. Only the lane decode differs between them
+(``_decode_words``, ``_decode_cooked``). Per tile:
 
   * the tile's chain blocks are composited front to back in batches of U
     blocks (U*128 lanes), up to ``tile_nblocks`` and ``max_batches``;
@@ -23,9 +25,10 @@ word payload. Per tile:
 The kernel output is (TG, 8, NPX) f32, channel-major per tile:
 [r, g, b, 1, t_final, blocks processed, nb, nbig].
 
-``render_tiles_v3`` launches the CUDA kernel (csrc/render_v3.cu) for CUDA
-tensors and ``render_tiles_v3_reference`` (plain torch, vectorised over
-tiles, one loop step per batch) for CPU tensors. Both compute in f32. The
+``render_tiles_v3`` launches the CUDA kernel (csrc/render_v3.cu, one entry
+point per payload) for CUDA tensors and ``render_tiles_v3_reference``
+(plain torch, vectorised over tiles, one loop step per batch) for CPU
+tensors. Both compute in f32. The
 JAX kernel also rounds alpha, colours and emit weights to bf16 and splits
 the power matmul into bf16 halves; neither is reproduced here.
 """
@@ -41,13 +44,16 @@ import torch
 from .. import kernels
 from ..config import RasterizerConfig
 from .bigbin import GROUP
-from .blocks2 import (BLOCK_SIZE, GATE_OFF, _unpack_bf16_pair, _unpack_f16,
-                      _unpack_rgb9e5, u32)
+from .blocks2 import (BLOCK_SIZE, GATE_OFF, PAYLOAD_WIDTH, _unpack_bf16_pair,
+                      _unpack_f16, _unpack_rgb9e5, u32)
 
 OUT_CH = 8         # r, g, b, 1, t_final, blocks processed, nb, nbig
 BATCH_LANES = 512  # lanes per batch at tile 16 (see default_batch_u)
 LOG_MIN_ALPHA = -5.54126354515843  # ln(1/255)
 ALPHA_MAX = 0.99994
+# Pixel x lane elements per chunk of tiles of the plain composite: 512 MB
+# per f32 (tiles, NPX, U*128) temporary (one chunk at chip_smoke's 512x512).
+REFERENCE_CHUNK = 2 ** 27
 
 
 def default_batch_u(tile_size: int) -> int:
@@ -105,9 +111,11 @@ def pack_tile_rows_v3(tile_blocks, tile_nblocks, tile_nbig, tile_minmax,
     return rows
 
 
-def _tile_origins(TG: int, cfg: RasterizerConfig, pixel_offset_y, device):
+def _tile_origins(TG: int, cfg: RasterizerConfig, pixel_offset_y, device,
+                  t0: int = 0):
+    """Pixel origins of tiles t0 .. t0 + TG - 1 of the row-major order."""
     gx, _ = cfg.tile_dims
-    t = torch.arange(TG, dtype=torch.int64, device=device)
+    t = torch.arange(t0, t0 + TG, dtype=torch.int64, device=device)
     ox = ((t % gx) * cfg.tile_size).float()
     oy = ((t // gx) * cfg.tile_size + int(pixel_offset_y)).float()
     return ox, oy
@@ -190,6 +198,29 @@ def _decode_words(pay, live, ox, oy, ts):
     return (f0u, f1u, f2u, f3, f4, f5), torch.stack([r, g, b], 1), rank, active
 
 
+def _decode_cooked(pay, live, ox, oy, ts):
+    """(TG, 16, W) f32 cooked lanes -> the same as ``_decode_words``. The
+    features about the block centre (rows 14/15) are re-centred to the tile
+    origin (render_pallas3.py:380-404, formula for formula); the coverage
+    gate reads absolute ix/iy (rows 9/10) and the bf16 pair in row 11;
+    colour is rows 6-8 and the rank row 12 with its sign bit flipped.
+    Invalid lanes carry ix = iy = -1e6 and fail the gate."""
+    ox, oy = ox[:, None], oy[:, None]
+    f0, f1, f2, f3, f4, f5 = (pay[:, r] for r in range(6))
+    dx = ox - pay[:, 14]
+    dy = oy - pay[:, 15]
+    f0u = f0 + dx * f1 + dy * f2 + dx * dx * f3 + dy * dy * f4 + dx * dy * f5
+    f1u = f1 + 2.0 * dx * f3 + dy * f5
+    f2u = f2 + 2.0 * dy * f4 + dx * f5
+    rxw, ryw = _unpack_bf16_pair(pay[:, 11].view(torch.int32))
+    ixr, iyr = pay[:, 9], pay[:, 10]
+    covered = ((ixr - rxw < ox + ts) & (ixr + rxw > ox)
+               & (iyr - ryw < oy + ts) & (iyr + ryw > oy))
+    rank = u32(pay[:, 12].view(torch.int32)) ^ 0x80000000
+    return ((f0u, f1u, f2u, f3, f4, f5), pay[:, 6:9], rank,
+            covered & live)
+
+
 def _alpha(F, active, xs, ys):
     """(TG, NPX, W) alpha and log1p(-alpha) of lanes at the tile pixels."""
     f0u, f1u, f2u, f3, f4, f5 = (f[:, None, :] for f in F)
@@ -209,16 +240,26 @@ def _front(wa, wb):
 
 def render_tiles_v3_reference(rows, payload, bigpay, bigla, cfg, U: int,
                               max_batches: int, early_exit: bool = True):
-    """Plain-torch v3 composite (see module docstring) over all tiles at
-    once, with the kernel's batch boundaries, gates and early exit. It forms
-    the rank-order matrices literally. Returns (TG, OUT_CH, NPX) f32."""
+    """Plain-torch v3 composite (see module docstring), vectorised over the
+    tiles, with the kernel's batch boundaries, gates and early exit. It forms
+    the rank-order matrices literally. Tiles are independent, so they are
+    composited in chunks of at most REFERENCE_CHUNK pixel x lane elements,
+    which bounds the (tiles, NPX, U*128) temporaries on a full frame.
+    Returns (TG, OUT_CH, NPX) f32."""
+    TG = rows.shape[0]
+    step = max(1, REFERENCE_CHUNK // (cfg.tile_size ** 2 * U * BLOCK_SIZE))
     with _full_f32_matmul():
-        return _render_reference(rows, payload, bigpay, bigla, cfg, U,
-                                 max_batches, early_exit)
+        if step >= TG:
+            return _render_reference(rows, payload, bigpay, bigla, cfg, U,
+                                     max_batches, early_exit)
+        return torch.cat([_render_reference(
+            rows[a:a + step], payload, bigpay[a:a + step], bigla[a:a + step],
+            cfg, U, max_batches, early_exit, t0=a)
+            for a in range(0, TG, step)])
 
 
 def _render_reference(rows, payload, bigpay, bigla, cfg, U, max_batches,
-                      early_exit):
+                      early_exit, t0=0):
     dev = rows.device
     TG = rows.shape[0]
     ts = float(cfg.tile_size)
@@ -229,12 +270,14 @@ def _render_reference(rows, payload, bigpay, bigla, cfg, U, max_batches,
     hdr = rows[:, 0, :].to(torch.int64)
     nb, cand, nbig = hdr[:, 0], hdr[:, 1], hdr[:, 4]
     hm_f = hdr[:, 2].float() * (1.0 / 65536.0)
-    ox, oy = _tile_origins(TG, cfg, 0, dev)
+    ox, oy = _tile_origins(TG, cfg, 0, dev, t0)
     oy = oy + hdr[:, 3].float()
     ids = rows[:, 1:3, :].reshape(TG, 256).to(torch.int64) & 0x7FFFFF
     mm = u32(rows[:, 3:5, :].reshape(TG, 256))
     prefix = rows[:, 5, :].to(torch.int64)
     has_big = nbig > 0
+    R = payload.shape[1]
+    decode = _decode_cooked if payload.dtype == torch.float32 else _decode_words
 
     # resident big lanes
     lab = bigla.float()                                        # (TG, NPX, OB)
@@ -271,10 +314,10 @@ def _render_reference(rows, payload, bigpay, bigla, cfg, U, max_batches,
         live_blk = pos[None, :] < nb[:, None]                  # (TG, U)
         posc = torch.clamp(pos, max=255)
         bid = torch.where(live_blk, ids[:, posc], 0)
-        pay = payload[bid.reshape(-1)].reshape(TG, U, 8, S)
-        pay = pay.permute(0, 2, 1, 3).reshape(TG, 8, US)
+        pay = payload[bid.reshape(-1)].reshape(TG, U, R, S)
+        pay = pay.permute(0, 2, 1, 3).reshape(TG, R, US)
         live = live_blk[:, :, None].expand(TG, U, S).reshape(TG, US)
-        F, rgb, w, active = _decode_words(pay, live, ox, oy, ts)
+        F, rgb, w, active = decode(pay, live, ox, oy, ts)
         al, la = _alpha(F, active, xs, ys)                     # (TG, NPX, US)
         tot = la.sum(dim=2)
         z = la @ _front(w, w)
@@ -342,13 +385,44 @@ def _render_reference(rows, payload, bigpay, bigla, cfg, U, max_batches,
 
 
 @functools.lru_cache(maxsize=None)
-def _resident_blocks(tile_size: int, U: int) -> int:
-    """Thread blocks of the render kernel the card holds at once: the
-    persistent grid, and the number of big-lane scratch slices."""
-    n = kernels.library("render_v3").gs_render_v3_max_blocks(tile_size, U)
+def resident_blocks(library: str, *shape: int) -> int:
+    """Thread blocks of a render kernel (``gs_<library>_max_blocks`` for
+    this shape) the whole card holds at once: the persistent grid, and the
+    number of big-lane scratch slices."""
+    n = getattr(kernels.library(library), f"gs_{library}_max_blocks")(*shape)
     if n <= 0:
-        raise RuntimeError(f"render kernel: occupancy query failed ({n})")
+        raise RuntimeError(f"{library} kernel: occupancy query failed ({n})")
     return n
+
+
+def check_kernel_inputs(what: str, rows, payload, bigpay, bigla, cfg, U,
+                        words_ok: bool = True):
+    """The checks the render kernels (v3 and v4) share before a launch.
+    Returns whether the payload is the cooked one, and the big log-alpha
+    maps in the kernels' (TG, OB, NPX) layout."""
+    TG = rows.shape[0]
+    NPX = cfg.tile_size * cfg.tile_size
+    OB = bigpay.shape[2]
+    if cfg.tile_size not in (16, 32):
+        raise ValueError(f"the {what} kernel supports tile_size 16 and 32")
+    if not 1 <= U <= 4:
+        raise ValueError(f"the {what} kernel supports U*128 <= 512 lanes")
+    if GROUP != 1 or OB > 256:
+        raise ValueError(f"the {what} kernel needs GROUP 1 and OBIG <= 256")
+    kind = (payload.dtype, payload.shape[1:])
+    cooked = kind == (torch.float32, (PAYLOAD_WIDTH, BLOCK_SIZE))
+    if not cooked and not (words_ok
+                           and kind == (torch.int32, (8, BLOCK_SIZE))):
+        words = "the (B, 8, 128) int32 word payload or " if words_ok else ""
+        raise ValueError(f"the {what} kernel reads {words}the (B, 16, 128) "
+                         "f32 cooked payload")
+    if (rows.dtype != torch.int32 or rows.shape != (TG, 8, 128)
+            or bigpay.dtype != torch.float32 or bigpay.shape != (TG, 16, OB)
+            or bigla.dtype != torch.float32 or bigla.shape != (TG, NPX, OB)):
+        raise ValueError(f"{what}: unexpected input shapes/dtypes")
+    bigla_t = bigla.transpose(1, 2)          # (TG, OB, NPX), the kernel layout
+    kernels.require_cuda(what, rows, payload, bigpay, bigla_t)
+    return cooked, bigla_t
 
 
 def _render_cuda(rows, payload, bigpay, bigla, cfg, U, max_batches,
@@ -357,35 +431,39 @@ def _render_cuda(rows, payload, bigpay, bigla, cfg, U, max_batches,
     NPX = cfg.tile_size * cfg.tile_size
     OB = bigpay.shape[2]
     gx, _ = cfg.tile_dims
-    if cfg.tile_size not in (16, 32):
-        raise ValueError("the render kernel supports tile_size 16 and 32")
-    if not 1 <= U <= 4:
-        raise ValueError("the render kernel supports U*128 <= 512 lanes")
-    if GROUP != 1 or OB > 256:
-        raise ValueError("the render kernel needs GROUP 1 and OBIG <= 256")
-    if payload.dtype != torch.int32 or payload.shape[1:] != (8, BLOCK_SIZE):
-        raise ValueError("the render kernel reads the (B, 8, 128) int32 word "
-                         "payload (cfg.words_payload)")
-    if (rows.dtype != torch.int32 or rows.shape != (TG, 8, 128)
-            or bigpay.dtype != torch.float32 or bigpay.shape != (TG, 16, OB)
-            or bigla.dtype != torch.float32 or bigla.shape != (TG, NPX, OB)):
-        raise ValueError("render_tiles_v3: unexpected input shapes/dtypes")
-    bigla_t = bigla.transpose(1, 2)          # (TG, OB, NPX), the kernel layout
-    kernels.require_cuda("render_tiles_v3", rows, payload, bigpay, bigla_t)
+    cooked, bigla_t = check_kernel_inputs("render_v3", rows, payload, bigpay,
+                                          bigla, cfg, U)
+    entry, counter = (("gs_render_v3_cooked", "render_v3_cooked") if cooked
+                      else ("gs_render_v3", "render_v3"))
     lib = kernels.library("render_v3")
-    grid = min(TG, _resident_blocks(cfg.tile_size, U))
+    grid = min(TG, resident_blocks("render_v3", cfg.tile_size, U,
+                                   int(cooked)))
     out = torch.empty((TG, OUT_CH, NPX), dtype=torch.float32,
                       device=rows.device)
     big_z = torch.empty((grid, OB, NPX), dtype=torch.float32,
                         device=rows.device)
-    err = lib.gs_render_v3(
+    err = getattr(lib, entry)(
         rows.data_ptr(), payload.data_ptr(), bigpay.data_ptr(),
         bigla_t.data_ptr(), out.data_ptr(), big_z.data_ptr(),
         TG, gx, cfg.tile_size, U, max_batches, OB, int(bool(early_exit)),
         grid, ctypes.c_void_p(kernels.stream_ptr(rows.device)))
     kernels.check(err, "render kernel launch")
-    kernels.count_launch("render_v3")
+    kernels.count_launch(counter)
     return out
+
+
+def tile_inputs(bins, tile_bigs, heatmap_factor, cfg, pixel_offset_y=0,
+                batch_u: int | None = None):
+    """The render kernels' per-tile inputs from the tile bins: (rows, big
+    log-alpha maps, U, max_batches)."""
+    U = batch_u or cfg.batch_u or default_batch_u(cfg.tile_size)
+    max_batches = -(-bins.tile_blocks.shape[1] // U)
+    rows = pack_tile_rows_v3(bins.tile_blocks, bins.tile_nblocks,
+                             tile_bigs.tile_nbig, bins.tile_minmax,
+                             bins.tile_candidates, heatmap_factor, cfg,
+                             pixel_offset_y, tile_big_prefix=tile_bigs.big_prefix)
+    bigla = prepass_big_la(tile_bigs.bigpay, cfg, pixel_offset_y=pixel_offset_y)
+    return rows, bigla, U, max_batches
 
 
 def render_tiles_v3(payload, bins, tile_bigs, heatmap_factor, cfg,
@@ -396,14 +474,8 @@ def render_tiles_v3(payload, bins, tile_bigs, heatmap_factor, cfg,
     to ``render_tiles_v3_reference``. ``lowp`` is accepted for signature
     parity; both compute in f32."""
     del lowp
-    U = batch_u or cfg.batch_u or default_batch_u(cfg.tile_size)
-    C2 = bins.tile_blocks.shape[1]
-    max_batches = -(-C2 // U)
-    rows = pack_tile_rows_v3(bins.tile_blocks, bins.tile_nblocks,
-                             tile_bigs.tile_nbig, bins.tile_minmax,
-                             bins.tile_candidates, heatmap_factor, cfg,
-                             pixel_offset_y, tile_big_prefix=tile_bigs.big_prefix)
-    bigla = prepass_big_la(tile_bigs.bigpay, cfg, pixel_offset_y=pixel_offset_y)
+    rows, bigla, U, max_batches = tile_inputs(bins, tile_bigs, heatmap_factor,
+                                              cfg, pixel_offset_y, batch_u)
     if payload.device.type == "cpu":
         return render_tiles_v3_reference(rows, payload, tile_bigs.bigpay,
                                          bigla, cfg, U, max_batches,

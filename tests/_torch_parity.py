@@ -38,7 +38,8 @@ def port_cloud(jcloud) -> "gt.SplatCloud":
     sh = np_(jcloud.sh)
     cloud = gt.cloud_from_numpy(np_(jcloud.means), np_(jcloud.cov3d),
                                 np_(jcloud.opacity), sh,
-                                np_(jcloud.upload_time), jcloud.num_splats)
+                                np_(jcloud.upload_time), jcloud.num_splats,
+                                device="cpu")
     if np.asarray(jcloud.sh).dtype.name == "bfloat16":
         cloud = gt.fast_cloud_view(cloud)
     return cloud

@@ -2,9 +2,10 @@
 (ops/binning2.py, ops/bigbin.py).
 
 The JAX projection's ProjWords (as numpy) feed both packages'
-``build_block_frame2_words``; integer outputs must be bit-equal and the big
-table's float rows within 1e-5 relative (XLA and torch round log, pow and
-sqrt differently by an ulp). The same JAX BlockFrame2/BigSet then feed both
+``build_block_frame2_words``, and the JAX readable projection's
+ProjectedSplats both packages' ``build_block_frame2``; integer outputs
+must be bit-equal and the big table's float rows within 1e-5 relative (XLA
+and torch round log, pow and sqrt differently by an ulp). The same JAX BlockFrame2/BigSet then feed both
 packages' binning, which must agree bit for bit. The cases of
 tests/test_bigs.py run on the port as parametrised cases.
 """
@@ -18,12 +19,14 @@ import godotgaussiansplatting_tpu as gj
 from godotgaussiansplatting_torch.ops import bigbin as bigbin_t
 from godotgaussiansplatting_torch.ops import binning2 as binning_t
 from godotgaussiansplatting_torch.ops import blocks2 as blocks_t
+from godotgaussiansplatting_torch.ops.projection import ProjectedSplats
 from godotgaussiansplatting_torch.ops.projection_kernel import ProjWords
 from godotgaussiansplatting_tpu.models.splats import fast_cloud_view
 from godotgaussiansplatting_tpu.ops import bigbin as bigbin_j
 from godotgaussiansplatting_tpu.ops import binning2 as binning_j
 from godotgaussiansplatting_tpu.ops import blocks2 as blocks_j
 from godotgaussiansplatting_tpu.ops.pipeline import make_uniforms
+from godotgaussiansplatting_tpu.ops.projection import project_splats
 from godotgaussiansplatting_tpu.ops.projection_pallas import project_words
 
 from _torch_parity import np_, port_tuple, t_
@@ -85,6 +88,53 @@ def test_block_frame_words_bit_equal(words, cluster):
     ft, bt = blocks_t.build_block_frame2_words(wt, cfg_t, words_payload=True)
     assert int(np_(fj.num_valid).sum()) > 1000
     _assert_frames_equal(fj, bj, ft, bt)
+
+
+@pytest.fixture(scope="module")
+def projected():
+    """The JAX readable projection of a big-heavy scene at tile 16."""
+    cj = gj.mortonize(gj.synthetic_scene(16384, seed=9, extent=3.0,
+                                         scale_range=(0.01, 0.25)))
+    cfg = gj.RasterizerConfig(width=384, height=320, quality="fast")
+    u = make_uniforms(gj.Camera.reset_pose(), cfg)
+    pj = project_splats(cj.means, cj.cov3d, cj.opacity, cj.sh,
+                        cj.upload_time, u.view, u.proj, u.camera_pos,
+                        u.model_scale, u.time, cfg)
+    return pj, port_tuple(ProjectedSplats, pj)
+
+
+@pytest.mark.parametrize("cluster,words_payload", [
+    ("screen", True), ("bricks", True), ("screen", False)])
+def test_block_frame_from_projection_matches_jax(projected, cluster,
+                                                 words_payload):
+    """build_block_frame2 (readable projection -> blocks): the screen
+    clustering's per-superblock sort, the adaptive cell and the chunked
+    big-candidate keys. Words, rects, bitmaps, depth ranges and BigSet
+    integers are bit-equal; the cooked payload's rows are compared as the
+    words' are (rank and idx bit-equal, the re-centred features within
+    1e-5 relative)."""
+    pj, pt = projected
+    kw = dict(width=384, height=320, quality="fast", cluster=cluster)
+    cfg_j, cfg_t = gj.RasterizerConfig(**kw), gt.RasterizerConfig(**kw)
+    fj, bj = blocks_j.build_block_frame2(pj, cfg_j, num_splats=12000,
+                                         words_payload=words_payload)
+    ft, bt = blocks_t.build_block_frame2(pt, cfg_t, num_splats=12000,
+                                         words_payload=words_payload)
+    assert int(np_(bj.valid).sum()) > 100, "scene must have big lanes"
+    assert int(np_(fj.num_valid).sum()) > 1000
+    if words_payload:
+        _assert_frames_equal(fj, bj, ft, bt)
+        return
+    _assert_frames_equal(fj._replace(payload=fj.num_valid), bj,
+                         ft._replace(payload=ft.num_valid), bt)
+    pa, pb = np_(fj.payload), np_(ft.payload)
+    for row in range(16):
+        if row in (11, 12, 13):
+            np.testing.assert_array_equal(pa[:, row].view(np.int32),
+                                          pb[:, row].view(np.int32))
+        else:
+            np.testing.assert_allclose(pb[:, row], pa[:, row], rtol=1e-5,
+                                       atol=1e-5, err_msg=f"row {row}")
 
 
 def test_block_frame_cooked_meta_equal(words):

@@ -18,6 +18,7 @@ import godotgaussiansplatting_torch as gt
 from godotgaussiansplatting_torch import kernels
 from godotgaussiansplatting_torch.ops import projection_kernel as pk
 from godotgaussiansplatting_torch.ops import render_v3 as rv
+from godotgaussiansplatting_torch.ops import render_v4 as r4
 from godotgaussiansplatting_torch.ops.bigbin import bin_bigs
 from godotgaussiansplatting_torch.ops.binning2 import bin_blocks2
 from godotgaussiansplatting_torch.ops.blocks2 import (
@@ -50,16 +51,18 @@ def _proj_args(cloud, cfg):
 def test_cpu_frame_launches_no_kernel():
     kernels.reset_launch_counts()
     cfg = gt.RasterizerConfig(width=64, height=64).fast_defaults()
-    cloud = _cloud(None, n=2000, scale=0.05)
+    cloud = _cloud("cpu", n=2000, scale=0.05)
     out = gt.render_frame_fast(cloud, gt.make_uniforms(
-        gt.Camera.reset_pose(), cfg), cfg)
+        gt.Camera.reset_pose(), cfg, device="cpu"), cfg)
     assert out.image.device.type == "cpu"
-    assert kernels.launch_counts() == {"projection": 0, "render_v3": 0}
+    assert kernels.launch_counts() == {name: 0 for name in kernels.COUNTERS}
+    assert set(kernels.COUNTERS) == {"projection", "render_v3",
+                                     "render_v3_cooked", "render_v4"}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
     cfg = gt.RasterizerConfig(width=64, height=64).fast_defaults()
-    cloud = _cloud(None, n=2000, scale=0.05)
+    cloud = _cloud("cpu", n=2000, scale=0.05)
     with pytest.raises(ValueError, match="CUDA"):
         pk._project_words_cuda(*_proj_args(cloud, cfg))
     rows = torch.zeros((4, 8, 128), dtype=torch.int32)
@@ -68,6 +71,25 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     bigla = torch.zeros((4, 128, 1024)).transpose(1, 2)
     with pytest.raises(ValueError, match="CUDA"):
         rv._render_cuda(rows, payload, bigpay, bigla, cfg, 2, 128, True)
+    cooked = torch.zeros((1, 16, 128))
+    with pytest.raises(ValueError, match="CUDA"):
+        rv._render_cuda(rows, cooked, bigpay, bigla, cfg, 2, 128, True)
+    with pytest.raises(ValueError, match="CUDA"):
+        r4._render_v4_cuda(rows, cooked, bigpay, bigla, cfg, 2, 128, 4, True)
+    with pytest.raises(ValueError, match="cooked"):
+        r4._render_v4_cuda(rows, payload, bigpay, bigla, cfg, 2, 128, 4, True)
+
+
+def test_entry_points_default_to_the_card():
+    """Without a device argument the entry points place their tensors on
+    the card; without one they raise rather than fall back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card (see the gpu test)")
+    cfg = gt.RasterizerConfig(width=64, height=64)
+    with pytest.raises((RuntimeError, AssertionError)):
+        gt.synthetic_scene(100)
+    with pytest.raises((RuntimeError, AssertionError)):
+        gt.make_uniforms(gt.Camera.reset_pose(), cfg)
 
 
 @pytest.mark.gpu
@@ -81,20 +103,14 @@ def test_projection_kernel_matches_plain(cuda, size):
         assert torch.equal(getattr(wk, f), getattr(wr, f)), f
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("tile,batch_u,early_exit", [
-    (32, 2, True), (32, 1, False), (16, 4, True), (16, 3, True)])
-def test_render_kernel_matches_plain(cuda, tile, batch_u, early_exit):
-    cfg = gt.RasterizerConfig(width=320, height=224, tile_size=tile,
-                              batch_u=batch_u).fast_defaults()
-    cloud = _cloud(cuda)
-    uni = gt.make_uniforms(gt.Camera.reset_pose(), cfg, device=cuda,
+def _render_inputs(cloud, cfg, batch_u, words):
+    uni = gt.make_uniforms(gt.Camera.reset_pose(), cfg, device=cloud.device,
                            heatmap=1.0)
-    words = pk.project_words(cloud.means, cloud.cov3d, cloud.opacity,
-                             cloud.sh, cloud.upload_time, uni.view, uni.proj,
-                             uni.camera_pos, uni.model_scale, uni.time, cfg,
-                             num_splats=cloud.num_splats)
-    bf, bigs = build_block_frame2_words(words, cfg, words_payload=True)
+    words_ = pk.project_words(cloud.means, cloud.cov3d, cloud.opacity,
+                              cloud.sh, cloud.upload_time, uni.view,
+                              uni.proj, uni.camera_pos, uni.model_scale,
+                              uni.time, cfg, num_splats=cloud.num_splats)
+    bf, bigs = build_block_frame2_words(words_, cfg, words_payload=words)
     bins = bin_blocks2(bf, cfg)
     tbig = bin_bigs(bigs, cfg)
     rows = rv.pack_tile_rows_v3(bins.tile_blocks, bins.tile_nblocks,
@@ -103,10 +119,65 @@ def test_render_kernel_matches_plain(cuda, tile, batch_u, early_exit):
                                 tile_big_prefix=tbig.big_prefix)
     bigla = rv.prepass_big_la(tbig.bigpay, cfg)
     mb = -(-bins.tile_blocks.shape[1] // batch_u)
-    args = (rows, bf.payload, tbig.bigpay, bigla, cfg, batch_u, mb)
+    assert int((rows[:, 0, 4] > 0).sum()) > 0, "no resident big lanes"
+    return (rows, bf.payload, tbig.bigpay, bigla, cfg, batch_u, mb)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("words", [True, False], ids=["words", "cooked"])
+@pytest.mark.parametrize("tile,batch_u,early_exit", [
+    (32, 2, True), (32, 1, False), (16, 4, True), (16, 3, True)])
+def test_render_kernel_matches_plain(cuda, tile, batch_u, early_exit, words):
+    cfg = gt.RasterizerConfig(width=320, height=224, tile_size=tile,
+                              batch_u=batch_u).fast_defaults()
+    args = _render_inputs(_cloud(cuda), cfg, batch_u, words)
+    kernels.reset_launch_counts()
     tk = rv._render_cuda(*args, early_exit)
+    counter = "render_v3" if words else "render_v3_cooked"
+    assert kernels.launch_counts()[counter] == 1
     tr = rv.render_tiles_v3_reference(*args, early_exit)
     assert torch.isfinite(tk).all()
-    assert int((rows[:, 0, 4] > 0).sum()) > 0, "no resident big lanes"
     assert float((tk[:, :5] - tr[:, :5]).abs().max()) <= 1e-3
     assert torch.equal(tk[:, 5:], tr[:, 5:])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile,batch_u,gt_", [
+    (32, 2, 4), (32, 2, 2), (32, 2, 1), (32, 2, 3), (16, 4, 2), (16, 4, 1)])
+def test_render_v4_kernel_matches_plain_and_v3(cuda, tile, batch_u, gt_):
+    """The v4 kernel against its plain version, and bit-equal to the cooked
+    v3 kernel on the same inputs (224 = 7 rows of tile 32: padded groups)."""
+    cfg = gt.RasterizerConfig(width=320, height=224, tile_size=tile,
+                              batch_u=batch_u, kernel="v4",
+                              lockstep_gt=gt_).fast_defaults()
+    args = _render_inputs(_cloud(cuda), cfg, batch_u, False)
+    for early_exit in (True, False):
+        t4 = r4._render_v4_cuda(*args, gt_, early_exit)
+        t3 = rv._render_cuda(*args, early_exit)
+        tr = r4.render_tiles_v4_reference(*args, gt_, early_exit)
+        assert torch.isfinite(t4).all()
+        assert float((t4[..., :5] - tr[..., :5]).abs().max()) <= 1e-3
+        assert torch.equal(t4[..., 5:], tr[..., 5:])
+        for a, b in zip(r4.assemble_image_v4(t4, cfg),
+                        rv.assemble_image_v3(t3, cfg)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_render_v4_refuses_what_does_not_fit(cuda):
+    cfg = gt.RasterizerConfig(width=320, height=224, kernel="v4")
+    assert (cfg.tile_size, cfg.lockstep_gt) == (16, 4)
+    args = _render_inputs(_cloud(cuda), cfg, 4, False)
+    with pytest.raises(ValueError, match="bytes of shared memory"):
+        r4._render_v4_cuda(*args, 4, True)
+
+
+@pytest.mark.gpu
+def test_entry_points_run_on_the_card_by_default(cuda):
+    cfg = gt.RasterizerConfig(width=256, height=256, kernel="v4").fast_defaults()
+    cloud = gt.fast_cloud_view(gt.mortonize(gt.synthetic_scene(20_000)))
+    uni = gt.make_uniforms(gt.Camera.reset_pose(), cfg)
+    assert cloud.means.device.type == uni.view.device.type == "cuda"
+    out = gt.render_frame_fast(cloud, uni, cfg)
+    assert out.image.device.type == "cuda"
+    assert torch.isfinite(out.image).all()

@@ -1,9 +1,13 @@
-"""Port vs JAX package: the fused projection (ops/projection_kernel.py).
+"""Port vs JAX package: the fused projection (ops/projection_kernel.py)
+and the readable projection (ops/projection.py).
 
 ``project_words_reference`` (what the CUDA kernel computes, and what CPU
 tensors run) is held to the JAX ``project_words`` (Pallas, interpret mode)
 on the shape of tests/test_projection_pallas.py's word test: 32768 splats
-at 512x384 under fast_defaults().
+at 512x384 under fast_defaults(). ``project_splats`` is held to the JAX
+``project_splats`` on the same scene, as that test holds the kernel to it:
+the same ``valid``, depth16 within the allowance below, image positions
+within 1e-2 px.
 
 Tolerances: XLA on the CPU and torch round exp, log, pow and rsqrt
 differently by an ulp, which can move a splat's radius, tile count, colour
@@ -19,9 +23,12 @@ import torch
 import godotgaussiansplatting_torch as gt
 import godotgaussiansplatting_tpu as gj
 from godotgaussiansplatting_torch.ops import blocks2 as b2t
+from godotgaussiansplatting_torch.ops.projection import project_splats
 from godotgaussiansplatting_torch.ops.projection_kernel import project_words
 from godotgaussiansplatting_tpu.models.splats import fast_cloud_view
 from godotgaussiansplatting_tpu.ops.pipeline import make_uniforms
+from godotgaussiansplatting_tpu.ops.projection import (
+    project_splats as project_splats_j)
 from godotgaussiansplatting_tpu.ops.projection_pallas import (
     project_words as project_words_j)
 
@@ -104,7 +111,7 @@ def words_pair():
                          uj.model_scale, uj.time, cfg_j,
                          num_splats=cj.num_splats)
     ct = port_cloud(cj)
-    ut = gt.make_uniforms(gt.Camera.reset_pose(), cfg)
+    ut = gt.make_uniforms(gt.Camera.reset_pose(), cfg, device="cpu")
     wt = project_words(ct.means, ct.cov3d, ct.opacity, ct.sh,
                        ct.upload_time, ut.view, ut.proj, ut.camera_pos,
                        ut.model_scale, ut.time, cfg,
@@ -171,3 +178,42 @@ def test_f16_and_rgb9e5_fields_within_one_ulp(words_pair):
         vb = ((b >> sh) & 0x1FF) * np.exp2(eb.astype(np.float64) - 24)
         step = np.exp2(np.maximum(ea, eb).astype(np.float64) - 24)
         assert np.all(np.abs(va - vb) <= step * 1.0001), sh
+
+
+@pytest.mark.parametrize("planar", [False, True])
+def test_project_splats_matches_jax(planar):
+    """The readable projection; ``planar`` feeds the port the (48, P) SH
+    view of fast_cloud_view, which it reads as (P, 16, 3)."""
+    cj = fast_cloud_view(gj.mortonize(gj.synthetic_scene(
+        32768, seed=3, extent=3.0, scale_range=(0.005, 0.2))),
+        planar_sh=False)
+    kw = dict(width=512, height=384, quality="fast")
+    cfg_j, cfg_t = gj.RasterizerConfig(**kw), gt.RasterizerConfig(**kw)
+    uj = make_uniforms(gj.Camera.reset_pose(),
+                       cfg_j, time=5.3)
+    pj = project_splats_j(cj.means, cj.cov3d, cj.opacity, cj.sh,
+                          np.asarray(cj.upload_time) + 5.0, uj.view,
+                          uj.proj, uj.camera_pos, uj.model_scale, uj.time,
+                          cfg_j)
+    ct = port_cloud(cj)
+    sh = gt.fast_cloud_view(ct).sh if planar else ct.sh
+    ut = gt.make_uniforms(gt.Camera.reset_pose(),
+                          cfg_t, time=5.3, device="cpu")
+    pt = project_splats(ct.means, ct.cov3d, ct.opacity, sh,
+                        ct.upload_time + 5.0, ut.view, ut.proj,
+                        ut.camera_pos, ut.model_scale, ut.time, cfg_t)
+    vj, vt = np_(pj.valid), np_(pt.valid)
+    np.testing.assert_array_equal(vj, vt)
+    assert vt.sum() > vt.size // 4, "scene must be mostly visible"
+    dj = np_(pj.depth16).astype(np.int64)[vj]
+    dt = np_(pt.depth16).astype(np.int64)[vt]
+    assert (dj != dt).sum() <= ALLOW * vj.size
+    assert np.abs(dj - dt).max() <= 1
+    assert np.abs(np_(pj.image_pos)[vj] - np_(pt.image_pos)[vt]).max() < 1e-2
+    nj, nt = np_(pj.num_tiles), np_(pt.num_tiles)
+    assert (nj != nt).sum() <= ALLOW * vj.size
+    np.testing.assert_allclose(np_(pt.conic)[vt], np_(pj.conic)[vj],
+                               rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(np_(pt.color)[vt], np_(pj.color)[vj],
+                               rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(np_(pt.pos), np_(pj.pos), rtol=1e-6)

@@ -1,10 +1,12 @@
 """Port vs JAX package: the v3 composite (ops/render_v3.py).
 
-The same JAX-built frame inputs (word payload, tile bins, tile big lanes)
-go to the port's ``render_tiles_v3_reference`` (what the CUDA kernel
-computes, and what CPU tensors run) and to the JAX ``render_tiles_v3``
-(Pallas, interpret mode, ``lowp=False``) at 160x112 with tile 32: a ragged
-tile row, tiles of many batches, and resident big lanes.
+The same JAX-built frame inputs (tile bins, tile big lanes, and the word or
+the cooked payload) go to the port's ``render_tiles_v3_reference`` (what
+the CUDA kernel computes, and what CPU tensors run) and to the JAX
+``render_tiles_v3`` (Pallas, interpret mode, ``lowp=False``) at 160x112
+with tile 32: a ragged tile row, tiles of many batches, and resident big
+lanes. The two payloads share their block meta, so one set of bins serves
+both.
 
 Tolerances: RGB PSNR >= 45 dB and t_final within 1e-2. The JAX kernel
 rounds alpha, colours and emit weights to bf16 even with ``lowp=False``
@@ -48,11 +50,12 @@ def frame_inputs():
     bf, bigs = build_block_frame2_words(words, cfg_j, words_payload=True)
     bins = bin_blocks2(bf, cfg_j)
     tbig = bin_bigs(bigs, cfg_j, obig=cfg_j.big_tile_capacity)
-    return cfg_j, cfg_t, bf, bins, tbig
+    cooked, _ = build_block_frame2_words(words, cfg_j, words_payload=False)
+    return cfg_j, cfg_t, bf, bins, tbig, cooked.payload
 
 
 def test_inputs_exercise_the_kernel_paths(frame_inputs):
-    cfg_j, _, _, bins, tbig = frame_inputs
+    cfg_j, _, _, bins, tbig, _ = frame_inputs
     gx, gy = cfg_j.tile_dims
     assert gy * cfg_j.tile_size > H                   # ragged tile row
     nb = np_(bins.tile_nblocks)
@@ -60,13 +63,12 @@ def test_inputs_exercise_the_kernel_paths(frame_inputs):
     assert (np_(tbig.tile_nbig) > 0).sum() >= 4       # resident big lanes
 
 
-@pytest.mark.parametrize("early_exit,heatmap", [(True, 1.0), (False, 0.0)])
-def test_render_matches_jax(frame_inputs, early_exit, heatmap):
-    cfg_j, cfg_t, bf, bins, tbig = frame_inputs
-    tiles_j = rj.render_tiles_v3(bf.payload, bins, tbig, np.float32(heatmap),
+def _render_matches_jax(cfg_j, cfg_t, payload, bins, tbig, early_exit,
+                        heatmap):
+    tiles_j = rj.render_tiles_v3(payload, bins, tbig, np.float32(heatmap),
                                  cfg_j, early_exit=early_exit, lowp=False,
                                  interpret=True)
-    tiles_t = rt.render_tiles_v3(t_(bf.payload), port_tuple(TileBins2, bins),
+    tiles_t = rt.render_tiles_v3(t_(payload), port_tuple(TileBins2, bins),
                                  port_tuple(TileBigs, tbig),
                                  torch.tensor(heatmap), cfg_t,
                                  early_exit=early_exit)
@@ -84,8 +86,25 @@ def test_render_matches_jax(frame_inputs, early_exit, heatmap):
         np.testing.assert_array_equal(tj[:, 5], tt[:, 5])
 
 
+@pytest.mark.parametrize("early_exit,heatmap", [(True, 1.0), (False, 0.0)])
+def test_render_matches_jax(frame_inputs, early_exit, heatmap):
+    cfg_j, cfg_t, bf, bins, tbig, _ = frame_inputs
+    _render_matches_jax(cfg_j, cfg_t, bf.payload, bins, tbig, early_exit,
+                        heatmap)
+
+
+@pytest.mark.parametrize("early_exit,heatmap", [(True, 1.0), (False, 0.0)])
+def test_render_cooked_matches_jax(frame_inputs, early_exit, heatmap):
+    """The cooked (B, 16, 128) f32 payload (_decode_cooked) against the
+    JAX kernel's cooked branch, at the word payload's tolerances."""
+    cfg_j, cfg_t, _, bins, tbig, cooked = frame_inputs
+    assert np_(cooked).dtype == np.float32 and cooked.shape[1] == 16
+    _render_matches_jax(cfg_j, cfg_t, cooked, bins, tbig, early_exit,
+                        heatmap)
+
+
 def test_pack_rows_and_assemble_bit_equal(frame_inputs):
-    cfg_j, cfg_t, _, bins, tbig = frame_inputs
+    cfg_j, cfg_t, _, bins, tbig, _ = frame_inputs
     rows_j = rj.pack_tile_rows_v3(
         bins.tile_blocks, bins.tile_nblocks, tbig.tile_nbig,
         bins.tile_minmax, bins.tile_candidates, np.float32(0.37), cfg_j,
@@ -108,7 +127,7 @@ def test_pack_rows_and_assemble_bit_equal(frame_inputs):
 
 
 def test_prepass_big_la_matches_jax(frame_inputs):
-    cfg_j, cfg_t, _, _, tbig = frame_inputs
+    cfg_j, cfg_t, _, _, tbig, _ = frame_inputs
     a = np_(rj.prepass_big_la(tbig.bigpay, cfg_j, lowp=False))
     b = np_(rt.prepass_big_la(t_(tbig.bigpay), cfg_t))
     assert a.shape == b.shape

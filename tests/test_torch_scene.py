@@ -55,7 +55,7 @@ def test_camera_matrices_and_uniforms_equal():
                                       ct.camera_pos_ply())
         uj = uni_j(cj, cfg, model_scale=0.7, time=3.0, heatmap=1.0)
         ut = gt.make_uniforms(ct, cfg, model_scale=0.7, time=3.0,
-                              heatmap=1.0)
+                              heatmap=1.0, device="cpu")
         for a, b in zip(uj, ut):
             np.testing.assert_array_equal(np_(a), np_(b))
 
@@ -77,7 +77,7 @@ def test_scene_mortonize_fast_view_bit_equal(surfaces):
     kw = dict(seed=11, extent=2.5, scale_range=(0.01, 0.2),
               surfaces=surfaces)
     cj = gj.synthetic_scene(5000, **kw)
-    ct = gt.synthetic_scene(5000, **kw)
+    ct = gt.synthetic_scene(5000, **kw, device="cpu")
     for stage_j, stage_t in (
             (cj, ct),
             (gj.mortonize(cj), gt.mortonize(ct)),
@@ -91,12 +91,13 @@ def test_scene_mortonize_fast_view_bit_equal(surfaces):
 
 
 def test_cloud_from_numpy_round_trips():
-    ct = gt.mortonize(gt.synthetic_scene(3000, seed=2))
+    ct = gt.mortonize(gt.synthetic_scene(3000, seed=2, device="cpu"))
     fv = gt.fast_cloud_view(ct)
     for c in (ct, fv):
         back = gt.cloud_from_numpy(np_(c.means), np_(c.cov3d),
                                    np_(c.opacity), np_(c.sh),
-                                   np_(c.upload_time), c.num_splats)
+                                   np_(c.upload_time), c.num_splats,
+                                   device="cpu")
         for f in ("means", "cov3d", "opacity", "sh", "upload_time"):
             a, b = getattr(c, f), getattr(back, f)
             assert a.dtype == b.dtype and torch.equal(a, b), f
