@@ -1,5 +1,5 @@
-"""A/B timing of the word-payload v3 render kernel: this checkout's against
-another checkout's, in one process, on the same inputs.
+"""A/B timing of the v3 render kernel, both entry points: this checkout's
+against another checkout's, in one process, on the same inputs.
 
     python3 -m godotgaussiansplatting_torch.ab_render OTHER_CHECKOUT
 
@@ -7,23 +7,29 @@ OTHER_CHECKOUT is the root of another tree of this repository, for example
 one unpacked with ``git archive <commit> | tar -x -C build/ab_base``. Its
 port package is copied to ``build/ab/gsother`` and imported beside this
 one; each builds its kernels from its own sources. The inputs are made once
-with this checkout's pipeline under fast_defaults() and the reset camera:
-200K splats at 512x512 (chip_smoke.py's phase 3) and the 5.8M-splat scene
-at 1920x1080 (phase 6). For each, the script prints both render_v3
-libraries' ptxas reports (registers, stack frame, spills), checks that
-the two outputs are bit-equal, and times 20 calls of each kernel (CUDA
-events, after a warm-up call) in the order other, this, this, other, three
-times. Needs a CUDA device.
+with this checkout's pipeline under the reset camera: 200K splats at
+512x512 (chip_smoke.py's phases 3 and 3b) and the 5.8M-splat scene at
+1920x1080 (phase 6), each under fast_defaults() (the word payload,
+``gs_render_v3``) and RasterizerConfig(quality="fast") (the cooked payload,
+``gs_render_v3_cooked``). A side whose ``_render_cuda`` takes the big
+log-alpha maps (``bigla``) computes them with its own ``prepass_big_la``
+inside each timed call, as its frame does. The script prints both
+render_v3 libraries' ptxas reports (registers, stack frame, spills), the
+RGB PSNR and largest difference between the two outputs, and the ms per
+call of 20 calls of each side (CUDA events, after a warm-up call) in the
+order other, this, this, other, three times. Needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import importlib
+import inspect
 import json
 import shutil
 import sys
 from pathlib import Path
 
+import numpy as np
 import torch
 
 import godotgaussiansplatting_torch as gt
@@ -32,12 +38,31 @@ from godotgaussiansplatting_torch.ops import projection_kernel as pk
 from godotgaussiansplatting_torch.ops import render_v3 as rv
 from godotgaussiansplatting_torch.ops.bigbin import bin_bigs
 from godotgaussiansplatting_torch.ops.binning2 import bin_blocks2
-from godotgaussiansplatting_torch.ops.blocks2 import build_block_frame2_words
+from godotgaussiansplatting_torch.ops.blocks2 import (
+    build_block_frame2, build_block_frame2_words)
+from godotgaussiansplatting_torch.ops.projection import project_splats
 
 AB_DIR = Path(__file__).resolve().parent.parent / "build" / "ab"
+# The scenes of chip_smoke.py's phases 3/3b (200K splats, scales up to 0.12,
+# so tiles carry resident big lanes) and 6 (bench.py's 5.8M-splat scene).
+SCENES = {
+    "200K 512x512": (dict(n=200_000, seed=2, scale_range=(0.005, 0.12)),
+                     (512, 512)),
+    "5.8M 1920x1080": (dict(n=5_800_000, seed=42, extent=4.0,
+                            scale_range=(0.004, 0.03)), (1920, 1080)),
+}
 
 
-def _import_other(root: Path):
+def scene_cloud(tag: str):
+    """The cloud of SCENES[tag] and its base configuration."""
+    scene, (width, height) = SCENES[tag]
+    scene = dict(scene)
+    cloud = gt.fast_cloud_view(gt.mortonize(gt.synthetic_scene(
+        scene.pop("n"), surfaces=True, **scene)))
+    return cloud, gt.RasterizerConfig(width=width, height=height)
+
+
+def import_other(root: Path):
     """The other checkout's render_v3 and kernels modules, as gsother."""
     dst = AB_DIR / "gsother"
     shutil.rmtree(dst, ignore_errors=True)
@@ -48,23 +73,39 @@ def _import_other(root: Path):
             importlib.import_module("gsother.kernels"))
 
 
-def _inputs(n, seed, width, height, **scene):
-    cloud = gt.fast_cloud_view(gt.mortonize(gt.synthetic_scene(
-        n, seed=seed, surfaces=True, **scene)))
-    cfg = gt.RasterizerConfig(width=width, height=height).fast_defaults()
+def frame_inputs(cloud, cfg):
+    """(rows, payload, bigpay, cfg, U, max_batches) of the reset camera
+    through the configuration's projection and payload."""
     uni = gt.make_uniforms(gt.Camera.reset_pose(), cfg)
-    words = pk.project_words(cloud.means, cloud.cov3d, cloud.opacity,
-                             cloud.sh, cloud.upload_time, uni.view, uni.proj,
-                             uni.camera_pos, uni.model_scale, uni.time, cfg,
-                             num_splats=cloud.num_splats)
-    bf, bigs = build_block_frame2_words(words, cfg, words_payload=True)
+    args = (cloud.means, cloud.cov3d, cloud.opacity, cloud.sh,
+            cloud.upload_time, uni.view, uni.proj, uni.camera_pos,
+            uni.model_scale, uni.time, cfg)
+    if cfg.projection_kernel:
+        bf, bigs = build_block_frame2_words(
+            pk.project_words(*args, num_splats=cloud.num_splats), cfg,
+            words_payload=cfg.words_payload)
+    else:
+        bf, bigs = build_block_frame2(project_splats(*args), cfg,
+                                      num_splats=cloud.num_splats,
+                                      words_payload=cfg.words_payload)
     tbig = bin_bigs(bigs, cfg, obig=cfg.big_tile_capacity)
-    rows, bigla, U, max_batches = rv.tile_inputs(
-        bin_blocks2(bf, cfg), tbig, uni.heatmap_factor, cfg)
-    return (rows, bf.payload, tbig.bigpay, bigla, cfg, U, max_batches)
+    rows, U, max_batches = rv.tile_rows(bin_blocks2(bf, cfg), tbig,
+                                        uni.heatmap_factor, cfg)
+    return rows, bf.payload, tbig.bigpay, cfg, U, max_batches
 
 
-def _time_ms(fn, reps: int = 20) -> float:
+def _call(mod, args):
+    """One call of a side's v3 kernel wrapper, with its own big log-alpha
+    maps when it takes them."""
+    rows, payload, bigpay, cfg, U, mb = args
+    if "bigla" in inspect.signature(mod._render_cuda).parameters:
+        return mod._render_cuda(rows, payload, bigpay,
+                                mod.prepass_big_la(bigpay, cfg), cfg, U, mb,
+                                True)
+    return mod._render_cuda(rows, payload, bigpay, cfg, U, mb, True)
+
+
+def time_ms(fn, reps: int = 20) -> float:
     fn()
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
@@ -84,32 +125,38 @@ def _ptxas(lib_module) -> list:
             if "stack" in ln or "registers" in ln] if logs else []
 
 
+def _compare(a, b, cfg) -> str:
+    ia, ib = (rv.assemble_image_v3(t, cfg)[0][:3].clamp(0, 1) for t in (a, b))
+    mse = float(((ia - ib) ** 2).mean())
+    return (f"PSNR {10 * np.log10(1.0 / max(mse, 1e-20)):.2f} dB, max |d| "
+            f"{float((a[:, :5] - b[:, :5]).abs().max()):.3g}, channels 5-7 "
+            f"equal {torch.equal(a[:, 5:], b[:, 5:])}")
+
+
 def main(argv) -> int:
     if len(argv) != 1 or not torch.cuda.is_available():
         raise SystemExit(__doc__)
-    other_rv, other_kernels = _import_other(Path(argv[0]).resolve())
+    other_rv, other_kernels = import_other(Path(argv[0]).resolve())
     kernels.library("render_v3")
     other_kernels.library("render_v3")
     print("ptxas render_v3, other:", json.dumps(_ptxas(other_kernels)))
     print("ptxas render_v3, this:", json.dumps(_ptxas(kernels)))
-    runs = {
-        "200K 512x512": dict(n=200_000, seed=2, width=512, height=512,
-                             scale_range=(0.005, 0.12)),
-        "5.8M 1920x1080": dict(n=5_800_000, seed=42, width=1920,
-                               height=1080, extent=4.0,
-                               scale_range=(0.004, 0.03)),
-    }
-    for tag, kw in runs.items():
-        args = _inputs(**kw)
-        fns = {"other": lambda: other_rv._render_cuda(*args, True),
-               "this": lambda: rv._render_cuda(*args, True)}
-        same = torch.equal(fns["other"](), fns["this"]())
-        ms = {k: [] for k in fns}
-        for _ in range(3):
-            for who in ("other", "this", "this", "other"):
-                ms[who].append(_time_ms(fns[who]))
-        print(f"{tag}: bit-equal {same}; ms per call {json.dumps(ms)}")
-        del args, fns
+    for tag in SCENES:
+        cloud, base = scene_cloud(tag)
+        for entry, cfg in (("words", base.fast_defaults()),
+                           ("cooked", base.replace(quality="fast"))):
+            args = frame_inputs(cloud, cfg)
+            fns = {"other": lambda: _call(other_rv, args),
+                   "this": lambda: _call(rv, args)}
+            cmp = _compare(fns["other"](), fns["this"](), cfg)
+            ms = {k: [] for k in fns}
+            for _ in range(3):
+                for who in ("other", "this", "this", "other"):
+                    ms[who].append(time_ms(fns[who]))
+            print(f"{tag} {entry} (tile {cfg.tile_size}, U={args[4]}): "
+                  f"{cmp}; ms per call {json.dumps(ms)}", flush=True)
+            del args, fns
+        del cloud
     return 0
 
 

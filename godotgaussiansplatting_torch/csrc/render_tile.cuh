@@ -1,13 +1,11 @@
-// Per-tile device code shared by the render kernels (render_v3.cu and
-// render_v4.cu): the lane decode of both payloads, the block bitonic rank
-// sort, the per-pixel batch composite with its emit merges, the resident
-// big lanes and the present.
-//
-// Both kernels evaluate every (tile, pixel) through these functions, in the
-// same order, and both are built with --fmad=false. So the v4 lockstep
-// kernel is bit-equal to the v3 kernel on the cooked payload, and every
-// recomputation of a lane's alpha is bit-identical to the others. The
-// design is described in render_v3.cu.
+// Per-tile device code of the render kernels. Shared by render_v3.cu and
+// render_v4.cu: the lane slots, the decode of both chain payloads
+// (lane_key, lane_store), the resident big lanes' rank, depth and colour,
+// and the present. The v4 lockstep kernel's own: the block bitonic rank
+// sort and the per-pixel batch composite with its emit merges, which read
+// the big lanes' log-alpha maps (the v3 kernel has its own composite, see
+// render_v3.cu). Built with --fmad=false, so every recomputation of a
+// lane's alpha is bit-identical to the others.
 
 #pragma once
 
@@ -69,30 +67,43 @@ __device__ __forceinline__ float lane_la(const Slot& sl, int US, int j,
   return log1pf(-lane_alpha(sl, US, j, q));
 }
 
-// Decode lane ln of chain block bid into entry l of the staging slot, with
-// the power features at the tile origin (ox, oy). Returns the lane's sort
-// key (rank << 32 | l), or NO_KEY when the lane is invalid or does not
+// The two chain payloads. A chain block's lanes are contiguous: 8 u32 rows
+// of S lanes (words) or 16 f32 rows (cooked), BLOCK_BYTES bytes a block.
+template <bool COOKED>
+struct Payload {
+  static constexpr int BLOCK_BYTES = (COOKED ? 16 : 8) * S * 4;
+};
+
+template <bool COOKED>
+__device__ __forceinline__ const void* block_at(const void* payload,
+                                                int bid) {
+  return (const unsigned char*)payload +
+         (size_t)bid * Payload<COOKED>::BLOCK_BYTES;
+}
+
+// Lane ln of the chain block at blk, seen from the tile at origin (ox, oy):
+// its sort key (rank << 32), or NO_KEY when the lane is invalid or does not
 // cover the tile.
 template <bool COOKED>
-__device__ __forceinline__ uint64_t decode_lane(const void* payload, int bid,
-                                                int ln, int l, float ox,
-                                                float oy, float tsz,
-                                                const Slot& stg, int US);
+__device__ __forceinline__ uint64_t lane_key(const void* blk, int ln,
+                                             float ox, float oy, float tsz);
+
+// Store lane ln's power features at the tile origin and its colour into
+// entry i of slot dst (the rank is the caller's: key >> 32).
+template <bool COOKED>
+__device__ __forceinline__ void lane_store(const void* blk, int ln, float ox,
+                                           float oy, const Slot& dst, int i,
+                                           int US);
 
 // The (B, 8, 128) u32 word payload: [key, ix, iy, f16 ca|cb, f16 cc|op,
 // rgb9e5, idx, bf16 rx|ry]. The features are built at the tile origin.
 template <>
-__device__ __forceinline__ uint64_t decode_lane<false>(
-    const void* payload, int bid, int ln, int l, float ox, float oy,
-    float tsz, const Slot& stg, int US) {
-  const uint32_t* w = (const uint32_t*)payload + (size_t)bid * 8 * S;
+__device__ __forceinline__ uint64_t lane_key<false>(const void* blk, int ln,
+                                                    float ox, float oy,
+                                                    float tsz) {
+  const uint32_t* w = (const uint32_t*)blk;
   const uint32_t key = w[ln];
   if (key == 0xFFFFFFFFu) return NO_KEY;
-  const uint32_t p3 = w[3 * S + ln], p4 = w[4 * S + ln];
-  const float ca = __half2float(__ushort_as_half((unsigned short)(p3 & 0xFFFF)));
-  const float cb = __half2float(__ushort_as_half((unsigned short)(p3 >> 16)));
-  const float cc = __half2float(__ushort_as_half((unsigned short)(p4 & 0xFFFF)));
-  const float op = __half2float(__ushort_as_half((unsigned short)(p4 >> 16)));
   const float ixl = __uint_as_float(w[S + ln]) - ox;
   const float iyl = __uint_as_float(w[2 * S + ln]) - oy;
   const uint32_t rw = w[7 * S + ln];
@@ -101,24 +112,38 @@ __device__ __forceinline__ uint64_t decode_lane<false>(
   const bool covered = (ixl - rxw < tsz) && (ixl + rxw > 0.0f) &&
                        (iyl - ryw < tsz) && (iyl + ryw > 0.0f);
   if (!covered) return NO_KEY;
+  const uint32_t idx = w[6 * S + ln];
+  const uint32_t rank = ((key & 0xFFFFu) << 16) | ((idx >> 7) & 0xFFFFu);
+  return (uint64_t)rank << 32;
+}
+
+template <>
+__device__ __forceinline__ void lane_store<false>(const void* blk, int ln,
+                                                  float ox, float oy,
+                                                  const Slot& dst, int i,
+                                                  int US) {
+  const uint32_t* w = (const uint32_t*)blk;
+  const uint32_t p3 = w[3 * S + ln], p4 = w[4 * S + ln];
+  const float ca = __half2float(__ushort_as_half((unsigned short)(p3 & 0xFFFF)));
+  const float cb = __half2float(__ushort_as_half((unsigned short)(p3 >> 16)));
+  const float cc = __half2float(__ushort_as_half((unsigned short)(p4 & 0xFFFF)));
+  const float op = __half2float(__ushort_as_half((unsigned short)(p4 >> 16)));
+  const float ixl = __uint_as_float(w[S + ln]) - ox;
+  const float iyl = __uint_as_float(w[2 * S + ln]) - oy;
   const float ln_op = fminf(logf(fmaxf(op, 1e-37f)), -1e-3f);
-  float* f = stg.f;
-  f[l] = (-0.5f * (ca * ixl * ixl + cc * iyl * iyl) - cb * ixl * iyl) + ln_op;
-  f[US + l] = ca * ixl + cb * iyl;
-  f[2 * US + l] = cc * iyl + cb * ixl;
-  f[3 * US + l] = -0.5f * ca;
-  f[4 * US + l] = -0.5f * cc;
-  f[5 * US + l] = -cb;
+  float* f = dst.f;
+  f[i] = (-0.5f * (ca * ixl * ixl + cc * iyl * iyl) - cb * ixl * iyl) + ln_op;
+  f[US + i] = ca * ixl + cb * iyl;
+  f[2 * US + i] = cc * iyl + cb * ixl;
+  f[3 * US + i] = -0.5f * ca;
+  f[4 * US + i] = -0.5f * cc;
+  f[5 * US + i] = -cb;
   const uint32_t c9 = w[5 * S + ln];
   const int e = (int)((c9 >> 27) & 0x1F) - 15;
   const float sc = __int_as_float((e - 9 + 127) << 23);
-  stg.rgb[l] = (float)(c9 & 0x1FF) * sc;
-  stg.rgb[US + l] = (float)((c9 >> 9) & 0x1FF) * sc;
-  stg.rgb[2 * US + l] = (float)((c9 >> 18) & 0x1FF) * sc;
-  const uint32_t idx = w[6 * S + ln];
-  const uint32_t rank = ((key & 0xFFFFu) << 16) | ((idx >> 7) & 0xFFFFu);
-  stg.rank[l] = rank;
-  return ((uint64_t)rank << 32) | (uint64_t)l;
+  dst.rgb[i] = (float)(c9 & 0x1FF) * sc;
+  dst.rgb[US + i] = (float)((c9 >> 9) & 0x1FF) * sc;
+  dst.rgb[2 * US + i] = (float)((c9 >> 18) & 0x1FF) * sc;
 }
 
 // The cooked (B, 16, 128) f32 payload (ops/blocks2.py): the features about
@@ -127,10 +152,10 @@ __device__ __forceinline__ uint64_t decode_lane<false>(
 // 11, colour is rows 6-8 and the rank is row 12 with its sign bit flipped.
 // Invalid lanes carry ix = iy = -1e6 and fail the gate.
 template <>
-__device__ __forceinline__ uint64_t decode_lane<true>(
-    const void* payload, int bid, int ln, int l, float ox, float oy,
-    float tsz, const Slot& stg, int US) {
-  const float* w = (const float*)payload + (size_t)bid * 16 * S + ln;
+__device__ __forceinline__ uint64_t lane_key<true>(const void* blk, int ln,
+                                                   float ox, float oy,
+                                                   float tsz) {
+  const float* w = (const float*)blk + ln;
   const float ixr = w[9 * S], iyr = w[10 * S];
   const uint32_t rw = __float_as_uint(w[11 * S]);
   const float rxw = __uint_as_float(rw << 16);
@@ -138,24 +163,48 @@ __device__ __forceinline__ uint64_t decode_lane<true>(
   const bool covered = (ixr - rxw < ox + tsz) && (ixr + rxw > ox) &&
                        (iyr - ryw < oy + tsz) && (iyr + ryw > oy);
   if (!covered) return NO_KEY;
+  const uint32_t rank = __float_as_uint(w[12 * S]) ^ 0x80000000u;
+  return (uint64_t)rank << 32;
+}
+
+template <>
+__device__ __forceinline__ void lane_store<true>(const void* blk, int ln,
+                                                 float ox, float oy,
+                                                 const Slot& dst, int i,
+                                                 int US) {
+  const float* w = (const float*)blk + ln;
   const float f0 = w[0], f1 = w[S], f2 = w[2 * S];
   const float f3 = w[3 * S], f4 = w[4 * S], f5 = w[5 * S];
   const float dx = ox - w[14 * S];
   const float dy = oy - w[15 * S];
-  float* f = stg.f;
-  f[l] = f0 + dx * f1 + dy * f2 + (dx * dx) * f3 + (dy * dy) * f4 +
+  float* f = dst.f;
+  f[i] = f0 + dx * f1 + dy * f2 + (dx * dx) * f3 + (dy * dy) * f4 +
          (dx * dy) * f5;
-  f[US + l] = f1 + (2.0f * dx) * f3 + dy * f5;
-  f[2 * US + l] = f2 + (2.0f * dy) * f4 + dx * f5;
-  f[3 * US + l] = f3;
-  f[4 * US + l] = f4;
-  f[5 * US + l] = f5;
-  stg.rgb[l] = w[6 * S];
-  stg.rgb[US + l] = w[7 * S];
-  stg.rgb[2 * US + l] = w[8 * S];
-  const uint32_t rank = __float_as_uint(w[12 * S]) ^ 0x80000000u;
-  stg.rank[l] = rank;
-  return ((uint64_t)rank << 32) | (uint64_t)l;
+  f[US + i] = f1 + (2.0f * dx) * f3 + dy * f5;
+  f[2 * US + i] = f2 + (2.0f * dy) * f4 + dx * f5;
+  f[3 * US + i] = f3;
+  f[4 * US + i] = f4;
+  f[5 * US + i] = f5;
+  dst.rgb[i] = w[6 * S];
+  dst.rgb[US + i] = w[7 * S];
+  dst.rgb[2 * US + i] = w[8 * S];
+}
+
+// Decode lane ln of chain block bid into entry l of the staging slot, with
+// the power features at the tile origin (ox, oy). Returns the lane's sort
+// key (rank << 32 | l), or NO_KEY when the lane is invalid or does not
+// cover the tile.
+template <bool COOKED>
+__device__ __forceinline__ uint64_t decode_lane(const void* payload, int bid,
+                                                int ln, int l, float ox,
+                                                float oy, float tsz,
+                                                const Slot& stg, int US) {
+  const void* blk = block_at<COOKED>(payload, bid);
+  const uint64_t key = lane_key<COOKED>(blk, ln, ox, oy, tsz);
+  if (key == NO_KEY) return NO_KEY;
+  lane_store<COOKED>(blk, ln, ox, oy, stg, l, US);
+  stg.rank[l] = (uint32_t)(key >> 32);
+  return key | (uint64_t)l;
 }
 
 // Sort each of nseg consecutive runs of NK keys (NK a power of two)
@@ -381,20 +430,20 @@ __device__ __forceinline__ float finish_tile(const TileRefs& tr, int k,
   return run;
 }
 
-// The present: t_final = exp(tcar + big mass), the heatmap mix and the
+// The present of a pixel of the tile with header row `row` after k
+// batches: t_final = exp(tcar + big mass), the heatmap mix and the
 // diagnostics, written to o[c * cstride] for the 8 output channels.
-__device__ __forceinline__ void present(const TileRefs& tr, int k, int U,
-                                        float bigtot, const PixState& ps,
-                                        float* o, int cstride) {
-  const int32_t* row = tr.row;
+__device__ __forceinline__ void present(const int32_t* row, int k, int U,
+                                        float bigtot, const float acc[3],
+                                        float tcar, float* o, int cstride) {
   const int nb = row[0], cand = row[1], hm_i = row[2], nbig = row[4];
-  const float t_final = expf(ps.tcar + (nbig > 0 ? bigtot : 0.0f));
+  const float t_final = expf(tcar + (nbig > 0 ? bigtot : 0.0f));
   const float mixf = (float)cand * 5e-4f;
   const float hm_f = (float)hm_i * (1.0f / 65536.0f);
   const float cov = (1.0f - t_final) * hm_f;
-  o[0] = ps.acc[0] + (1.0f * mixf) * cov;
-  o[cstride] = ps.acc[1] + (0.2f * mixf) * cov;
-  o[2 * cstride] = ps.acc[2] + (1.0f - 0.8f * mixf) * cov;
+  o[0] = acc[0] + (1.0f * mixf) * cov;
+  o[cstride] = acc[1] + (0.2f * mixf) * cov;
+  o[2 * cstride] = acc[2] + (1.0f - 0.8f * mixf) * cov;
   o[3 * cstride] = 1.0f;
   o[4 * cstride] = t_final;
   o[5 * cstride] = (float)min(k * U, nb);

@@ -3,11 +3,12 @@
 //
 // Replaces the TPU kernel `_render_kernel_v4` in
 // godotgaussiansplatting_tpu/ops/render_pallas4.py (launched by
-// `render_tiles_v4`). The semantics are v3's, tile for tile: every
-// (tile, pixel) is evaluated by the device code of render_tile.cuh that the
-// v3 kernel (render_v3.cu) runs, so the output is bit-equal to the cooked v3
-// kernel. Only the schedule and the output layout differ: the output is
-// (T4, GT*NPX, 8) f32, pixel-major, exactly as the JAX kernel lays it out.
+// `render_tiles_v4`). The semantics are v3's, tile for tile, with the
+// composite of render_tile.cuh, which reads the big lanes' log-alpha maps
+// (prepass_big_la); the v3 kernel (render_v3.cu) evaluates them itself and
+// sums in another order, so the two agree to >= 60 dB, not bit for bit.
+// The output is (T4, GT*NPX, 8) f32, pixel-major, exactly as the JAX kernel
+// lays it out.
 //
 // What bounds it on Hopper: the same per-(pixel, lane) arithmetic as v3 (a
 // six-term power, an exp and a log1p), plus the fixed costs each batch
@@ -209,7 +210,7 @@ render_kernel_v4(const int32_t* __restrict__ rows,
           tile_refs(m, rows, bigla_t, big_z, g, t0, GT, US, OB, NPX);
       const float bigtot = finish_tile(tr, kdone[j], US, NPX, p, q, ps[j],
                                        ts[j]);
-      present(tr, kdone[j], U, bigtot, ps[j],
+      present(tr.row, kdone[j], U, bigtot, ps[j].acc, ps[j].tcar,
               out + ((size_t)(t0 + g) * NPX + p) * 8, 1);
     }
     __syncthreads();   // shared tile state is rewritten by the next group

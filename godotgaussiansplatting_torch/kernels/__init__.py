@@ -38,9 +38,9 @@ SIGNATURES = {
         "gs_project_words": [_P] * 14 + [_I] * 8 + [_F] * 3 + [_P],
     },
     "render_v3": {
-        "gs_render_v3": [_P] * 6 + [_I] * 8 + [_P],
-        "gs_render_v3_cooked": [_P] * 6 + [_I] * 8 + [_P],
-        "gs_render_v3_max_blocks": [_I] * 3,
+        "gs_render_v3": [_P] * 5 + [_I] * 8 + [_P],
+        "gs_render_v3_cooked": [_P] * 5 + [_I] * 8 + [_P],
+        "gs_render_v3_max_blocks": [_I] * 4,
     },
     "render_v4": {
         "gs_render_v4": [_P] * 6 + [_I] * 9 + [_P],

@@ -14,9 +14,10 @@ cooked (B, 16, 128) f32 rows. Only the lane decode differs between them
   * across consecutive batches whose block depth ranges overlap, lag-1
     corrections make the two batches mutually exact;
   * the tile's big lanes stay resident, with log-alpha maps from
-    ``prepass_big_la``. When a big lane falls inside a batch's depth range
-    (the straddle gate, read from ``TileBigs.big_prefix``) chain and big lanes
-    exchange exact masses by rank; otherwise whole-batch masses are exchanged;
+    ``prepass_big_la`` (the CUDA kernel evaluates them itself). When a big
+    lane falls inside a batch's depth range (the straddle gate, read from
+    ``TileBigs.big_prefix``) chain and big lanes exchange exact masses by
+    rank; otherwise whole-batch masses are exchanged;
   * the tile stops after a batch once every pixel has
     tcar + (big mass in front) <= ln(1/255);
   * present: t_final = exp(tcar + big mass), the heatmap mix and the
@@ -26,11 +27,13 @@ The kernel output is (TG, 8, NPX) f32, channel-major per tile:
 [r, g, b, 1, t_final, blocks processed, nb, nbig].
 
 ``render_tiles_v3`` launches the CUDA kernel (csrc/render_v3.cu, one entry
-point per payload) for CUDA tensors and ``render_tiles_v3_reference``
-(plain torch, vectorised over tiles, one loop step per batch) for CPU
-tensors. Both compute in f32. The
-JAX kernel also rounds alpha, colours and emit weights to bf16 and splits
-the power matmul into bf16 halves; neither is reproduced here.
+point per payload) for CUDA tensors; the kernel evaluates the big lanes'
+log-alphas itself, so that path builds no ``prepass_big_la`` maps. CPU
+tensors go to ``render_tiles_v3_reference`` (plain torch, vectorised over
+tiles, one loop step per batch), which reads the maps. Both compute in
+f32 (the kernel's exp and log on the special function unit). The JAX
+kernel also rounds alpha, colours and emit weights to bf16 and splits the
+power matmul into bf16 halves; neither is reproduced here.
 """
 
 from __future__ import annotations
@@ -388,20 +391,18 @@ def _render_reference(rows, payload, bigpay, bigla, cfg, U, max_batches,
 def resident_blocks(library: str, *shape: int) -> int:
     """Thread blocks of a render kernel (``gs_<library>_max_blocks`` for
     this shape) the whole card holds at once: the persistent grid, and the
-    number of big-lane scratch slices."""
+    number of the kernel's big-lane scratch slices."""
     n = getattr(kernels.library(library), f"gs_{library}_max_blocks")(*shape)
     if n <= 0:
         raise RuntimeError(f"{library} kernel: occupancy query failed ({n})")
     return n
 
 
-def check_kernel_inputs(what: str, rows, payload, bigpay, bigla, cfg, U,
-                        words_ok: bool = True):
+def check_kernel_inputs(what: str, rows, payload, bigpay, cfg, U,
+                        words_ok: bool = True) -> bool:
     """The checks the render kernels (v3 and v4) share before a launch.
-    Returns whether the payload is the cooked one, and the big log-alpha
-    maps in the kernels' (TG, OB, NPX) layout."""
+    Returns whether the payload is the cooked one."""
     TG = rows.shape[0]
-    NPX = cfg.tile_size * cfg.tile_size
     OB = bigpay.shape[2]
     if cfg.tile_size not in (16, 32):
         raise ValueError(f"the {what} kernel supports tile_size 16 and 32")
@@ -417,51 +418,62 @@ def check_kernel_inputs(what: str, rows, payload, bigpay, bigla, cfg, U,
         raise ValueError(f"the {what} kernel reads {words}the (B, 16, 128) "
                          "f32 cooked payload")
     if (rows.dtype != torch.int32 or rows.shape != (TG, 8, 128)
-            or bigpay.dtype != torch.float32 or bigpay.shape != (TG, 16, OB)
-            or bigla.dtype != torch.float32 or bigla.shape != (TG, NPX, OB)):
+            or bigpay.dtype != torch.float32 or bigpay.shape != (TG, 16, OB)):
         raise ValueError(f"{what}: unexpected input shapes/dtypes")
-    bigla_t = bigla.transpose(1, 2)          # (TG, OB, NPX), the kernel layout
-    kernels.require_cuda(what, rows, payload, bigpay, bigla_t)
-    return cooked, bigla_t
+    kernels.require_cuda(what, rows, payload, bigpay)
+    return cooked
 
 
-def _render_cuda(rows, payload, bigpay, bigla, cfg, U, max_batches,
-                 early_exit):
+def _render_cuda(rows, payload, bigpay, cfg, U, max_batches, early_exit):
+    """The v3 kernel on (TG, 8, 128) tile rows, either chain payload and the
+    (TG, 16, OB) big payload -> (TG, OUT_CH, NPX) f32."""
     TG = rows.shape[0]
     NPX = cfg.tile_size * cfg.tile_size
     OB = bigpay.shape[2]
     gx, _ = cfg.tile_dims
-    cooked, bigla_t = check_kernel_inputs("render_v3", rows, payload, bigpay,
-                                          bigla, cfg, U)
+    cooked = check_kernel_inputs("render_v3", rows, payload, bigpay, cfg, U)
+    if payload.data_ptr() % 16:
+        raise ValueError("render_v3: the chain payload must start on a "
+                         "16-byte boundary (cp.async.bulk fetches its blocks)")
     entry, counter = (("gs_render_v3_cooked", "render_v3_cooked") if cooked
                       else ("gs_render_v3", "render_v3"))
     lib = kernels.library("render_v3")
     grid = min(TG, resident_blocks("render_v3", cfg.tile_size, U,
-                                   int(cooked)))
+                                   int(cooked), OB))
     out = torch.empty((TG, OUT_CH, NPX), dtype=torch.float32,
                       device=rows.device)
-    big_z = torch.empty((grid, OB, NPX), dtype=torch.float32,
-                        device=rows.device)
+    # per resident block, the (pixel, big lane) difference array of the chain
+    # mass; the kernel leaves it zero
+    dz = torch.zeros((grid, OB, NPX), dtype=torch.float32, device=rows.device)
     err = getattr(lib, entry)(
         rows.data_ptr(), payload.data_ptr(), bigpay.data_ptr(),
-        bigla_t.data_ptr(), out.data_ptr(), big_z.data_ptr(),
-        TG, gx, cfg.tile_size, U, max_batches, OB, int(bool(early_exit)),
-        grid, ctypes.c_void_p(kernels.stream_ptr(rows.device)))
+        out.data_ptr(), dz.data_ptr(), TG, gx, cfg.tile_size, U, max_batches,
+        OB, int(bool(early_exit)), grid,
+        ctypes.c_void_p(kernels.stream_ptr(rows.device)))
     kernels.check(err, "render kernel launch")
     kernels.count_launch(counter)
     return out
 
 
-def tile_inputs(bins, tile_bigs, heatmap_factor, cfg, pixel_offset_y=0,
-                batch_u: int | None = None):
-    """The render kernels' per-tile inputs from the tile bins: (rows, big
-    log-alpha maps, U, max_batches)."""
+def tile_rows(bins, tile_bigs, heatmap_factor, cfg, pixel_offset_y=0,
+              batch_u: int | None = None):
+    """The v3 kernel's per-tile inputs from the tile bins: (rows, U,
+    max_batches)."""
     U = batch_u or cfg.batch_u or default_batch_u(cfg.tile_size)
     max_batches = -(-bins.tile_blocks.shape[1] // U)
     rows = pack_tile_rows_v3(bins.tile_blocks, bins.tile_nblocks,
                              tile_bigs.tile_nbig, bins.tile_minmax,
                              bins.tile_candidates, heatmap_factor, cfg,
                              pixel_offset_y, tile_big_prefix=tile_bigs.big_prefix)
+    return rows, U, max_batches
+
+
+def tile_inputs(bins, tile_bigs, heatmap_factor, cfg, pixel_offset_y=0,
+                batch_u: int | None = None):
+    """The plain versions' and the v4 kernel's per-tile inputs: (rows, big
+    log-alpha maps, U, max_batches)."""
+    rows, U, max_batches = tile_rows(bins, tile_bigs, heatmap_factor, cfg,
+                                     pixel_offset_y, batch_u)
     bigla = prepass_big_la(tile_bigs.bigpay, cfg, pixel_offset_y=pixel_offset_y)
     return rows, bigla, U, max_batches
 
@@ -474,14 +486,16 @@ def render_tiles_v3(payload, bins, tile_bigs, heatmap_factor, cfg,
     to ``render_tiles_v3_reference``. ``lowp`` is accepted for signature
     parity; both compute in f32."""
     del lowp
-    rows, bigla, U, max_batches = tile_inputs(bins, tile_bigs, heatmap_factor,
-                                              cfg, pixel_offset_y, batch_u)
     if payload.device.type == "cpu":
+        rows, bigla, U, max_batches = tile_inputs(
+            bins, tile_bigs, heatmap_factor, cfg, pixel_offset_y, batch_u)
         return render_tiles_v3_reference(rows, payload, tile_bigs.bigpay,
                                          bigla, cfg, U, max_batches,
                                          early_exit)
-    return _render_cuda(rows, payload, tile_bigs.bigpay, bigla, cfg, U,
-                        max_batches, early_exit)
+    rows, U, max_batches = tile_rows(bins, tile_bigs, heatmap_factor, cfg,
+                                     pixel_offset_y, batch_u)
+    return _render_cuda(rows, payload, tile_bigs.bigpay, cfg, U, max_batches,
+                        early_exit)
 
 
 def tile_channels_v3(tiles: torch.Tensor, cfg: RasterizerConfig):

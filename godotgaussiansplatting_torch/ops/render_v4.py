@@ -59,8 +59,12 @@ def _render_v4_cuda(rows, payload, bigpay, bigla, cfg, U, max_batches, GT,
     gx, _ = cfg.tile_dims
     if not 1 <= GT <= 4:
         raise ValueError("the render_v4 kernel supports lockstep_gt 1 to 4")
-    _, bigla_t = check_kernel_inputs("render_v4", rows, payload, bigpay,
-                                     bigla, cfg, U, words_ok=False)
+    check_kernel_inputs("render_v4", rows, payload, bigpay, cfg, U,
+                        words_ok=False)
+    if bigla.dtype != torch.float32 or bigla.shape != (T, NPX, OB):
+        raise ValueError("render_v4: unexpected big log-alpha map shape")
+    bigla_t = bigla.transpose(1, 2)        # (T, OB, NPX), the kernel layout
+    kernels.require_cuda("render_v4", rows, bigla_t)
     lib = kernels.library("render_v4")
     need = lib.gs_render_v4_smem_bytes(U, GT, OB)
     have = lib.gs_smem_optin()

@@ -1,0 +1,248 @@
+"""Where the v3 render kernel's time goes at 1080p: copies of its source with
+one stage dropped or one constant changed, each built and timed on the same
+inputs.
+
+    python3 -m godotgaussiansplatting_torch.split_render [OTHER_CHECKOUT]
+
+The inputs are those of chip_smoke.py's phase 6: the 5.8M-splat scene at
+1920x1080 and the reset camera, under fast_defaults() (word payload, tile
+32, U=2) and RasterizerConfig(quality="fast") (cooked payload, tile 16,
+U=4). For each, the script prints the distribution of resident big lanes
+per tile (nbig), of batches per tile and the share of batches that
+straddle a big lane. Then every copy of csrc/render_v3.cu listed in STAGES
+and VARIANTS (each edit must match the source) is built with the kernels'
+nvcc flags into build/split/, all nvcc started together, and its ptxas
+report printed. A stage copy runs on the rows cut to the blocks the
+kernel processes with early exit, without early exit, so every copy does
+the same batches; a variant runs as the frame does. Each is timed over 10
+calls (CUDA events, after a warm-up call). With OTHER_CHECKOUT, a tree of
+this repository whose v3 kernel reads prepass_big_la's maps (the design
+before the in-kernel big lanes), its copies in OTHER_STAGES are timed the
+same way, and so is prepass_big_la. Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from godotgaussiansplatting_torch import kernels
+from godotgaussiansplatting_torch.ab_render import (
+    frame_inputs, import_other, scene_cloud, time_ms)
+from godotgaussiansplatting_torch.ops import render_v3 as rv
+
+SPLIT_DIR = Path(__file__).resolve().parent.parent / "build" / "split"
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+_COMPOSITE = ("const bool more = composite_batch<T, PPT>(tl, k, U, n, q, ps, "
+              "ts);", "const bool more = true;")
+_EXACT = [("__expf(", "expf("),
+          ("return __logf(1.0f - alpha);", "return log1pf(-alpha);")]
+
+
+def _consts(tile: int, ppt: int, min_blocks: int) -> list:
+    return [(f"constexpr int PPT_TILE{tile} = ", f"constexpr int PPT_TILE{tile} = {ppt}; //"),
+            (f"constexpr int MIN_BLOCKS_TILE{tile} = ",
+             f"constexpr int MIN_BLOCKS_TILE{tile} = {min_blocks}; //")]
+
+
+# Stage copies of this checkout's kernel: name -> edits.
+STAGES = {
+    "full": [],
+    "no big lanes (front sum, exchange, finish)": [
+        ("const bool has_big = nbig > 0;", "const bool has_big = false;"),
+        ("for (int b = 0; b < tl.nbig; ++b) {", "for (int b = 0; b < 0; ++b) {")],
+    "fetch, decode and rank count only": [_COMPOSITE],
+    "fetch and decode only": [
+        _COMPOSITE,
+        ("for (int c2 = 0; c2 < n; ++c2) r += keys[c2] < key;", "r = c;")],
+}
+# Variants of this checkout's kernel: name -> (edits, payloads timed).
+VARIANTS = {
+    "as built": ([], ("words", "cooked")),
+    "exact expf and log1pf": (_EXACT, ("words", "cooked")),
+    **{f"tile 32: {p} px/thread, {m} blocks/SM":
+       (_consts(32, p, m), ("words",))
+       for p, m in ((1, 1), (2, 1), (2, 2), (4, 1))},
+    "tile 32: 2 px/thread, 1 block/SM, exact expf and log1pf":
+        (_consts(32, 2, 1) + _EXACT, ("words",)),
+    **{f"tile 16: {p} px/thread, {m} blocks/SM":
+       (_consts(16, p, m), ("cooked",)) for p, m in ((1, 1), (2, 2))},
+}
+# Stage copies of a kernel that reads the log-alpha maps and sorts each
+# batch with a bitonic sort (the other checkout's).
+_OLD_COMPOSITE = ("const bool more = composite_batch(tr, k, U, US, NPX, p, q, "
+                  "ps, ts);", "const bool more = true;")
+OTHER_STAGES = {
+    "full": [],
+    "no passes over the big lanes' maps": [
+        ("  if (has_big) {\n    const float bminf = (float)bmin, bmaxf = "
+         "(float)bmax;", "  if (false) {\n    const float bminf = (float)bmin,"
+         " bmaxf = (float)bmax;")],
+    "decode and bitonic sort only": [_OLD_COMPOSITE],
+    "decode and sort only, every lane from the tile's first block": [
+        _OLD_COMPOSITE,
+        ("decode_lane<COOKED>(payload, row[128 + pos] & 0x7FFFFF,",
+         "decode_lane<COOKED>(payload, row[128] & 0x7FFFFF,")],
+}
+
+
+def edited_sources(csrc: Path, edits: list) -> dict:
+    """{file name: text} of render_v3.cu and the shared headers with the
+    edits made. An edit replaces every match in the first file that holds
+    it, and must match."""
+    texts = {f.name: f.read_text()
+             for f in (csrc / "render_v3.cu", *sorted(csrc.glob("*.cuh")))}
+    for old, new in edits:
+        hit = next((f for f, t in texts.items() if old in t), None)
+        if hit is None:
+            raise ValueError(f"edit does not match {csrc}: {old!r}")
+        texts[hit] = texts[hit].replace(old, new)
+    return texts
+
+
+def build_copies(csrc: Path, copies: dict, tag: str) -> dict:
+    """{name: edits} -> {name: (ctypes library, ptxas lines)}."""
+    jobs = {}
+    for i, (name, edits) in enumerate(copies.items()):
+        d = SPLIT_DIR / f"{tag}{i}"
+        shutil.rmtree(d, ignore_errors=True)
+        d.mkdir(parents=True)
+        for f, t in edited_sources(csrc, edits).items():
+            (d / f).write_text(t)
+        so = d / "librender_v3.so"
+        jobs[name] = (so, subprocess.Popen(
+            [kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", str(so),
+             str(d / "render_v3.cu")], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+    out, failed = {}, []
+    for name, (so, proc) in jobs.items():
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {tag} {name}:\n{err}")
+            continue
+        out[name] = (ctypes.CDLL(str(so)),
+                     [ln.strip() for ln in err.splitlines()
+                      if "stack" in ln or "registers" in ln])
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return out
+
+
+def launcher(lib, maps: bool):
+    """A call (rows, payload, bigpay, bigla, cfg, U, max_batches,
+    early_exit) of a copy's entry point. ``maps``: the entry points take
+    the big log-alpha maps (the other checkout's signature)."""
+    n_ptr = 6 if maps else 5
+    for fn in ("gs_render_v3", "gs_render_v3_cooked"):
+        getattr(lib, fn).argtypes = [_P] * n_ptr + [_I] * 8 + [_P]
+    lib.gs_render_v3_max_blocks.argtypes = [_I] * (3 if maps else 4)
+
+    def call(rows, payload, bigpay, bigla, cfg, U, max_batches, early_exit):
+        cooked = payload.dtype == torch.float32
+        TG, NPX, OB = rows.shape[0], cfg.tile_size ** 2, bigpay.shape[2]
+        shape = (cfg.tile_size, U, int(cooked)) + (() if maps else (OB,))
+        grid = min(TG, lib.gs_render_v3_max_blocks(*shape))
+        out = torch.empty((TG, 8, NPX), device=rows.device)
+        scratch = torch.zeros((grid, OB, NPX), device=rows.device)
+        ptrs = [rows.data_ptr(), payload.data_ptr(), bigpay.data_ptr()]
+        if maps:
+            ptrs.append(bigla.transpose(1, 2).data_ptr())
+        fn = lib.gs_render_v3_cooked if cooked else lib.gs_render_v3
+        kernels.check(fn(*ptrs, out.data_ptr(), scratch.data_ptr(), TG,
+                         cfg.tile_dims[0], cfg.tile_size, U, max_batches, OB,
+                         int(early_exit), grid,
+                         ctypes.c_void_p(kernels.stream_ptr(rows.device))),
+                      "split copy launch")
+        return out
+    return call
+
+
+def _quantiles(x: torch.Tensor) -> dict:
+    x = x.float().cpu().numpy()
+    return {**{f"q{q}": float(np.quantile(x, q)) for q in (0, .5, .9, .99, 1)},
+            "mean": float(x.mean())}
+
+
+def straddling(rows, processed, U) -> tuple[int, int]:
+    """(batches processed, of them straddling a big lane: the kernel's gate
+    from the rows' big depth-bucket prefix)."""
+    TG = rows.shape[0]
+    mm = rows[:, 3:5].reshape(TG, 256).to(torch.int64) & 0xFFFFFFFF
+    prefix = rows[:, 5].to(torch.int64)
+    nbig = rows[:, 0, 4]
+    n = ns = 0
+    for k in range(-(-256 // U)):
+        pos = k * U + torch.arange(U, device=rows.device)
+        live = pos[None] < processed[:, None].long()
+        act = live[:, 0]
+        if not bool(act.any()):
+            break
+        m = mm[:, pos]
+        bmin = torch.where(live, m >> 16, 0x10000).amin(1)
+        bmax = torch.where(live, m & 0xFFFF, -1).amax(1)
+        hi = prefix.gather(1, (bmax >> 9).clamp(0, 127)[:, None])[:, 0]
+        b0 = (bmin >> 9).clamp(0, 127)
+        lo = torch.where(b0 > 0, prefix.gather(
+            1, (b0 - 1).clamp(min=0)[:, None])[:, 0], 0)
+        n += int(act.sum())
+        ns += int((act & (nbig > 0) & (hi != lo)).sum())
+    return n, ns
+
+
+def main(argv) -> int:
+    if len(argv) > 1 or not torch.cuda.is_available():
+        raise SystemExit(__doc__)
+    csrc = Path(kernels.CSRC)
+    copies = {f"stage: {k}": v for k, v in STAGES.items()}
+    copies.update({f"variant: {k}": v[0] for k, v in VARIANTS.items()})
+    libs = build_copies(csrc, copies, "this")
+    other_rv = None
+    if argv:
+        other_rv, _ = import_other(Path(argv[0]).resolve())
+        libs.update({f"other stage: {k}": v for k, v in build_copies(
+            Path(argv[0]).resolve() / "godotgaussiansplatting_torch" / "csrc",
+            OTHER_STAGES, "other").items()})
+    for name, (_, ptxas) in libs.items():
+        print(f"ptxas {name}: {json.dumps(ptxas)}", flush=True)
+    cloud, base = scene_cloud("5.8M 1920x1080")
+    for entry, cfg in (("words", base.fast_defaults()),
+                       ("cooked", base.replace(quality="fast"))):
+        rows, payload, bigpay, _, U, mb = frame_inputs(cloud, cfg)
+        bigla = other_rv.prepass_big_la(bigpay, cfg) if other_rv else None
+        args = (rows, payload, bigpay, bigla, cfg, U, mb)
+        processed = rv._render_cuda(rows, payload, bigpay, cfg, U, mb,
+                                    True)[:, 5, 0]
+        cut = rows.clone()
+        cut[:, 0, 0] = processed.to(torch.int32)
+        n, ns = straddling(rows, processed, U)
+        print(f"[{entry}] tile {cfg.tile_size} U={U}: {rows.shape[0]} tiles; "
+              f"nbig {json.dumps(_quantiles(rows[:, 0, 4]))}; batches per "
+              f"tile {json.dumps(_quantiles(torch.ceil(processed / U)))}; "
+              f"{n} batches, {ns} straddle a big lane", flush=True)
+        ms = {}
+        for name, (lib, _) in libs.items():
+            call = launcher(lib, name.startswith("other"))
+            if name.startswith("variant"):
+                if entry not in VARIANTS[name.split(": ", 1)[1]][1]:
+                    continue
+                ms[name] = time_ms(lambda: call(*args, True), 10)
+            else:
+                ms[name] = time_ms(lambda: call(cut, *args[1:], False), 10)
+        if other_rv:
+            ms["other: prepass_big_la"] = time_ms(
+                lambda: other_rv.prepass_big_la(bigpay, cfg), 10)
+        print(f"[{entry}] ms per call {json.dumps(ms, indent=0)}", flush=True)
+        del args, bigla, cut
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -11,11 +11,12 @@ path without touching a kernel and that a kernel wrapper refuses CPU
 tensors instead of falling back.
 """
 
+import numpy as np
 import pytest
 import torch
 
 import godotgaussiansplatting_torch as gt
-from godotgaussiansplatting_torch import kernels
+from godotgaussiansplatting_torch import kernels, split_render
 from godotgaussiansplatting_torch.ops import projection_kernel as pk
 from godotgaussiansplatting_torch.ops import render_v3 as rv
 from godotgaussiansplatting_torch.ops import render_v4 as r4
@@ -70,10 +71,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     bigpay = torch.zeros((4, 16, 128))
     bigla = torch.zeros((4, 128, 1024)).transpose(1, 2)
     with pytest.raises(ValueError, match="CUDA"):
-        rv._render_cuda(rows, payload, bigpay, bigla, cfg, 2, 128, True)
+        rv._render_cuda(rows, payload, bigpay, cfg, 2, 128, True)
     cooked = torch.zeros((1, 16, 128))
     with pytest.raises(ValueError, match="CUDA"):
-        rv._render_cuda(rows, cooked, bigpay, bigla, cfg, 2, 128, True)
+        rv._render_cuda(rows, cooked, bigpay, cfg, 2, 128, True)
     with pytest.raises(ValueError, match="CUDA"):
         r4._render_v4_cuda(rows, cooked, bigpay, bigla, cfg, 2, 128, 4, True)
     with pytest.raises(ValueError, match="cooked"):
@@ -90,6 +91,19 @@ def test_entry_points_default_to_the_card():
         gt.synthetic_scene(100)
     with pytest.raises((RuntimeError, AssertionError)):
         gt.make_uniforms(gt.Camera.reset_pose(), cfg)
+
+
+@pytest.mark.parametrize("copies", ["STAGES", "VARIANTS"])
+def test_split_render_edits_match_the_kernel_source(copies):
+    """Every stage and variant copy of split_render edits this checkout's
+    render_v3.cu (or a shared header) where it means to."""
+    for name, edits in getattr(split_render, copies).items():
+        if copies == "VARIANTS":
+            edits = edits[0]
+        texts = split_render.edited_sources(kernels.CSRC, edits)
+        changed = [f for f, t in texts.items()
+                   if t != (kernels.CSRC / f).read_text()]
+        assert bool(changed) == bool(edits), name
 
 
 @pytest.mark.gpu
@@ -123,6 +137,17 @@ def _render_inputs(cloud, cfg, batch_u, words):
     return (rows, bf.payload, tbig.bigpay, bigla, cfg, batch_u, mb)
 
 
+def _v3(args, early_exit):
+    """The v3 kernel on the plain version's arguments (it takes no maps)."""
+    rows, payload, bigpay, _, cfg, U, mb = args
+    return rv._render_cuda(rows, payload, bigpay, cfg, U, mb, early_exit)
+
+
+def _psnr(a, b):
+    mse = float(((a[:3].clamp(0, 1) - b[:3].clamp(0, 1)) ** 2).mean())
+    return 10 * np.log10(1.0 / max(mse, 1e-20))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("words", [True, False], ids=["words", "cooked"])
 @pytest.mark.parametrize("tile,batch_u,early_exit", [
@@ -132,7 +157,7 @@ def test_render_kernel_matches_plain(cuda, tile, batch_u, early_exit, words):
                               batch_u=batch_u).fast_defaults()
     args = _render_inputs(_cloud(cuda), cfg, batch_u, words)
     kernels.reset_launch_counts()
-    tk = rv._render_cuda(*args, early_exit)
+    tk = _v3(args, early_exit)
     counter = "render_v3" if words else "render_v3_cooked"
     assert kernels.launch_counts()[counter] == 1
     tr = rv.render_tiles_v3_reference(*args, early_exit)
@@ -142,25 +167,46 @@ def test_render_kernel_matches_plain(cuda, tile, batch_u, early_exit, words):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("words", [True, False], ids=["words", "cooked"])
+def test_render_kernel_straddles_big_lanes(cuda, words):
+    """Tile 32, U=2 (the shipped shape) on a scene whose tiles hold resident
+    big lanes and batches that straddle them: the exact chain-big exchange
+    of the kernel against its plain version."""
+    cfg = gt.RasterizerConfig(width=320, height=224).fast_defaults()
+    assert (cfg.tile_size, cfg.batch_u or rv.default_batch_u(32)) == (32, 2)
+    args = _render_inputs(_cloud(cuda, scale=0.2), cfg, 2, words)
+    rows = args[0]
+    assert split_render.straddling(rows, rows[:, 0, 0], 2)[1] > 0, (
+        "no straddling batch")
+    tk = _v3(args, True)
+    tr = rv.render_tiles_v3_reference(*args, True)
+    assert torch.isfinite(tk).all()
+    assert float((tk[:, :5] - tr[:, :5]).abs().max()) <= 1e-3
+    assert torch.equal(tk[:, 5:], tr[:, 5:])
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("tile,batch_u,gt_", [
     (32, 2, 4), (32, 2, 2), (32, 2, 1), (32, 2, 3), (16, 4, 2), (16, 4, 1)])
 def test_render_v4_kernel_matches_plain_and_v3(cuda, tile, batch_u, gt_):
-    """The v4 kernel against its plain version, and bit-equal to the cooked
-    v3 kernel on the same inputs (224 = 7 rows of tile 32: padded groups)."""
+    """The v4 kernel against its plain version, and within 60 dB and 1e-3
+    of t_final of the cooked v3 kernel on the same inputs, which sums in
+    another order (224 = 7 rows of tile 32: padded groups)."""
     cfg = gt.RasterizerConfig(width=320, height=224, tile_size=tile,
                               batch_u=batch_u, kernel="v4",
                               lockstep_gt=gt_).fast_defaults()
     args = _render_inputs(_cloud(cuda), cfg, batch_u, False)
     for early_exit in (True, False):
         t4 = r4._render_v4_cuda(*args, gt_, early_exit)
-        t3 = rv._render_cuda(*args, early_exit)
+        t3 = _v3(args, early_exit)
         tr = r4.render_tiles_v4_reference(*args, gt_, early_exit)
         assert torch.isfinite(t4).all()
         assert float((t4[..., :5] - tr[..., :5]).abs().max()) <= 1e-3
         assert torch.equal(t4[..., 5:], tr[..., 5:])
-        for a, b in zip(r4.assemble_image_v4(t4, cfg),
-                        rv.assemble_image_v3(t3, cfg)):
-            assert torch.equal(a, b)
+        (i4, tf4), (i3, tf3) = (r4.assemble_image_v4(t4, cfg),
+                                rv.assemble_image_v3(t3, cfg))
+        assert _psnr(i4, i3) >= 60.0
+        assert float((tf4 - tf3).abs().max()) <= 1e-3
 
 
 @pytest.mark.gpu
