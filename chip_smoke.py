@@ -5,9 +5,9 @@
 Builds the port's CUDA kernels from godotgaussiansplatting_torch/csrc (one
 nvcc per source, all started together), then:
 
-1. device: the card's name and power limit, the kernels' build time, and
-   the render kernels' occupancy and the v4 kernel's shared memory per
-   (tile, U, GT);
+1. device: the card's name and power limit, the kernels' build time, the
+   v3 kernel's resident blocks, and each v4 instance's shared memory per
+   CTA and resident CTAs (the same at every GT);
 2. projection kernel against its plain-torch version on a 1M-splat surface
    scene at 1920x1080 (fast_defaults()): key, bkey and cnt bit-equal,
    pc1/pc2/rgb9 within one unit in the last place per packed field, ix/iy
@@ -25,36 +25,46 @@ nvcc per source, all started together), then:
    >= 60 dB;
 3c. the v4 lockstep kernel (RasterizerConfig(kernel="v4").fast_defaults():
    tile 32, U=2, GT=4) against its plain version (>= 50 dB, t_final within
-   1e-3, channels 5-7 equal) and against the cooked v3 kernel on the same
-   inputs (>= 60 dB, t_final within 1e-3: the two sum in other orders), at
-   512x512 and at 480x480 (225 tiles: the last group of four is padded);
+   1e-3, channels 5-7 equal) and bit-equal (all 8 channels) to the cooked
+   v3 kernel on the same inputs, at 512x512 and at 480x480 (225 tiles: the
+   last group of four is padded); and the same at 512x512 for
+   RasterizerConfig(quality="fast", kernel="v4") (tile 16, U=4, GT=4);
 4. full frame: render_frame_fast at 1920x1080 under fast_defaults() on the
    5.8M-splat scene of bench.py over 8 orbit cameras; finite images,
    pairs > 0, every kernel of the path launched by the frame, a centre
    pick that is a splat mean; the median frame and stage times (CUDA
    events, after one warm-up frame) and the peak device memory;
 5. the same on the same cloud for RasterizerConfig(kernel="v4")
-   .fast_defaults() (projection and v4 kernels) and for
-   RasterizerConfig(quality="fast") (readable projection, cooked v3);
-   then, once every configuration is timed, torch.profiler over three
-   more frames of each: the device's busy share, its top kernels, and its
-   matrix products (gemm) by kernel, with launches and device ms per frame
-   (prepass_big_la's f32 einsum runs only on the v4 path);
+   .fast_defaults() (projection and v4 kernels), for
+   RasterizerConfig(quality="fast") (readable projection, cooked v3) and
+   for RasterizerConfig(quality="fast", kernel="v4") (readable projection,
+   v4 at tile 16); then, once every configuration is timed, torch.profiler
+   over three more frames of each: the device's busy share, its top
+   kernels, and its matrix products (gemm) by kernel, with launches and
+   device ms per frame. The v4 frame of fast_defaults() must show no gemm:
+   no prepass_big_la runs on the card (the quality="fast" frames keep the
+   readable projection's small gemms);
 6. every kernel on the inputs its 1080p frame gives it (the reset camera):
    the projection held to its plain version as in phase 2, each render
    kernel to its plain version (which composites the tiles in chunks) as
    in phase 3, each timed beside its bound; the v4 kernel at GT 1, 2 and 4
-   also against the cooked v3 kernel there, as in phase 3c.
+   also held bit-equal to the cooked v3 kernel on the same tile-32 inputs
+   and timed beside it and its bound, and so at GT 4 on the tile-16 inputs
+   of quality="fast", where it is also held to the plain version's output
+   that the cooked v3 kernel was held to; and a host count, from the v4 frame's rows, of the
+   chain blocks a group's tiles fetch at the same batch that two or more
+   of its GT tiles fetch (what TMA multicast across a cluster could load
+   once).
 
 The launch counters are set to 0 just before each full-frame path and read
 just after it; the `launches` of a kernel come from the path that runs it.
 The other numbers of the kernels line come from phase 6, the main paths'
 inputs. `bound_ms` is the larger of the bytes the kernel must move over
 3.35 TB/s and its operations over 67 TFLOP/s (f32), counted from this
-run's inputs (see `proj_bound` and `render_bound`: the v3 kernel reads the
-payload rows of a tile's live big lanes, its first nbig, and evaluates each
-(pixel, live big lane) itself; v4 reads the log-alpha maps); each record's
-`bound_counts` says what was counted. Any failed check
+run's inputs (see `proj_bound` and `render_bound`: the render kernels read
+the payload rows of a tile's live big lanes, its first nbig, and evaluate
+each (pixel, live big lane) themselves); each record's `bound_counts` says
+what was counted. Any failed check
 raises, and the script exits non-zero. Without a CUDA device it raises
 before printing any result. The last three lines are the card's name and
 power limit, the kernels' JSON record and {"ok": true, "device": {...}}.
@@ -103,27 +113,23 @@ PROJ_OPS_PER_SPLAT = 400
 # prefix add, the weight's exp and product (3) and the three colour sums
 # (6). A lane that fails the gate is dropped when it is decoded.
 RENDER_OPS_PER_LANE = 22
-# Operations per (pixel, resident big lane) given its log-alpha (v4 reads
-# the maps): the prefix and chain-mass adds (2), the weight's two exps and
+# Operations per (pixel, live resident big lane): its log-alpha, evaluated
+# in the kernel once (the six-term power (10), the clamp, exp and log1p
+# (3)), the prefix and chain-mass adds (2), the weight's two exps and
 # difference (3), the three colour sums (6) and the t_final sum (1).
-RENDER_OPS_PER_BIG = 12
-# The v3 kernel also evaluates the log-alpha, once per (pixel, live big
-# lane): the six-term power (10), the clamp, exp and log1p (3).
-RENDER_OPS_PER_BIG_EVAL = RENDER_OPS_PER_BIG + 13
+RENDER_OPS_PER_BIG = 25
 # What each kernel's bound counts (the kernels line carries it).
-_V3_COUNTS = ("bytes: tile rows, the 16 payload rows of each tile's live big "
-              "lanes, each processed block and the output once; operations: "
-              f"{RENDER_OPS_PER_LANE} per (pixel, chain lane past the "
-              f"coverage gate), {RENDER_OPS_PER_BIG_EVAL} per (pixel, live "
-              "big lane), its log-alpha evaluated in the kernel")
+_RENDER_COUNTS = ("bytes: tile rows, the 16 payload rows of each tile's live "
+                  "big lanes, each processed block and the output once; "
+                  f"operations: {RENDER_OPS_PER_LANE} per (pixel, chain lane "
+                  f"past the coverage gate), {RENDER_OPS_PER_BIG} per (pixel,"
+                  " live big lane), its log-alpha evaluated in the kernel")
 BOUND_COUNTS = {
     "projection": ("bytes: the splat arrays read and the words written once; "
                    f"operations: {PROJ_OPS_PER_SPLAT} per splat"),
-    "render_v3": _V3_COUNTS,
-    "render_v3_cooked": _V3_COUNTS,
-    "render_v4": ("as render_v3, but the big lanes' log-alpha maps are read "
-                  f"once and {RENDER_OPS_PER_BIG} operations counted per "
-                  "(pixel, live big lane)"),
+    "render_v3": _RENDER_COUNTS,
+    "render_v3_cooked": _RENDER_COUNTS,
+    "render_v4": _RENDER_COUNTS,
 }
 
 
@@ -207,18 +213,12 @@ def phase_device() -> str:
            for t, u in ((32, 2), (16, 4)) for c in (0, 1)}
     log(f"[1 device] render_v3 resident blocks on the card: {json.dumps(occ)}")
     lib = kernels.library("render_v4")
-    have = lib.gs_smem_optin()
-    shapes = []
-    for tile, U in ((32, 2), (16, 4), (32, 4), (16, 2)):
-        for GT in (1, 2, 3, 4):
-            need = lib.gs_render_v4_smem_bytes(U, GT, 128)
-            fits = need <= have
-            shapes.append({"tile": tile, "U": U, "GT": GT, "smem": need,
-                           "fits": fits, "resident_blocks":
-                           rv.resident_blocks("render_v4", tile, U, GT, 128)
-                           if fits else None})
-    log(f"[1 device] render_v4 shared memory per block at OBIG 128 (opt-in "
-        f"limit {have} B): {json.dumps(shapes)}")
+    shapes = [{"tile": tile, "U": U,
+               "smem_per_cta": lib.gs_render_v4_smem_bytes(U, 128),
+               "resident_ctas": rv.resident_blocks("render_v4", tile, U, 128)}
+              for tile, U in ((32, 2), (16, 4), (32, 4), (16, 2))]
+    log(f"[1 device] render_v4 at OBIG 128, one tile a CTA, any GT: "
+        f"{json.dumps(shapes)}")
     return card
 
 
@@ -346,17 +346,15 @@ def active_lanes(args, processed) -> tuple[int, int]:
     return n, tile.numel() * payload.shape[2]
 
 
-def render_bound(args, processed: torch.Tensor, maps: bool = False):
+def render_bound(args, processed: torch.Tensor):
     """Work of one render call from this run's data: ``processed`` blocks
     per tile (output channel 5). Bytes: the tile rows, the 16 payload rows
     of each tile's live big lanes and the payload of each distinct
-    processed block read once, the (TG, 8, NPX) output written once; with
-    ``maps`` (the v4 kernel) also the big lanes' log-alpha maps. Operations:
-    RENDER_OPS_PER_LANE per (pixel, lane of a processed block that passes
-    the tile's coverage gate), and per (pixel, live big lane)
-    RENDER_OPS_PER_BIG_EVAL (the v3 kernel evaluates the log-alpha) or,
-    with ``maps``, RENDER_OPS_PER_BIG. Returns the bound and the share of
-    the processed blocks' lanes that pass the gate."""
+    processed block read once, the (TG, 8, NPX) output written once.
+    Operations: RENDER_OPS_PER_LANE per (pixel, lane of a processed block
+    that passes the tile's coverage gate), and RENDER_OPS_PER_BIG per
+    (pixel, live big lane). Returns the bound and the share of the
+    processed blocks' lanes that pass the gate."""
     rows, payload, bigpay, _, cfg = args[:5]
     TG = rows.shape[0]
     NPX = cfg.tile_size ** 2
@@ -364,11 +362,9 @@ def render_bound(args, processed: torch.Tensor, maps: bool = False):
     lane_bytes = payload[0].numel() * payload.element_size()
     n_big = int(rows[:, 0, 4].sum())
     n_bytes = (nbytes(rows) + n_big * bigpay.shape[1] * 4
-               + (n_big * NPX * 4 if maps else 0)
                + n_blocks * lane_bytes + TG * 8 * NPX * 4)
     active, lanes = active_lanes(args, processed)
-    per_big = RENDER_OPS_PER_BIG if maps else RENDER_OPS_PER_BIG_EVAL
-    n_ops = (active * RENDER_OPS_PER_LANE + n_big * per_big) * NPX
+    n_ops = (active * RENDER_OPS_PER_LANE + n_big * RENDER_OPS_PER_BIG) * NPX
     return bound(n_bytes, n_ops), active / max(lanes, 1)
 
 
@@ -410,22 +406,22 @@ def v3_kernel(args, early_exit: bool = True):
                            early_exit)
 
 
+def v4_kernel(args, GT: int, early_exit: bool = True):
+    """The v4 kernel on the plain version's arguments: it takes no big
+    log-alpha maps."""
+    rows, payload, bigpay, _, cfg, U, max_batches = args
+    return r4._render_v4_cuda(rows, payload, bigpay, cfg, U, max_batches, GT,
+                              early_exit)
+
+
 def _hold_v4_to_v3(tag, t4, t3, cfg) -> None:
-    """The v4 kernel against the cooked v3 kernel on the same inputs: RGB
-    PSNR >= 60 dB, t_final within 1e-3, channels 5-7 equal. The two sum
-    in other orders (v3 evaluates the big lanes' log-alphas itself and
-    sums the chain mass behind them as differences)."""
-    i4, tf4 = r4.assemble_image_v4(t4, cfg)
-    i3, tf3 = rv.assemble_image_v3(t3, cfg)
-    p = psnr(i4, i3)
-    tf_err = float((tf4 - tf3).abs().max())
-    same = torch.equal(r4.tile_channels_v4(t4, cfg)[..., 5:],
-                       rv.tile_channels_v3(t3, cfg)[..., 5:])
-    log(f"[{tag}] vs the cooked v3 kernel: PSNR {p:.2f} dB, max |d "
-        f"t_final| {tf_err:.3g}, channels 5-7 equal {same}")
-    check(p >= 60.0, f"{tag}: v4 vs cooked v3 PSNR {p:.2f} dB < 60")
-    check(tf_err <= 1e-3, f"{tag}: v4 vs cooked v3 t_final error {tf_err}")
-    check(same, f"{tag}: v4 and cooked v3 differ in channels 5-7")
+    """The v4 kernel against the cooked v3 kernel on the same inputs:
+    bit-equal in all 8 channels of every true tile (both run the same
+    per-tile pipeline)."""
+    same = torch.equal(r4.tile_channels_v4(t4, cfg),
+                       rv.tile_channels_v3(t3, cfg))
+    log(f"[{tag}] bit-equal to the cooked v3 kernel: {same}")
+    check(same, f"{tag}: v4 and cooked v3 kernels differ")
 
 
 def _render_vs_plain(tag, args):
@@ -437,11 +433,10 @@ def _render_vs_plain(tag, args):
     return tk, err
 
 
-def _time_render(tag, fn_kernel, fn_plain, args, processed,
-                 maps: bool = False):
+def _time_render(tag, fn_kernel, fn_plain, args, processed):
     ms = time_ms(fn_kernel, 10)
     plain_ms = time_ms(fn_plain, 2)
-    bnd, share = render_bound(args, processed, maps)
+    bnd, share = render_bound(args, processed)
     log(f"[{tag}] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
         f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}; lanes past the "
         f"coverage gate {100 * share:.1f}%)")
@@ -498,29 +493,34 @@ def phase_render_cooked(cloud, size: int) -> float:
 
 
 def phase_render_v4(cloud, sizes) -> float:
-    """Phase 3c: the v4 kernel against its plain version, and against the
-    cooked v3 kernel on the same inputs."""
+    """Phase 3c: the v4 kernel against its plain version, and bit-equal to
+    the cooked v3 kernel on the same inputs: tile 32 at each size, and
+    quality="fast" (tile 16) at the first."""
     worst = 0.0
-    for size in sizes:
-        cfg = gt.RasterizerConfig(width=size, height=size,
+    shapes = [gt.RasterizerConfig(width=size, height=size,
                                   kernel="v4").fast_defaults()
+              for size in sizes]
+    shapes.append(gt.RasterizerConfig(width=sizes[0], height=sizes[0],
+                                      quality="fast", kernel="v4"))
+    for i, cfg in enumerate(shapes):
         GT = cfg.lockstep_gt
         args = _frame_inputs(cloud, cfg, 1.0, words=False)
-        t4 = r4._render_v4_cuda(*args, GT, True)
+        t4 = v4_kernel(args, GT)
         t3 = v3_kernel(args)
         tr = r4.render_tiles_v4_reference(*args, GT, True)
         torch.cuda.synchronize()
         T = cfg.num_tiles
         T4 = t4.shape[0]
-        tag = (f"3c v4 {size}x{size} GT={GT}, {T} tiles in {T4} groups "
-               f"({T4 * GT - T} padded slots)")
+        w, h = cfg.target_size
+        tag = (f"3c v4 {w}x{h} tile {cfg.tile_size} U={args[5]} GT={GT}, {T} "
+               f"tiles in {T4} groups ({T4 * GT - T} padded slots)")
         worst = max(worst, _hold(tag, t4, tr, cfg, v4=True))
-        _hold_v4_to_v3(f"3c v4 {size}x{size}", t4, t3, cfg)
-        if size == sizes[0]:
+        _hold_v4_to_v3(f"3c v4 {w}x{h} tile {cfg.tile_size}", t4, t3, cfg)
+        if i == 0:
             _time_render(
-                "3c v4", lambda: r4._render_v4_cuda(*args, GT, True),
+                "3c v4", lambda: v4_kernel(args, GT),
                 lambda: r4.render_tiles_v4_reference(*args, GT, True),
-                args, t3[:, 5, 0], maps=True)
+                args, t3[:, 5, 0])
     return worst
 
 
@@ -583,7 +583,9 @@ def phase_frame(tag: str, cloud, cfg, frames: int, expect) -> dict:
 def profile_frames(tag: str, cloud, cfg, frames: int = 3) -> None:
     """torch.profiler over ``frames`` orbit frames (after a warm-up): the
     device's busy time (the union of its kernels' intervals) over the
-    device span, and the kernels with the most device time."""
+    device span, the kernels with the most device time and the matrix
+    products (gemm). A v4 frame must run none: its render kernel takes no
+    prepass_big_la maps."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     cams = gt.orbit_trajectory(frames, radius=5.0, target=(0, 0, 6.0))
@@ -620,6 +622,36 @@ def profile_frames(tag: str, cloud, cfg, frames: int = 3) -> None:
         f"{json.dumps({n[:60]: round(t / 1e3 / frames, 3) for n, t in top})}")
     log(f"[{tag} profile] matrix products (gemm), launches and device ms per "
         f"frame: {json.dumps({n: [c / frames, round(t / 1e3 / frames, 3)] for n, (c, t) in gemms.items()})}")
+    if cfg.kernel == "v4" and cfg.projection_kernel:
+        check(not gemms, f"{tag} profile: the v4 frame runs a gemm")
+
+
+def _processed(tiles, cfg):
+    """Blocks processed per true tile (output channel 5) of a v3 or v4
+    kernel's output."""
+    if cfg.kernel == "v4":
+        return r4.tile_channels_v4(tiles, cfg)[:, 0, 5]
+    return tiles[:, 5, 0]
+
+
+def lockstep_sharing(rows, processed, GT: int, U: int) -> dict:
+    """Of the chain blocks the GT tiles of a group fetch at the same batch
+    k (each tile's processed list positions k*U .. k*U+U-1), the distinct
+    (group, k, block) fetches and the share of them that two or more of
+    the group's tiles make: what one TMA multicast across the group's
+    cluster could load once. Counted on the host from the rows."""
+    T = rows.shape[0]
+    ids = rows[:, 1:3].reshape(T, 256).to(torch.int64) & 0x7FFFFF
+    pos = torch.arange(256, device=rows.device)[None]
+    tile, slot = torch.nonzero(pos < processed[:, None], as_tuple=True)
+    key = ((tile // GT) * 256 + slot // U) << 23 | ids[tile, slot]
+    # a tile fetches a block once per batch
+    key = torch.unique(torch.stack([key, tile]), dim=1)[0]
+    _, counts = torch.unique(key, return_counts=True)
+    return {"fetches": int(key.numel()), "distinct": int(counts.numel()),
+            "shared_by_2_or_more": int((counts >= 2).sum()),
+            "share": float((counts >= 2).sum()) / max(int(counts.numel()), 1),
+            "fetches_saved": 1.0 - counts.numel() / max(key.numel(), 1)}
 
 
 def _render_1080p(name, cfg, args, kernel, plain) -> dict:
@@ -628,32 +660,32 @@ def _render_1080p(name, cfg, args, kernel, plain) -> dict:
     tk = kernel()
     tr, plain_ms = time_once(plain)
     v4 = name == "render_v4"
-    processed = (r4.tile_channels_v4(tk, cfg)[:, 0, 5] if v4
-                 else tk[:, 5, 0])
+    processed = _processed(tk, cfg)
     tag = (f"6 {name} 1080p tile {cfg.tile_size} U={args[5]}"
            f"{f' GT={cfg.lockstep_gt}' if v4 else ''}")
     err = _hold(f"{tag}; {_describe(args[0], processed)}", tk, tr, cfg, v4)
-    del tk, tr
     ms = time_ms(kernel, 5)
-    bnd, share = render_bound(args, processed, maps=v4)
+    bnd, share = render_bound(args, processed)
     log(f"[{tag}] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (one call, "
         f"tiles in chunks), bound {bnd['bound_ms']:.4f} ms "
         f"({bnd['bound_by']}; lanes past the coverage gate "
         f"{100 * share:.1f}%)")
     return {"err": err, "ms": ms, "plain_ms": plain_ms, "bnd": bnd,
-            "processed": processed}
+            "processed": processed, "kernel_out": tk, "plain_out": tr}
 
 
 def phase_kernels_1080p(cloud, base, worst: dict) -> list:
     """Phase 6: every kernel on the inputs of the 1080p frame that runs it
     (the reset camera), held to its plain version and timed beside its
-    bound; the v4 kernel at GT 1, 2 and 4 also held to the cooked v3
-    kernel. Returns the kernels' records (``worst``: the largest error of
-    the earlier phases)."""
+    bound; the v4 kernel at GT 1, 2 and 4 (tile 32) and 4 (tile 16) also
+    held bit-equal to the cooked v3 kernel and timed beside it. Returns the
+    kernels' records (``worst``: the largest error of the earlier
+    phases)."""
     e, ms, plain_ms, bnd = projection_vs_plain(
         "6 projection 1080p", cloud, base.fast_defaults(), 2)
     rec = [record("projection", max(worst["projection"], e), ms, plain_ms,
                   bnd)]
+    runs = {}
     for name, cfg, words in (
             ("render_v3", base.fast_defaults(), True),
             ("render_v3_cooked", base.replace(quality="fast"), False),
@@ -662,7 +694,7 @@ def phase_kernels_1080p(cloud, base, worst: dict) -> list:
         GT = cfg.lockstep_gt
         if name == "render_v4":
             r = _render_1080p(
-                name, cfg, args, lambda: r4._render_v4_cuda(*args, GT, True),
+                name, cfg, args, lambda: v4_kernel(args, GT),
                 lambda: r4.render_tiles_v4_reference(*args, GT, True))
         else:
             r = _render_1080p(
@@ -670,15 +702,36 @@ def phase_kernels_1080p(cloud, base, worst: dict) -> list:
                 lambda: rv.render_tiles_v3_reference(*args, True))
         rec.append(record(name, max(worst[name], r["err"]), r["ms"],
                           r["plain_ms"], r["bnd"]))
-    # the last args are the v4 frame's cooked tile-32 inputs
-    t3 = v3_kernel(args)
-    res = {"render_v3_cooked tile 32 U=2": time_ms(lambda: v3_kernel(args),
-                                                   5)}
-    for GT in (1, 2, 4):
-        t4 = r4._render_v4_cuda(*args, GT, True)
-        _hold_v4_to_v3(f"6 v4 GT={GT} 1080p", t4, t3, cfg)
-        res[f"render_v4 GT={GT} tile 32 U=2"] = time_ms(
-            lambda: r4._render_v4_cuda(*args, GT, True), 5)
+        runs[name] = (cfg, args, r)
+    del runs["render_v3"]
+    cfg, args, r = runs["render_v4"]   # the v4 frame's tile-32 inputs
+    share = lockstep_sharing(args[0], r["processed"], cfg.lockstep_gt,
+                             args[5])
+    log(f"[6 v4 lockstep sharing 1080p] chain-block fetches of a group's "
+        f"tiles at one batch: {json.dumps(share)}")
+    res = {"bound tile 32": r["bnd"]}
+    # tile 32 on the v4 frame's inputs; tile 16 on the quality="fast"
+    # frame's, where the cooked v3 kernel's output and its plain version's
+    # are those just held to each other
+    for name in ("render_v4", "render_v3_cooked"):
+        cfg, args, r = runs[name]
+        t3 = v3_kernel(args) if name == "render_v4" else r["kernel_out"]
+        v3_ms = [time_ms(lambda: v3_kernel(args), 5)]
+        for GT in ((1, 2, 4) if cfg.tile_size == 32 else (4,)):
+            t4 = v4_kernel(args, GT)
+            tag = f"6 v4 tile {cfg.tile_size} GT={GT} 1080p"
+            _hold_v4_to_v3(tag, t4, t3, cfg.replace(lockstep_gt=GT))
+            if cfg.tile_size == 16:
+                as_v3 = r4.tile_channels_v4(t4, cfg).transpose(1, 2)
+                _hold(tag, as_v3.contiguous(), r["plain_out"], cfg)
+            res[f"render_v4 tile {cfg.tile_size} U={args[5]} GT={GT}"] = (
+                time_ms(lambda: v4_kernel(args, GT), 5))
+            del t4
+        v3_ms.append(time_ms(lambda: v3_kernel(args), 5))
+        res[f"render_v3_cooked tile {cfg.tile_size} U={args[5]}, before "
+            f"and after"] = v3_ms
+        if cfg.tile_size == 16:
+            res["bound tile 16"] = r["bnd"]
     log(f"[6 v4 vs cooked v3 1080p] kernel ms on the same inputs "
         f"{json.dumps(res)}")
     return rec
@@ -704,7 +757,9 @@ def main() -> int:
               ("5 frame v4", base.replace(kernel="v4").fast_defaults(),
                ("projection", "render_v4")),
               ("5 frame quality=fast", base.replace(quality="fast"),
-               ("render_v3_cooked",)))
+               ("render_v3_cooked",)),
+              ("5 frame quality=fast v4",
+               base.replace(quality="fast", kernel="v4"), ("render_v4",)))
     for tag, cfg, expect in frames:
         counts = phase_frame(tag, cloud, cfg, 8, expect)
         for name in expect:

@@ -1,5 +1,5 @@
-"""A/B timing of the v3 render kernel, both entry points: this checkout's
-against another checkout's, in one process, on the same inputs.
+"""A/B timing of the render kernels (v3, both entry points, and v4): this
+checkout's against another checkout's, in one process, on the same inputs.
 
     python3 -m godotgaussiansplatting_torch.ab_render OTHER_CHECKOUT
 
@@ -10,14 +10,16 @@ one; each builds its kernels from its own sources. The inputs are made once
 with this checkout's pipeline under the reset camera: 200K splats at
 512x512 (chip_smoke.py's phases 3 and 3b) and the 5.8M-splat scene at
 1920x1080 (phase 6), each under fast_defaults() (the word payload,
-``gs_render_v3``) and RasterizerConfig(quality="fast") (the cooked payload,
-``gs_render_v3_cooked``). A side whose ``_render_cuda`` takes the big
-log-alpha maps (``bigla``) computes them with its own ``prepass_big_la``
-inside each timed call, as its frame does. The script prints both
-render_v3 libraries' ptxas reports (registers, stack frame, spills), the
-RGB PSNR and largest difference between the two outputs, and the ms per
-call of 20 calls of each side (CUDA events, after a warm-up call) in the
-order other, this, this, other, three times. Needs a CUDA device.
+``gs_render_v3``), RasterizerConfig(quality="fast") (the cooked payload,
+``gs_render_v3_cooked``) and RasterizerConfig(kernel="v4").fast_defaults()
+(the cooked payload into ``gs_render_v4`` at GT 4). A side whose
+``_render_cuda`` or ``_render_v4_cuda`` takes the big log-alpha maps
+(``bigla``) computes them with its own ``prepass_big_la`` inside each timed
+call, as its frame does. The script prints both sides' render_v3 and
+render_v4 ptxas reports (registers, stack frame, spills), the RGB PSNR,
+the largest difference and whether the two outputs are bit-equal, and the
+ms per call of 20 calls of each side (CUDA events, after a warm-up call) in
+the order other, this, this, other, three times. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ import godotgaussiansplatting_torch as gt
 from godotgaussiansplatting_torch import kernels
 from godotgaussiansplatting_torch.ops import projection_kernel as pk
 from godotgaussiansplatting_torch.ops import render_v3 as rv
+from godotgaussiansplatting_torch.ops import render_v4 as r4
 from godotgaussiansplatting_torch.ops.bigbin import bin_bigs
 from godotgaussiansplatting_torch.ops.binning2 import bin_blocks2
 from godotgaussiansplatting_torch.ops.blocks2 import (
@@ -63,7 +66,8 @@ def scene_cloud(tag: str):
 
 
 def import_other(root: Path):
-    """The other checkout's render_v3 and kernels modules, as gsother."""
+    """The other checkout's render_v3 and kernels modules, as gsother (its
+    render_v4 is gsother.ops.render_v4)."""
     dst = AB_DIR / "gsother"
     shutil.rmtree(dst, ignore_errors=True)
     shutil.copytree(root / "godotgaussiansplatting_torch", dst,
@@ -94,15 +98,17 @@ def frame_inputs(cloud, cfg):
     return rows, bf.payload, tbig.bigpay, cfg, U, max_batches
 
 
-def _call(mod, args):
-    """One call of a side's v3 kernel wrapper, with its own big log-alpha
-    maps when it takes them."""
+def _call(mod, mod4, args):
+    """One call of a side's render kernel wrapper (v4 when the config says
+    so), with its own big log-alpha maps when it takes them."""
     rows, payload, bigpay, cfg, U, mb = args
-    if "bigla" in inspect.signature(mod._render_cuda).parameters:
-        return mod._render_cuda(rows, payload, bigpay,
-                                mod.prepass_big_la(bigpay, cfg), cfg, U, mb,
-                                True)
-    return mod._render_cuda(rows, payload, bigpay, cfg, U, mb, True)
+    v4 = cfg.kernel == "v4"
+    fn = mod4._render_v4_cuda if v4 else mod._render_cuda
+    more = (cfg.lockstep_gt, True) if v4 else (True,)
+    if "bigla" in inspect.signature(fn).parameters:
+        return fn(rows, payload, bigpay, mod.prepass_big_la(bigpay, cfg),
+                  cfg, U, mb, *more)
+    return fn(rows, payload, bigpay, cfg, U, mb, *more)
 
 
 def time_ms(fn, reps: int = 20) -> float:
@@ -118,42 +124,52 @@ def time_ms(fn, reps: int = 20) -> float:
     return a.elapsed_time(b) / reps
 
 
-def _ptxas(lib_module) -> list:
-    """The stack, spill and register lines of a render_v3 build log."""
-    logs = sorted(Path(lib_module.BUILD_DIR).glob("librender_v3-*.log"))
+def _ptxas(lib_module, name: str) -> list:
+    """The stack, spill and register lines of a render library's build
+    log."""
+    logs = sorted(Path(lib_module.BUILD_DIR).glob(f"lib{name}-*.log"))
     return [ln.strip() for ln in logs[-1].read_text().splitlines()
             if "stack" in ln or "registers" in ln] if logs else []
 
 
 def _compare(a, b, cfg) -> str:
-    ia, ib = (rv.assemble_image_v3(t, cfg)[0][:3].clamp(0, 1) for t in (a, b))
+    asm, chans = ((r4.assemble_image_v4, r4.tile_channels_v4)
+                  if cfg.kernel == "v4"
+                  else (rv.assemble_image_v3, rv.tile_channels_v3))
+    ia, ib = (asm(t, cfg)[0][:3].clamp(0, 1) for t in (a, b))
     mse = float(((ia - ib) ** 2).mean())
+    ca, cb = chans(a, cfg), chans(b, cfg)
     return (f"PSNR {10 * np.log10(1.0 / max(mse, 1e-20)):.2f} dB, max |d| "
-            f"{float((a[:, :5] - b[:, :5]).abs().max()):.3g}, channels 5-7 "
-            f"equal {torch.equal(a[:, 5:], b[:, 5:])}")
+            f"{float((ca[..., :5] - cb[..., :5]).abs().max()):.3g}, channels "
+            f"5-7 equal {torch.equal(ca[..., 5:], cb[..., 5:])}, bit-equal "
+            f"{torch.equal(a, b)}")
 
 
 def main(argv) -> int:
     if len(argv) != 1 or not torch.cuda.is_available():
         raise SystemExit(__doc__)
     other_rv, other_kernels = import_other(Path(argv[0]).resolve())
-    kernels.library("render_v3")
-    other_kernels.library("render_v3")
-    print("ptxas render_v3, other:", json.dumps(_ptxas(other_kernels)))
-    print("ptxas render_v3, this:", json.dumps(_ptxas(kernels)))
+    other_r4 = importlib.import_module("gsother.ops.render_v4")
+    for name in ("render_v3", "render_v4"):
+        kernels.library(name)
+        other_kernels.library(name)
+        print(f"ptxas {name}, other:", json.dumps(_ptxas(other_kernels, name)))
+        print(f"ptxas {name}, this:", json.dumps(_ptxas(kernels, name)))
     for tag in SCENES:
         cloud, base = scene_cloud(tag)
         for entry, cfg in (("words", base.fast_defaults()),
-                           ("cooked", base.replace(quality="fast"))):
+                           ("cooked", base.replace(quality="fast")),
+                           ("v4", base.replace(kernel="v4").fast_defaults())):
             args = frame_inputs(cloud, cfg)
-            fns = {"other": lambda: _call(other_rv, args),
-                   "this": lambda: _call(rv, args)}
+            fns = {"other": lambda: _call(other_rv, other_r4, args),
+                   "this": lambda: _call(rv, r4, args)}
             cmp = _compare(fns["other"](), fns["this"](), cfg)
             ms = {k: [] for k in fns}
             for _ in range(3):
                 for who in ("other", "this", "this", "other"):
                     ms[who].append(time_ms(fns[who]))
-            print(f"{tag} {entry} (tile {cfg.tile_size}, U={args[4]}): "
+            print(f"{tag} {entry} (tile {cfg.tile_size}, U={args[4]}"
+                  f"{f', GT={cfg.lockstep_gt}' if entry == 'v4' else ''}): "
                   f"{cmp}; ms per call {json.dumps(ms)}", flush=True)
             del args, fns
         del cloud

@@ -1,11 +1,20 @@
-// Per-tile device code of the render kernels. Shared by render_v3.cu and
-// render_v4.cu: the lane slots, the decode of both chain payloads
-// (lane_key, lane_store), the resident big lanes' rank, depth and colour,
-// and the present. The v4 lockstep kernel's own: the block bitonic rank
-// sort and the per-pixel batch composite with its emit merges, which read
-// the big lanes' log-alpha maps (the v3 kernel has its own composite, see
-// render_v3.cu). Built with --fmad=false, so every recomputation of a
-// lane's alpha is bit-identical to the others.
+// The render kernels, v3 (render_v3.cu's entry points) and v4
+// (render_v4.cu's), and their host-side launch.
+//
+// Both run one per-tile pipeline, one tile a thread block (CTA), with
+// persistent CTAs walking the tiles in row-major order (render_tiles): the
+// decode of both chain payloads (lane_key, lane_store), the 1D TMA fetch of
+// a batch's chain blocks (fetch_batch), the rank count into a ring of three
+// batches, the per-pixel composite with its lag-1 and big-lane merges
+// (composite_batch, emit_batch), the resident big lanes evaluated in the
+// kernel (load_big, finish_tile) and the present. The two kernels differ
+// only in their output: v3's is (TG, 8, NPX) channel-major; v4's is the
+// JAX v4 kernel's (T4, GT * NPX, 8) pixel-major layout, with the tile list
+// padded to T4 * GT slots by empty tiles. The design, and what bounds both
+// (the issue of the per-(pixel, lane) exp and log), are in render_v3.cu's
+// header. Built with --fmad=false, so every recomputation of a lane's
+// alpha is bit-identical to the others, and both kernels give bit-identical
+// outputs for the same tile.
 
 #pragma once
 
@@ -21,6 +30,20 @@ constexpr int NF = 10;            // floats per lane slot entry: 6 F, 3 rgb, ran
 constexpr float ALPHA_MAX = 0.99994f;
 constexpr float LOG_MIN_ALPHA = -5.54126354515843f;
 constexpr uint64_t NO_KEY = ~0ull;  // sort key of a lane that is not active
+
+// Pixels a thread owns, and the blocks an SM should hold, at each tile size
+// (PERF.md section 6 has the measurement that chose them).
+constexpr int PPT_TILE16 = 1;
+constexpr int PPT_TILE32 = 4;
+constexpr int MIN_BLOCKS_TILE16 = 2;
+constexpr int MIN_BLOCKS_TILE32 = 2;
+
+// TG tiles in row-major order (gx a row), U chain blocks a batch, OB
+// resident big-lane slots a tile; v4 writes `slots` tile slots (TG rounded
+// up to a multiple of GT).
+struct Params {
+  int TG, gx, U, max_batches, OB, early_exit, slots;
+};
 
 struct Slot {
   float* f;        // [6][US] power features f0u..f5 at the tile origin
@@ -45,26 +68,6 @@ __device__ __forceinline__ Pix pixel_of(int p, int T) {
   q.yy = q.y * q.y;
   q.xy = q.x * q.y;
   return q;
-}
-
-__host__ __device__ __forceinline__ int pow2_ceil(int n) {
-  int k = 1;
-  while (k < n) k <<= 1;
-  return k;
-}
-
-__device__ __forceinline__ float lane_alpha(const Slot& sl, int US, int j,
-                                            const Pix& q) {
-  const float* f = sl.f;
-  float power = f[j] + q.x * f[US + j] + q.y * f[2 * US + j] +
-                q.xx * f[3 * US + j] + q.yy * f[4 * US + j] +
-                q.xy * f[5 * US + j];
-  return fminf(expf(power), ALPHA_MAX);
-}
-
-__device__ __forceinline__ float lane_la(const Slot& sl, int US, int j,
-                                         const Pix& q) {
-  return log1pf(-lane_alpha(sl, US, j, q));
 }
 
 // The two chain payloads. A chain block's lanes are contiguous: 8 u32 rows
@@ -190,154 +193,244 @@ __device__ __forceinline__ void lane_store<true>(const void* blk, int ln,
   dst.rgb[2 * US + i] = w[8 * S];
 }
 
-// Decode lane ln of chain block bid into entry l of the staging slot, with
-// the power features at the tile origin (ox, oy). Returns the lane's sort
-// key (rank << 32 | l), or NO_KEY when the lane is invalid or does not
-// cover the tile.
-template <bool COOKED>
-__device__ __forceinline__ uint64_t decode_lane(const void* payload, int bid,
-                                                int ln, int l, float ox,
-                                                float oy, float tsz,
-                                                const Slot& stg, int US) {
-  const void* blk = block_at<COOKED>(payload, bid);
-  const uint64_t key = lane_key<COOKED>(blk, ln, ox, oy, tsz);
-  if (key == NO_KEY) return NO_KEY;
-  lane_store<COOKED>(blk, ln, ox, oy, stg, l, US);
-  stg.rank[l] = (uint32_t)(key >> 32);
-  return key | (uint64_t)l;
+// --- 1D TMA: cp.async.bulk completing on an mbarrier -----------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-// Sort each of nseg consecutive runs of NK keys (NK a power of two)
-// ascending; runs whose bit in `live` is clear are left as they are. Every
-// thread of the block calls it; it ends with a barrier.
-__device__ __forceinline__ void bitonic_sort(uint64_t* keys, int NK, int nseg,
-                                             unsigned live, int tid,
-                                             int nthr) {
-  const int n = NK * nseg;
-  const int lg = __ffs(NK) - 1;  // log2(NK): run of key i is i >> lg
-  for (int size = 2; size <= NK; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int i = tid; i < n; i += nthr) {
-        const int j = i ^ stride;
-        if (j > i && ((live >> (i >> lg)) & 1u)) {
-          const uint64_t a = keys[i], b = keys[j];
-          const bool asc = ((i & (NK - 1)) & size) == 0;
-          if ((a > b) == asc) {
-            keys[i] = b;
-            keys[j] = a;
-          }
-        }
-      }
-      __syncthreads();
-    }
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// Fetch batch k's chain blocks into buf (one thread calls it).
+template <bool COOKED>
+__device__ __forceinline__ void fetch_batch(const void* payload,
+                                            const int32_t* row, int k, int U,
+                                            unsigned char* buf, uint32_t bar) {
+  constexpr int BB = Payload<COOKED>::BLOCK_BYTES;
+  const int nblk = min(U, row[0] - k * U);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar), "r"(nblk * BB)
+               : "memory");
+  for (int u = 0; u < nblk; ++u) {
+    const int bid = row[128 + k * U + u] & 0x7FFFFF;
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(buf + u * BB)),
+        "l"(block_at<COOKED>(payload, bid)), "r"(BB), "r"(bar)
+        : "memory");
   }
 }
 
-// Move sorted entry i from the staging slot into the ring slot; the last
-// active entry records the active count in *nact.
-__device__ __forceinline__ void gather_sorted(const uint64_t* keys, int i,
-                                              int NK, int US,
-                                              const Slot& stg,
-                                              const Slot& cur, int* nact) {
-  const uint64_t key = keys[i];
-  if (key == NO_KEY) return;
-  const int l = (int)(key & 0xFFFFFFFFu);
-  for (int r = 0; r < 6; ++r) cur.f[r * US + i] = stg.f[r * US + l];
-  for (int c = 0; c < 3; ++c) cur.rgb[c * US + i] = stg.rgb[c * US + l];
-  cur.rank[i] = stg.rank[l];
-  if (i + 1 == NK || keys[i + 1] == NO_KEY) *nact = i + 1;
+// --- shared memory ----------------------------------------------------------
+
+// Byte offsets of the dynamic shared memory: the TMA staging buffer (U
+// blocks), the ring of 3 lane slots, the compacted sort keys, then the
+// resident big lanes' tables (features at the tile origin, colour, depth,
+// rank, straddle prefix, coverage flag, touched flag).
+struct Layout {
+  size_t buf, ring, keys, bigf, brgb, bd, brank, prefix, bon, touched, total;
+};
+
+__host__ __device__ inline Layout smem_layout(int U, int OB, int block_bytes) {
+  const int US = U * S;
+  Layout L;
+  size_t o = 0;
+  L.buf = o;
+  o += (size_t)U * block_bytes;
+  L.ring = o;
+  o += sizeof(float) * 3 * NF * US;
+  L.keys = o;
+  o += sizeof(uint64_t) * US;
+  L.bigf = o;
+  o += sizeof(float) * 6 * OB;
+  L.brgb = o;
+  o += sizeof(float) * 3 * OB;
+  L.bd = o;
+  o += sizeof(float) * OB;
+  L.brank = o;
+  o += sizeof(uint32_t) * OB;
+  L.prefix = o;
+  o += sizeof(int) * 128;
+  L.bon = o;
+  o += OB;
+  L.touched = o;
+  o += OB;
+  L.total = o;
+  return L;
 }
 
-// Resident big lane b of a tile's (16, OB) big payload: its rank, depth and
-// colour (colour rows obs apart).
-__device__ __forceinline__ void load_big_lane(const float* bp, int OB, int b,
-                                              uint32_t* brank, float* bd,
-                                              float* brgb, int obs) {
-  const float d = bp[12 * OB + b];
-  const int idx = __float_as_int(bp[13 * OB + b]);
-  const uint32_t di = (uint32_t)(int)fminf(d, 65535.0f);
-  brank[b] = (di << 16) | ((uint32_t)(idx >> 7) & 0xFFFFu);
-  bd[b] = d;
-  for (int c = 0; c < 3; ++c) brgb[c * obs + b] = bp[(6 + c) * OB + b];
+// --- per-(pixel, lane) evaluation --------------------------------------------
+
+struct Feat {
+  float f0, f1, f2, f3, f4, f5;
+};
+
+// Entry j of a lane table whose six feature rows are `stride` apart.
+__device__ __forceinline__ Feat feat_at(const float* f, int stride, int j) {
+  return Feat{f[j],              f[stride + j],     f[2 * stride + j],
+              f[3 * stride + j], f[4 * stride + j], f[5 * stride + j]};
 }
 
-// Emit one batch (slot m) for this thread's pixel. A (the batch before it)
-// and C (the batch after it) take part only when useA / useC say that their
-// depth ranges overlap this batch's (the lag-1 corrections). The slots are
+__device__ __forceinline__ float alpha_at(const Feat& f, const Pix& q) {
+  const float power = f.f0 + q.x * f.f1 + q.y * f.f2 + q.xx * f.f3 +
+                      q.yy * f.f4 + q.xy * f.f5;
+  return fminf(__expf(power), ALPHA_MAX);
+}
+
+// log(1 - alpha) on the SFU: log1pf costs about as much as the rest of an
+// evaluation; alpha <= ALPHA_MAX keeps the argument >= 6e-5.
+__device__ __forceinline__ float log_transmit(float alpha) {
+  return __logf(1.0f - alpha);
+}
+
+__device__ __forceinline__ float la_at(const Feat& f, const Pix& q) {
+  return log_transmit(alpha_at(f, q));
+}
+
+// A tile's tables, and where this thread's pixels are.
+struct Tile {
+  const int32_t* row;       // its (8, 128) header rows
+  int nbig, US, OB, tid;
+  float* ring;              // 3 lane slots
+  const int* nact;          // active lanes of each ring slot
+  const int* prefix;        // [128] big depth-bucket prefix (straddle gate)
+  const float* bigf;        // [6][OB] big features at the tile origin
+  const float* brgb;        // [3][OB]
+  const float* bd;          // [OB] big depth16 (integer-valued)
+  const uint32_t* brank;    // [OB] big rank, non-decreasing
+  const unsigned char* bon;  // [OB] big lane covers the tile
+  unsigned char* touched;   // [OB] difference-array entry written
+  float* dz;                // (OB, NPX) difference array (device scratch)
+};
+
+// Per-pixel running state, PPT pixels.
+template <int PPT>
+struct PixState {
+  float acc[PPT][3];
+  float tcar[PPT];  // chain mass so far
+  float bf[PPT];    // log-alpha of the big lanes in front of the batch
+  float T1[PPT], bf1[PPT], tot1[PPT];  // of the batch pending emit (k-1)
+  float tot2[PPT];                     // total of batch k-2
+};
+
+// Block-uniform part.
+struct TileState {
+  int pbmin, pbmax;    // depth range of batch k-1
+  bool ovl1, strad1;   // batch k-1 overlaps k-2 / straddles a big lane
+  int jf, jf1;         // big lanes in front of batch k / k-1
+  int fmin;            // the min depth that jf was advanced to
+};
+
+// Add v to the difference-array entry of big lane b (b < nbig).
+template <int T, int PPT>
+__device__ __forceinline__ void add_dz(const Tile& tl, int b,
+                                       const float (&v)[PPT]) {
+  constexpr int NT = T * T / PPT;
+#pragma unroll
+  for (int i = 0; i < PPT; ++i)
+    tl.dz[(size_t)b * T * T + tl.tid + i * NT] += v[i];
+  if (tl.tid == 0) tl.touched[b] = 1;
+}
+
+// Emit one batch (slot m) for this thread's pixels. A (the batch before
+// it) and C (the batch after it) take part only when useA / useC say that
+// their depth ranges overlap this batch's (the lag-1 corrections). With
+// strad, the big lanes from jb on are merged by rank, on top of bfb (the
+// big lanes before jb); otherwise bfb is part of base. The slots are
 // passed by value with flags, not as nullable pointers: a pointer to a
 // local Slot would keep it in local memory.
+template <int PPT>
 __device__ __forceinline__ void emit_batch(
-    const Slot m, int nm, float base, const Slot A, bool useA, int nA,
-    float totA, const Slot C, bool useC, int nC, bool strad, int nbig,
-    const uint32_t* brank, const float* lab, int NPX, int p, int US,
-    const Pix& q, float acc[3]) {
-  int ia = 0, ic = 0, ib = 0;
-  float accA = 0.0f, accC = 0.0f, accB = 0.0f;
-  float run = 0.0f, grp = 0.0f;
+    const Tile& tl, const Slot m, int nm, const float (&base)[PPT],
+    const Slot A, bool useA, int nA, const float (&totA)[PPT], const Slot C,
+    bool useC, int nC, bool strad, int jb, const float (&bfb)[PPT],
+    const Pix (&q)[PPT], float (&acc)[PPT][3]) {
+  const int US = tl.US;
+  int ia = 0, ic = 0, ib = jb;
+  float accA[PPT], accC[PPT], accB[PPT], run[PPT], grp[PPT];
+#pragma unroll
+  for (int i = 0; i < PPT; ++i) {
+    accA[i] = accC[i] = run[i] = grp[i] = 0.0f;
+    accB[i] = strad ? bfb[i] : 0.0f;
+  }
   uint32_t grank = nm > 0 ? m.rank[0] : 0u;
-  for (int i = 0; i < nm; ++i) {
-    const uint32_t r = m.rank[i];
+  for (int j = 0; j < nm; ++j) {
+    const uint32_t r = m.rank[j];
     if (r != grank) {
-      run += grp;
-      grp = 0.0f;
+#pragma unroll
+      for (int i = 0; i < PPT; ++i) {
+        run[i] += grp[i];
+        grp[i] = 0.0f;
+      }
       grank = r;
     }
     if (useA)
-      while (ia < nA && A.rank[ia] < r) accA += lane_la(A, US, ia++, q);
+      for (; ia < nA && A.rank[ia] < r; ++ia) {
+        const Feat f = feat_at(A.f, US, ia);
+#pragma unroll
+        for (int i = 0; i < PPT; ++i) accA[i] += la_at(f, q[i]);
+      }
     if (useC)
-      while (ic < nC && C.rank[ic] < r) accC += lane_la(C, US, ic++, q);
+      for (; ic < nC && C.rank[ic] < r; ++ic) {
+        const Feat f = feat_at(C.f, US, ic);
+#pragma unroll
+        for (int i = 0; i < PPT; ++i) accC[i] += la_at(f, q[i]);
+      }
     if (strad)
-      while (ib < nbig && brank[ib] < r) accB += lab[(size_t)(ib++) * NPX + p];
-    const float alpha = lane_alpha(m, US, i, q);
-    const float la = log1pf(-alpha);
-    float z = run + accB;
-    if (useA) z += accA - totA;
-    if (useC) z += accC;
-    const float w = expf(z + base) * alpha;
-    acc[0] += w * m.rgb[i];
-    acc[1] += w * m.rgb[US + i];
-    acc[2] += w * m.rgb[2 * US + i];
-    grp += la;
+      for (; ib < tl.nbig && tl.brank[ib] < r; ++ib) {
+        if (!tl.bon[ib]) continue;
+        const Feat f = feat_at(tl.bigf, tl.OB, ib);
+#pragma unroll
+        for (int i = 0; i < PPT; ++i) accB[i] += la_at(f, q[i]);
+      }
+    const Feat f = feat_at(m.f, US, j);
+    const float cr = m.rgb[j], cg = m.rgb[US + j], cb = m.rgb[2 * US + j];
+#pragma unroll
+    for (int i = 0; i < PPT; ++i) {
+      const float alpha = alpha_at(f, q[i]);
+      const float la = log_transmit(alpha);
+      float z = run[i] + accB[i];
+      if (useA) z += accA[i] - totA[i];
+      if (useC) z += accC[i];
+      const float w = __expf(z + base[i]) * alpha;
+      acc[i][0] += w * cr;
+      acc[i][1] += w * cg;
+      acc[i][2] += w * cb;
+      grp[i] += la;
+    }
   }
 }
 
-// A tile's tables in shared memory and device memory.
-struct TileRefs {
-  const int32_t* row;      // its (8, 128) header rows
-  float* slots;            // 4 lane slots: a ring of 3 batches + staging
-  const int* nact;         // active lanes of each ring slot
-  const int* prefix;       // [128] big depth-bucket prefix (straddle gate)
-  const uint32_t* brank;   // resident big lanes: rank, depth, colour
-  const float* bd;
-  const float* brgb;
-  int obs;                 // row stride of brgb
-  const float* lab;        // (OB, NPX) big log-alpha maps (device memory)
-  float* bz;               // (OB, NPX) chain mass per big lane (scratch)
-};
-
-// Per-pixel running state of a tile, and its per-tile (block-uniform) part.
-struct PixState {
-  float acc[3];
-  float tcar, T1, c1, tot1, tot2;
-};
-
-struct TileState {
-  int pbmin, pbmax;
-  bool ovl1, strad1;
-};
-
-// The per-pixel part of batch k of a tile, once the batch's active lanes
-// are rank-sorted in ring slot k % 3: the batch's total mass with the
-// exchange against the resident big lanes (exact by rank when a big lane
-// falls in the batch's depth range, else whole-batch), then the emit of
-// batch k-1, whose successor is now known. Returns the pixel's early-exit
-// vote: whether it still sees more than 1/255 transmittance.
-__device__ __forceinline__ bool composite_batch(const TileRefs& tr, int k,
-                                                int U, int US, int NPX, int p,
-                                                const Pix& q, PixState& ps,
+// The per-pixel part of batch k of a tile, once its n active lanes are
+// rank-sorted in ring slot k % 3: the big lanes in front of it, its total
+// mass and its exchange with the big lanes behind it, then the emit of
+// batch k-1, whose successor is now known. Returns the early-exit vote:
+// whether one of the thread's pixels still sees more than 1/255.
+template <int T, int PPT>
+__device__ __forceinline__ bool composite_batch(const Tile& tl, int k, int U,
+                                                int n, const Pix (&q)[PPT],
+                                                PixState<PPT>& ps,
                                                 TileState& ts) {
-  const int32_t* row = tr.row;
-  const int nb = row[0], nbig = row[4];
+  const int32_t* row = tl.row;
+  const int nb = row[0], nbig = tl.nbig, US = tl.US;
   const bool has_big = nbig > 0;
   int bmin = 0x10000, bmax = -1;
   for (int u = 0; u < U; ++u) {
@@ -348,53 +441,103 @@ __device__ __forceinline__ bool composite_batch(const TileRefs& tr, int k,
       bmax = max(bmax, (int)(mm & 0xFFFF));
     }
   }
-  const Slot cur = slot_at(tr.slots, k % 3, US);
-  const int n = tr.nact[k % 3];
+  const Slot cur = slot_at(tl.ring, k % 3, US);
   const int b0 = min(max(bmin >> 9, 0), 127), b1 = min(max(bmax >> 9, 0), 127);
-  const int n_hi = tr.prefix[b1];
-  const int n_lo = b0 > 0 ? tr.prefix[b0 - 1] : 0;
+  const int n_hi = tl.prefix[b1];
+  const int n_lo = b0 > 0 ? tl.prefix[b0 - 1] : 0;
   const bool strad = has_big && bmax >= bmin && (n_hi - n_lo) != 0;
   const bool ovl = k > 0 && bmin <= ts.pbmax && bmax >= ts.pbmin;
 
-  float tot = 0.0f;
-  if (strad) {
-    int j = 0;
-    float run = 0.0f;
-    for (int b = 0; b < nbig; ++b) {
-      const uint32_t rb = tr.brank[b];
-      while (j < n && cur.rank[j] < rb) run += lane_la(cur, US, j++, q);
-      tr.bz[(size_t)b * NPX + p] += run;
-    }
-    while (j < n) run += lane_la(cur, US, j++, q);
-    tot = run;
-  } else {
-    for (int j = 0; j < n; ++j) tot += lane_la(cur, US, j, q);
-  }
-  float bfront = 0.0f;
+  // --- the big lanes in front of the batch: a growing prefix -------------
   if (has_big) {
-    const float bminf = (float)bmin, bmaxf = (float)bmax;
-    for (int b = 0; b < nbig; ++b)
-      if (tr.bd[b] < bminf) bfront += tr.lab[(size_t)b * NPX + p];
-    if (!strad)
-      for (int b = 0; b < nbig; ++b)
-        if (tr.bd[b] > bmaxf) tr.bz[(size_t)b * NPX + p] += tot;
+    if (bmin < ts.fmin) {  // never on binned lists; kept exact regardless
+      ts.jf = 0;
+#pragma unroll
+      for (int i = 0; i < PPT; ++i) ps.bf[i] = 0.0f;
+    }
+    ts.fmin = bmin;
+    const float bminf = (float)bmin;
+    for (; ts.jf < nbig && tl.bd[ts.jf] < bminf; ++ts.jf) {
+      if (!tl.bon[ts.jf]) continue;
+      const Feat f = feat_at(tl.bigf, tl.OB, ts.jf);
+#pragma unroll
+      for (int i = 0; i < PPT; ++i) ps.bf[i] += la_at(f, q[i]);
+    }
   }
-  const float Tk = ps.tcar;
-  const float ck = (has_big && !strad) ? bfront : 0.0f;
-  ps.tcar = ps.tcar + tot;
-  const bool more = (ps.tcar + bfront) > LOG_MIN_ALPHA;
+
+  // --- the batch's mass, and what the big lanes behind it see ------------
+  float tot[PPT];
+#pragma unroll
+  for (int i = 0; i < PPT; ++i) tot[i] = 0.0f;
+  if (strad) {
+    // Lane j counts for every big lane of larger rank: it is added to the
+    // entry of the first such lane (b), per rank segment.
+    int b = ts.jf;
+    bool any = false;
+    float seg[PPT];
+#pragma unroll
+    for (int i = 0; i < PPT; ++i) seg[i] = 0.0f;
+    for (int j = 0; j < n; ++j) {
+      const uint32_t r = cur.rank[j];
+      if (b < nbig && tl.brank[b] <= r) {
+        if (any) add_dz<T, PPT>(tl, b, seg);
+        any = false;
+#pragma unroll
+        for (int i = 0; i < PPT; ++i) seg[i] = 0.0f;
+        do ++b;
+        while (b < nbig && tl.brank[b] <= r);
+      }
+      const Feat f = feat_at(cur.f, US, j);
+#pragma unroll
+      for (int i = 0; i < PPT; ++i) {
+        const float la = la_at(f, q[i]);
+        tot[i] += la;
+        seg[i] += la;
+      }
+      any = true;
+    }
+    if (any && b < nbig) add_dz<T, PPT>(tl, b, seg);
+  } else {
+    for (int j = 0; j < n; ++j) {
+      const Feat f = feat_at(cur.f, US, j);
+#pragma unroll
+      for (int i = 0; i < PPT; ++i) tot[i] += la_at(f, q[i]);
+    }
+    if (has_big) {
+      int s = ts.jf;
+      const float bmaxf = (float)bmax;
+      while (s < nbig && tl.bd[s] <= bmaxf) ++s;
+      if (s < nbig) add_dz<T, PPT>(tl, s, tot);
+    }
+  }
+
+  float Tk[PPT];
+  bool more = false;
+#pragma unroll
+  for (int i = 0; i < PPT; ++i) {
+    Tk[i] = ps.tcar[i];
+    ps.tcar[i] += tot[i];
+    more |= (ps.tcar[i] + ps.bf[i]) > LOG_MIN_ALPHA;
+  }
 
   if (k > 0) {
     const int sm = (k - 1) % 3, sa = (k + 1) % 3;  // batches k-1 and k-2
-    emit_batch(slot_at(tr.slots, sm, US), tr.nact[sm], ps.T1 + ps.c1,
-               slot_at(tr.slots, sa, US), ts.ovl1, tr.nact[sa], ps.tot2, cur,
-               ovl, n, ts.strad1, nbig, tr.brank, tr.lab, NPX, p, US, q,
-               ps.acc);
+    float base[PPT];
+#pragma unroll
+    for (int i = 0; i < PPT; ++i)
+      base[i] = ps.T1[i] + (ts.strad1 ? 0.0f : ps.bf1[i]);
+    emit_batch<PPT>(tl, slot_at(tl.ring, sm, US), tl.nact[sm], base,
+                    slot_at(tl.ring, sa, US), ts.ovl1, tl.nact[sa], ps.tot2,
+                    cur, ovl, n, ts.strad1, ts.jf1, ps.bf1, q, ps.acc);
   }
-  ps.tot2 = ps.tot1;
-  ps.tot1 = tot;
-  ps.T1 = Tk;
-  ps.c1 = ck;
+#pragma unroll
+  for (int i = 0; i < PPT; ++i) {
+    ps.tot2[i] = ps.tot1[i];
+    ps.tot1[i] = tot[i];
+    ps.T1[i] = Tk[i];
+    ps.bf1[i] = ps.bf[i];
+  }
+  ts.jf1 = ts.jf;
   ts.ovl1 = ovl;
   ts.strad1 = strad;
   ts.pbmin = bmin;
@@ -403,36 +546,96 @@ __device__ __forceinline__ bool composite_batch(const TileRefs& tr, int k,
 }
 
 // After a tile's last batch (k batches done): emit that batch, then the
-// resident big lanes (intra-big prefix in list order plus the chain mass).
-// Returns the pixel's total big mass (the prefix after the last big lane).
-__device__ __forceinline__ float finish_tile(const TileRefs& tr, int k,
-                                             int US, int NPX, int p,
-                                             const Pix& q, PixState& ps,
-                                             const TileState& ts) {
-  const int nbig = tr.row[4];
+// resident big lanes (intra-big prefix in list order plus the chain mass,
+// the prefix sum of the difference array, whose touched entries are
+// zeroed again). Writes each pixel's total big mass to bigtot.
+template <int T, int PPT>
+__device__ __forceinline__ void finish_tile(const Tile& tl, int k,
+                                            const Pix (&q)[PPT],
+                                            PixState<PPT>& ps,
+                                            const TileState& ts,
+                                            float (&bigtot)[PPT]) {
+  constexpr int NPX = T * T, NT = NPX / PPT;
+  const int US = tl.US;
   if (k > 0) {
     const int sm = (k - 1) % 3, sa = (k + 1) % 3;
-    const Slot prv = slot_at(tr.slots, sm, US);
-    emit_batch(prv, tr.nact[sm], ps.T1 + ps.c1, slot_at(tr.slots, sa, US),
-               ts.ovl1, tr.nact[sa], ps.tot2, prv, false, 0, ts.strad1, nbig,
-               tr.brank, tr.lab, NPX, p, US, q, ps.acc);
+    const Slot prv = slot_at(tl.ring, sm, US);
+    float base[PPT];
+#pragma unroll
+    for (int i = 0; i < PPT; ++i)
+      base[i] = ps.T1[i] + (ts.strad1 ? 0.0f : ps.bf1[i]);
+    emit_batch<PPT>(tl, prv, tl.nact[sm], base, slot_at(tl.ring, sa, US),
+                    ts.ovl1, tl.nact[sa], ps.tot2, prv, false, 0, ts.strad1,
+                    ts.jf1, ps.bf1, q, ps.acc);
   }
-  float run = 0.0f;
-  for (int b = 0; b < nbig; ++b) {
-    const float la = tr.lab[(size_t)b * NPX + p];
-    const float z = run + tr.bz[(size_t)b * NPX + p];
-    const float w = expf(z) - expf(z + la);
-    ps.acc[0] += w * tr.brgb[b];
-    ps.acc[1] += w * tr.brgb[tr.obs + b];
-    ps.acc[2] += w * tr.brgb[2 * tr.obs + b];
-    run += la;
+  float dsum[PPT];
+#pragma unroll
+  for (int i = 0; i < PPT; ++i) bigtot[i] = dsum[i] = 0.0f;
+  for (int b = 0; b < tl.nbig; ++b) {
+    if (tl.touched[b]) {
+#pragma unroll
+      for (int i = 0; i < PPT; ++i) {
+        float* d = tl.dz + (size_t)b * NPX + tl.tid + i * NT;
+        dsum[i] += *d;
+        *d = 0.0f;
+      }
+    }
+    if (!tl.bon[b]) continue;
+    const Feat f = feat_at(tl.bigf, tl.OB, b);
+    const float cr = tl.brgb[b], cg = tl.brgb[tl.OB + b],
+                cb = tl.brgb[2 * tl.OB + b];
+#pragma unroll
+    for (int i = 0; i < PPT; ++i) {
+      const float la = la_at(f, q[i]);
+      const float z = bigtot[i] + dsum[i];
+      const float w = __expf(z) - __expf(z + la);
+      ps.acc[i][0] += w * cr;
+      ps.acc[i][1] += w * cg;
+      ps.acc[i][2] += w * cb;
+      bigtot[i] += la;
+    }
   }
-  return run;
+}
+
+// Resident big lane b of the tile at origin (ox, oy), from its (16, OB) big
+// payload: rank, depth and colour, the power features re-centred to the
+// tile origin and the coverage gate, formula for formula
+// ops/render_v3.py prepass_big_la. The difference-array flag is cleared.
+__device__ __forceinline__ void load_big(const float* bp, int OB, int b,
+                                         float ox, float oy, float tsz,
+                                         const Tile& tl, float* bigf,
+                                         uint32_t* brank, float* bd,
+                                         float* brgb, unsigned char* bon) {
+  const float d = bp[12 * OB + b];
+  const int idx = __float_as_int(bp[13 * OB + b]);
+  const uint32_t di = (uint32_t)(int)fminf(d, 65535.0f);
+  brank[b] = (di << 16) | ((uint32_t)(idx >> 7) & 0xFFFFu);
+  bd[b] = d;
+  for (int c = 0; c < 3; ++c) brgb[c * OB + b] = bp[(6 + c) * OB + b];
+  const float f0 = bp[b], f1 = bp[OB + b], f2 = bp[2 * OB + b];
+  const float f3 = bp[3 * OB + b], f4 = bp[4 * OB + b], f5 = bp[5 * OB + b];
+  const float dx = ox - bp[14 * OB + b];
+  const float dy = oy - bp[15 * OB + b];
+  bigf[b] = f0 + dx * f1 + dy * f2 + dx * dx * f3 + dy * dy * f4 + dx * dy * f5;
+  bigf[OB + b] = f1 + 2.0f * dx * f3 + dy * f5;
+  bigf[2 * OB + b] = f2 + 2.0f * dy * f4 + dx * f5;
+  bigf[3 * OB + b] = f3;
+  bigf[4 * OB + b] = f4;
+  bigf[5 * OB + b] = f5;
+  const uint32_t rw = __float_as_uint(bp[11 * OB + b]);
+  const float rxw = __uint_as_float(rw << 16);
+  const float ryw = __uint_as_float(rw & 0xFFFF0000u);
+  const float ixr = bp[9 * OB + b], iyr = bp[10 * OB + b];
+  bon[b] = (ixr - rxw < ox + tsz) && (ixr + rxw > ox) &&
+           (iyr - ryw < oy + tsz) && (iyr + ryw > oy);
+  tl.touched[b] = 0;
 }
 
 // The present of a pixel of the tile with header row `row` after k
 // batches: t_final = exp(tcar + big mass), the heatmap mix and the
-// diagnostics, written to o[c * cstride] for the 8 output channels.
+// diagnostics, written to o[c * cstride] for the 8 output channels (as
+// two 16-byte stores when they are contiguous: cstride 1, o 32-byte
+// aligned).
 __device__ __forceinline__ void present(const int32_t* row, int k, int U,
                                         float bigtot, const float acc[3],
                                         float tcar, float* o, int cstride) {
@@ -441,26 +644,193 @@ __device__ __forceinline__ void present(const int32_t* row, int k, int U,
   const float mixf = (float)cand * 5e-4f;
   const float hm_f = (float)hm_i * (1.0f / 65536.0f);
   const float cov = (1.0f - t_final) * hm_f;
-  o[0] = acc[0] + (1.0f * mixf) * cov;
-  o[cstride] = acc[1] + (0.2f * mixf) * cov;
-  o[2 * cstride] = acc[2] + (1.0f - 0.8f * mixf) * cov;
+  const float r = acc[0] + (1.0f * mixf) * cov;
+  const float g = acc[1] + (0.2f * mixf) * cov;
+  const float b = acc[2] + (1.0f - 0.8f * mixf) * cov;
+  const float done = (float)min(k * U, nb);
+  if (cstride == 1) {
+    float4* o4 = (float4*)o;
+    o4[0] = make_float4(r, g, b, 1.0f);
+    o4[1] = make_float4(t_final, done, (float)nb, (float)nbig);
+    return;
+  }
+  o[0] = r;
+  o[cstride] = g;
+  o[2 * cstride] = b;
   o[3 * cstride] = 1.0f;
   o[4 * cstride] = t_final;
-  o[5 * cstride] = (float)min(k * U, nb);
+  o[5 * cstride] = done;
   o[6 * cstride] = (float)nb;
   o[7 * cstride] = (float)nbig;
 }
 
-// Host side: let `kernel` use `smem` bytes of dynamic shared memory.
+// --- the kernels -----------------------------------------------------------------
+
+// The header rows of an empty tile (nb = nbig = 0): v4's padded slots.
+__device__ const int32_t EMPTY_ROWS[8 * 128] = {};
+
+// The body of both kernels: tile slots t = blockIdx.x, blockIdx.x +
+// gridDim.x, ... of the row-major order, one at a time. v3 (V4 false)
+// writes tile t's 8 channels channel-major at out[(t * 8 + c) * NPX + p];
+// v4 writes them pixel-major at out[(t * NPX + p) * 8 + c] and composites
+// the slots past the TG tiles as empty tiles.
+template <bool COOKED, bool V4, int T, int PPT>
+__device__ __forceinline__ void render_tiles(
+    const int32_t* __restrict__ rows, const void* __restrict__ payload,
+    const float* __restrict__ bigpay, float* __restrict__ out,
+    float* __restrict__ dz, Params P) {
+  constexpr int NPX = T * T, NT = NPX / PPT;
+  constexpr int BB = Payload<COOKED>::BLOCK_BYTES;
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ __align__(8) uint64_t s_bar;
+  __shared__ int s_cnt, s_nact[3];
+  const int U = P.U, US = U * S, OB = P.OB;
+  const int tid = threadIdx.x;
+  const float tsz = (float)T;
+  const Layout L = smem_layout(U, OB, BB);
+  unsigned char* buf = smem + L.buf;
+  uint64_t* keys = (uint64_t*)(smem + L.keys);
+  float* bigf = (float*)(smem + L.bigf);
+  float* brgb = (float*)(smem + L.brgb);
+  float* bd = (float*)(smem + L.bd);
+  uint32_t* brank = (uint32_t*)(smem + L.brank);
+  int* prefix = (int*)(smem + L.prefix);
+  unsigned char* bon = smem + L.bon;
+  Pix q[PPT];
+#pragma unroll
+  for (int i = 0; i < PPT; ++i) q[i] = pixel_of(tid + i * NT, T);
+  const uint32_t bar = smem_u32(&s_bar);
+  if (tid == 0) {
+    mbar_init(bar);
+    s_cnt = 0;
+  }
+  __syncthreads();
+  uint32_t parity = 0;
+
+  for (int t = blockIdx.x; t < (V4 ? P.slots : P.TG); t += gridDim.x) {
+    const int32_t* row =
+        V4 && t >= P.TG ? EMPTY_ROWS : rows + (size_t)t * 1024;
+    const int nb = row[0], yoff = row[3], nbig = row[4];
+    const int nbatch = min(P.max_batches, (nb + U - 1) / U);
+    if (tid == 0 && nbatch > 0) fetch_batch<COOKED>(payload, row, 0, U, buf, bar);
+    const float ox = (float)((t % P.gx) * T);
+    const float oy = (float)((t / P.gx) * T + yoff);
+    const Tile tl{row,   nbig,  US,    OB,    tid,  (float*)(smem + L.ring),
+                  s_nact, prefix, bigf, brgb, bd,   brank,
+                  bon,   smem + L.touched, dz + (size_t)blockIdx.x * OB * NPX};
+    for (int i = tid; i < 128; i += NT) prefix[i] = row[5 * 128 + i];
+    const float* bp = bigpay + (size_t)t * 16 * OB;
+    for (int b = tid; b < nbig; b += NT)
+      load_big(bp, OB, b, ox, oy, tsz, tl, bigf, brank, bd, brgb, bon);
+    __syncthreads();
+
+    PixState<PPT> ps;
+#pragma unroll
+    for (int i = 0; i < PPT; ++i) {
+      ps.acc[i][0] = ps.acc[i][1] = ps.acc[i][2] = 0.0f;
+      ps.tcar[i] = ps.bf[i] = ps.T1[i] = ps.bf1[i] = 0.0f;
+      ps.tot1[i] = ps.tot2[i] = 0.0f;
+    }
+    TileState ts{0, 0, false, false, 0, 0, -1};
+    int k = 0;
+    bool go = true;
+    while (go && k < nbatch) {
+      mbar_wait(bar, parity);
+      parity ^= 1u;
+      // --- the batch's active lanes, compacted ------------------------------
+      const int nlanes = min(U, nb - k * U) * S;
+      for (int l = tid; l < nlanes; l += NT) {
+        const uint64_t key = lane_key<COOKED>(buf + (l / S) * BB, l % S, ox,
+                                              oy, tsz);
+        if (key != NO_KEY) keys[atomicAdd(&s_cnt, 1)] = key | (uint64_t)l;
+      }
+      __syncthreads();
+      // --- rank count: each active lane's slot in ring slot k % 3 -----------
+      const int n = s_cnt;
+      const int s = k % 3;
+      const Slot cur = slot_at(tl.ring, s, US);
+      for (int c = tid; c < n; c += NT) {
+        const uint64_t key = keys[c];
+        int r = 0;
+        for (int c2 = 0; c2 < n; ++c2) r += keys[c2] < key;
+        const int l = (int)(key & 0xFFFFFFFFu);
+        lane_store<COOKED>(buf + (l / S) * BB, l % S, ox, oy, cur, r, US);
+        cur.rank[r] = (uint32_t)(key >> 32);
+      }
+      if (tid == 0) s_nact[s] = n;
+      __syncthreads();
+      // --- the next batch's blocks load while this one composites -----------
+      if (tid == 0) {
+        s_cnt = 0;
+        if (k + 1 < nbatch)
+          fetch_batch<COOKED>(payload, row, k + 1, U, buf, bar);
+      }
+      const bool more = composite_batch<T, PPT>(tl, k, U, n, q, ps, ts);
+      ++k;
+      if (P.early_exit) {
+        go = __syncthreads_or(more) != 0;
+      } else {
+        __syncthreads();
+      }
+    }
+    if (k < nbatch) {  // batch k was fetched but the tile exited early
+      mbar_wait(bar, parity);
+      parity ^= 1u;
+    }
+    float bigtot[PPT];
+    finish_tile<T, PPT>(tl, k, q, ps, ts, bigtot);
+#pragma unroll
+    for (int i = 0; i < PPT; ++i) {
+      if (V4)
+        present(row, k, U, bigtot[i], ps.acc[i], ps.tcar[i],
+                out + ((size_t)t * NPX + tid + i * NT) * 8, 1);
+      else
+        present(row, k, U, bigtot[i], ps.acc[i], ps.tcar[i],
+                out + (size_t)t * 8 * NPX + tid + i * NT, NPX);
+    }
+    __syncthreads();  // shared tile state is rewritten by the next tile
+  }
+}
+
+// The v3 kernel, on the word (COOKED false) or the cooked payload.
+template <bool COOKED, int T, int PPT, int MINB>
+__global__ void __launch_bounds__(T * T / PPT, MINB)
+render_kernel(const int32_t* __restrict__ rows,
+              const void* __restrict__ payload,
+              const float* __restrict__ bigpay, float* __restrict__ out,
+              float* __restrict__ dz, Params P) {
+  render_tiles<COOKED, false, T, PPT>(rows, payload, bigpay, out, dz, P);
+}
+
+// The v4 kernel, on the cooked payload.
+template <int T, int PPT, int MINB>
+__global__ void __launch_bounds__(T * T / PPT, MINB)
+render_kernel_v4(const int32_t* __restrict__ rows,
+                 const void* __restrict__ payload,
+                 const float* __restrict__ bigpay, float* __restrict__ out,
+                 float* __restrict__ dz, Params P) {
+  render_tiles<true, true, T, PPT>(rows, payload, bigpay, out, dz, P);
+}
+
+// --- host side ------------------------------------------------------------------
+
+// Let `kernel` use `smem` bytes of dynamic shared memory.
 template <typename K>
 inline int allow_smem(K* kernel, size_t smem) {
   return (int)cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-// Host side: thread blocks of `kernel` the whole card holds at once with
-// `threads` threads and `smem` bytes of dynamic shared memory each (the
-// persistent grid size); < 0 on error.
+// Dynamic shared memory of one CTA of either kernel.
+inline size_t smem_bytes(int U, int OB, bool cooked) {
+  return smem_layout(U, OB, cooked ? Payload<true>::BLOCK_BYTES
+                                   : Payload<false>::BLOCK_BYTES)
+      .total;
+}
+
+// Thread blocks of `kernel` the whole card holds at once with `threads`
+// threads and `smem` bytes of dynamic shared memory each (the persistent
+// grid size); < 0 on error.
 template <typename K>
 inline int card_resident_blocks(K* kernel, int threads, size_t smem) {
   int dev = 0, sms = 0, per_sm = 0;
@@ -473,6 +843,62 @@ inline int card_resident_blocks(K* kernel, int threads, size_t smem) {
                                                     smem) != cudaSuccess)
     return -4;
   return per_sm * sms;
+}
+
+using Kernel = void (*)(const int32_t*, const void*, const float*, float*,
+                        float*, Params);
+
+template <bool COOKED, bool V4, int T, int PPT, int MINB>
+Kernel instance() {
+  if constexpr (V4)
+    return render_kernel_v4<T, PPT, MINB>;
+  else
+    return render_kernel<COOKED, T, PPT, MINB>;
+}
+
+// The v3 (or, with V4, the v4) kernel for a tile size, and its threads a
+// CTA; nullptr for another tile size.
+template <bool COOKED, bool V4>
+Kernel kernel_for(int tile_size, int* threads) {
+  if (tile_size == 16) {
+    *threads = 256 / PPT_TILE16;
+    return instance<COOKED, V4, 16, PPT_TILE16, MIN_BLOCKS_TILE16>();
+  }
+  if (tile_size == 32) {
+    *threads = 1024 / PPT_TILE32;
+    return instance<COOKED, V4, 32, PPT_TILE32, MIN_BLOCKS_TILE32>();
+  }
+  return nullptr;
+}
+
+// The persistent grid: the CTAs the whole card holds at once; < 0 on error.
+template <bool COOKED, bool V4>
+int max_blocks(int tile_size, int U, int OB) {
+  int threads = 0;
+  const Kernel k = kernel_for<COOKED, V4>(tile_size, &threads);
+  if (k == nullptr) return -5;
+  return card_resident_blocks(k, threads, smem_bytes(U, OB, COOKED));
+}
+
+// Launch on `grid` persistent CTAs. dz: (grid, obig, tile_size^2) f32, zero
+// on entry and left zero.
+template <bool COOKED, bool V4>
+int launch(const void* rows, const void* payload, const void* bigpay,
+           void* out, void* dz, int TG, int slots, int gx, int tile_size,
+           int U, int max_batches, int obig, int early_exit, int grid,
+           void* stream) {
+  if (obig > MAX_OB || U < 1 || U * S > 512) return (int)cudaErrorInvalidValue;
+  int threads = 0;
+  const Kernel k = kernel_for<COOKED, V4>(tile_size, &threads);
+  if (k == nullptr) return (int)cudaErrorInvalidValue;
+  const size_t bytes = smem_bytes(U, obig, COOKED);
+  const int err = allow_smem(k, bytes);
+  if (err != 0) return err;
+  Params P{TG, gx, U, max_batches, obig, early_exit, slots};
+  k<<<grid, threads, bytes, (cudaStream_t)stream>>>(
+      (const int32_t*)rows, payload, (const float*)bigpay, (float*)out,
+      (float*)dz, P);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace gs

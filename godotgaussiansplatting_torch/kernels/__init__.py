@@ -43,10 +43,9 @@ SIGNATURES = {
         "gs_render_v3_max_blocks": [_I] * 4,
     },
     "render_v4": {
-        "gs_render_v4": [_P] * 6 + [_I] * 9 + [_P],
-        "gs_render_v4_max_blocks": [_I] * 4,
-        "gs_render_v4_smem_bytes": [_I] * 3,
-        "gs_smem_optin": [],
+        "gs_render_v4": [_P] * 5 + [_I] * 9 + [_P],
+        "gs_render_v4_max_blocks": [_I] * 3,
+        "gs_render_v4_smem_bytes": [_I] * 2,
     },
 }
 # One launch counter per kernel a wrapper launches (the v3 library holds

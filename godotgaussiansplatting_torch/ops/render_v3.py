@@ -421,6 +421,9 @@ def check_kernel_inputs(what: str, rows, payload, bigpay, cfg, U,
             or bigpay.dtype != torch.float32 or bigpay.shape != (TG, 16, OB)):
         raise ValueError(f"{what}: unexpected input shapes/dtypes")
     kernels.require_cuda(what, rows, payload, bigpay)
+    if payload.data_ptr() % 16:
+        raise ValueError(f"{what}: the chain payload must start on a 16-byte "
+                         "boundary (cp.async.bulk fetches its blocks)")
     return cooked
 
 
@@ -432,9 +435,6 @@ def _render_cuda(rows, payload, bigpay, cfg, U, max_batches, early_exit):
     OB = bigpay.shape[2]
     gx, _ = cfg.tile_dims
     cooked = check_kernel_inputs("render_v3", rows, payload, bigpay, cfg, U)
-    if payload.data_ptr() % 16:
-        raise ValueError("render_v3: the chain payload must start on a "
-                         "16-byte boundary (cp.async.bulk fetches its blocks)")
     entry, counter = (("gs_render_v3_cooked", "render_v3_cooked") if cooked
                       else ("gs_render_v3", "render_v3"))
     lib = kernels.library("render_v3")
@@ -457,7 +457,7 @@ def _render_cuda(rows, payload, bigpay, cfg, U, max_batches, early_exit):
 
 def tile_rows(bins, tile_bigs, heatmap_factor, cfg, pixel_offset_y=0,
               batch_u: int | None = None):
-    """The v3 kernel's per-tile inputs from the tile bins: (rows, U,
+    """The render kernels' per-tile inputs from the tile bins: (rows, U,
     max_batches)."""
     U = batch_u or cfg.batch_u or default_batch_u(cfg.tile_size)
     max_batches = -(-bins.tile_blocks.shape[1] // U)
@@ -470,8 +470,8 @@ def tile_rows(bins, tile_bigs, heatmap_factor, cfg, pixel_offset_y=0,
 
 def tile_inputs(bins, tile_bigs, heatmap_factor, cfg, pixel_offset_y=0,
                 batch_u: int | None = None):
-    """The plain versions' and the v4 kernel's per-tile inputs: (rows, big
-    log-alpha maps, U, max_batches)."""
+    """The plain versions' per-tile inputs: (rows, big log-alpha maps, U,
+    max_batches)."""
     rows, U, max_batches = tile_rows(bins, tile_bigs, heatmap_factor, cfg,
                                      pixel_offset_y, batch_u)
     bigla = prepass_big_la(tile_bigs.bigpay, cfg, pixel_offset_y=pixel_offset_y)

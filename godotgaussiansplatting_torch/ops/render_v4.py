@@ -12,10 +12,13 @@ The tile rows carry the big depth-bucket prefix (``TileBigs.big_prefix``),
 which gates the exact chain-big exchange as in v3. The JAX v4 omits it, so
 its gate always fires; the result is the same.
 
-``render_tiles_v4`` launches the CUDA kernel (csrc/render_v4.cu) for CUDA
-tensors, which raises on a configuration whose GT tiles' tables do not fit
-one block's shared memory, and ``render_tiles_v4_reference`` for CPU
-tensors: the v3 plain version over the padded tiles, in v4's layout.
+``render_tiles_v4`` launches the CUDA kernel (csrc/render_v4.cu: the cooked
+v3 kernel's per-tile pipeline and walk, over the padded tile list and into
+v4's layout, bit-identical to the cooked v3 kernel) for CUDA tensors, on
+the tile rows alone (``tile_rows``: the kernel evaluates the big lanes
+itself, so no ``prepass_big_la`` maps are built).
+CPU tensors go to ``render_tiles_v4_reference``: the v3 plain version over
+the padded tiles, in v4's layout, which reads the maps.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ import torch
 from .. import kernels
 from ..config import RasterizerConfig
 from .render_v3 import (OUT_CH, check_kernel_inputs, render_tiles_v3_reference,
-                        resident_blocks, tile_inputs)
+                        resident_blocks, tile_inputs, tile_rows)
 
 
 def _pad_tiles(a: torch.Tensor, n: int) -> torch.Tensor:
@@ -51,8 +54,10 @@ def render_tiles_v4_reference(rows, payload, bigpay, bigla, cfg, U: int,
     return tiles.transpose(1, 2).reshape(T4, GT * NPX, OUT_CH)
 
 
-def _render_v4_cuda(rows, payload, bigpay, bigla, cfg, U, max_batches, GT,
+def _render_v4_cuda(rows, payload, bigpay, cfg, U, max_batches, GT,
                     early_exit):
+    """The v4 kernel on (T, 8, 128) tile rows, the cooked payload and the
+    (T, 16, OB) big payload -> (T4, GT * NPX, OUT_CH) f32."""
     T = rows.shape[0]
     NPX = cfg.tile_size * cfg.tile_size
     OB = bigpay.shape[2]
@@ -61,28 +66,19 @@ def _render_v4_cuda(rows, payload, bigpay, bigla, cfg, U, max_batches, GT,
         raise ValueError("the render_v4 kernel supports lockstep_gt 1 to 4")
     check_kernel_inputs("render_v4", rows, payload, bigpay, cfg, U,
                         words_ok=False)
-    if bigla.dtype != torch.float32 or bigla.shape != (T, NPX, OB):
-        raise ValueError("render_v4: unexpected big log-alpha map shape")
-    bigla_t = bigla.transpose(1, 2)        # (T, OB, NPX), the kernel layout
-    kernels.require_cuda("render_v4", rows, bigla_t)
     lib = kernels.library("render_v4")
-    need = lib.gs_render_v4_smem_bytes(U, GT, OB)
-    have = lib.gs_smem_optin()
-    if need > have:
-        raise ValueError(
-            f"the v4 kernel at tile {cfg.tile_size}, U={U}, GT={GT}, "
-            f"OBIG={OB} needs {need} bytes of shared memory per block; the "
-            f"card gives a block at most {have}")
     T4 = -(-T // GT)
-    rows4 = _pad_tiles(rows, T4 * GT)       # empty tiles: nb = nbig = 0
-    grid = min(T4, resident_blocks("render_v4", cfg.tile_size, U, GT, OB))
+    grid = min(T4 * GT, resident_blocks("render_v4", cfg.tile_size, U, OB))
     dev = rows.device
     out = torch.empty((T4, GT * NPX, OUT_CH), dtype=torch.float32, device=dev)
-    big_z = torch.empty((grid, GT, OB, NPX), dtype=torch.float32, device=dev)
+    # per resident thread block, the (pixel, big lane) difference array of
+    # the chain mass; the kernel leaves it zero
+    dz = torch.zeros((grid, OB, NPX), dtype=torch.float32, device=dev)
+    # the kernel writes the padded slots of the last group as empty tiles
     err = lib.gs_render_v4(
-        rows4.data_ptr(), payload.data_ptr(), bigpay.data_ptr(),
-        bigla_t.data_ptr(), out.data_ptr(), big_z.data_ptr(), T4, GT, gx,
-        cfg.tile_size, U, max_batches, OB, int(bool(early_exit)), grid,
+        rows.data_ptr(), payload.data_ptr(), bigpay.data_ptr(),
+        out.data_ptr(), dz.data_ptr(), T, GT, gx, cfg.tile_size, U,
+        max_batches, OB, int(bool(early_exit)), grid,
         ctypes.c_void_p(kernels.stream_ptr(dev)))
     kernels.check(err, "render_v4 kernel launch")
     kernels.count_launch("render_v4")
@@ -98,13 +94,15 @@ def render_tiles_v4(payload, bins, tile_bigs, heatmap_factor, cfg,
     signature parity; both compute in f32."""
     del lowp
     GT = cfg.lockstep_gt
-    rows, bigla, U, max_batches = tile_inputs(bins, tile_bigs, heatmap_factor,
-                                              cfg, pixel_offset_y, batch_u)
     if payload.device.type == "cpu":
+        rows, bigla, U, max_batches = tile_inputs(
+            bins, tile_bigs, heatmap_factor, cfg, pixel_offset_y, batch_u)
         return render_tiles_v4_reference(rows, payload, tile_bigs.bigpay,
                                          bigla, cfg, U, max_batches, GT,
                                          early_exit)
-    return _render_v4_cuda(rows, payload, tile_bigs.bigpay, bigla, cfg, U,
+    rows, U, max_batches = tile_rows(bins, tile_bigs, heatmap_factor, cfg,
+                                     pixel_offset_y, batch_u)
+    return _render_v4_cuda(rows, payload, tile_bigs.bigpay, cfg, U,
                            max_batches, GT, early_exit)
 
 

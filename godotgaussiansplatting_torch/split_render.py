@@ -1,6 +1,6 @@
 """Where the v3 render kernel's time goes at 1080p: copies of its source with
 one stage dropped or one constant changed, each built and timed on the same
-inputs.
+inputs; and the v4 kernel launched as plain thread blocks or as clusters.
 
     python3 -m godotgaussiansplatting_torch.split_render [OTHER_CHECKOUT]
 
@@ -10,12 +10,18 @@ The inputs are those of chip_smoke.py's phase 6: the 5.8M-splat scene at
 U=4). For each, the script prints the distribution of resident big lanes
 per tile (nbig), of batches per tile and the share of batches that
 straddle a big lane. Then every copy of csrc/render_v3.cu listed in STAGES
-and VARIANTS (each edit must match the source) is built with the kernels'
-nvcc flags into build/split/, all nvcc started together, and its ptxas
-report printed. A stage copy runs on the rows cut to the blocks the
+and VARIANTS, and of csrc/render_v4.cu in V4_VARIANTS (each edit must
+match the source), is built with the kernels' nvcc flags into
+build/split/, the copies of one source all started together, and its
+ptxas report printed. A stage copy runs on the rows cut to the blocks the
 kernel processes with early exit, without early exit, so every copy does
 the same batches; a variant runs as the frame does. Each is timed over 10
-calls (CUDA events, after a warm-up call). With OTHER_CHECKOUT, a tree of
+calls (CUDA events, after a warm-up call). The v4 copies (launched as
+plain CTAs, or in clusters of GT CTAs) run on the inputs of
+RasterizerConfig(kernel="v4").fast_defaults() (cooked, tile 32, U=2) and
+of RasterizerConfig(quality="fast", kernel="v4") (tile 16, U=4) at GT 1,
+2 and 4, in the order A, B, B, A, beside this checkout's cooked v3 kernel
+on the same inputs. With OTHER_CHECKOUT, a tree of
 this repository whose v3 kernel reads prepass_big_la's maps (the design
 before the in-kernel big lanes), its copies in OTHER_STAGES are timed the
 same way, and so is prepass_big_la. Needs a CUDA device.
@@ -76,6 +82,63 @@ VARIANTS = {
     **{f"tile 16: {p} px/thread, {m} blocks/SM":
        (_consts(16, p, m), ("cooked",)) for p, m in ((1, 1), (2, 2))},
 }
+# A copy of csrc/render_v4.cu whose entry point launches each group of GT
+# tiles as one thread-block cluster of GT CTAs (the walk then gives cluster
+# rank g tile grp * GT + g), on GT times the clusters the card holds at
+# once, which gs_render_v4_max_clusters reports. The kernel itself keeps
+# the plain launch (PERF.md section 6 has the comparison).
+_V4_PLAIN_LAUNCH = """  return launch<true, true>(rows, payload, bigpay, out, dz, TG,
+                            (TG + GT - 1) / GT * GT, gx, tile_size, U,
+                            max_batches, obig, early_exit, grid, stream);
+}"""
+_V4_CLUSTER_LAUNCH = """  int threads = 0;
+  const Kernel k = kernel_for<true, true>(tile_size, &threads);
+  if (k == nullptr || grid % GT != 0) return (int)cudaErrorInvalidValue;
+  const size_t bytes = smem_bytes(U, obig, true);
+  const int err = allow_smem(k, bytes);
+  if (err != 0) return err;
+  const Params P{TG, gx, U, max_batches, obig, early_exit,
+                 (TG + GT - 1) / GT * GT};
+  cudaLaunchAttribute attr = {};
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = GT;
+  attr.val.clusterDim.y = attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, k, (const int32_t*)rows, payload, (const float*)bigpay,
+      (float*)out, (float*)dz, P);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+}
+
+extern "C" int gs_render_v4_max_clusters(int tile_size, int U, int GT,
+                                         int OB) {
+  int threads = 0;
+  const Kernel k = kernel_for<true, true>(tile_size, &threads);
+  const size_t bytes = smem_bytes(U, OB, true);
+  if (k == nullptr || allow_smem(k, bytes) != 0) return -1;
+  cudaLaunchAttribute attr = {};
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = GT;
+  attr.val.clusterDim.y = attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(GT);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  return cudaOccupancyMaxActiveClusters(&n, k, &cfg) == cudaSuccess ? n : -4;
+}"""
+V4_VARIANTS = {
+    "plain CTAs (as built)": [],
+    "clusters of GT CTAs": [(_V4_PLAIN_LAUNCH, _V4_CLUSTER_LAUNCH)],
+}
 # Stage copies of a kernel that reads the log-alpha maps and sorts each
 # batch with a bitonic sort (the other checkout's).
 _OLD_COMPOSITE = ("const bool more = composite_batch(tr, k, U, US, NPX, p, q, "
@@ -94,12 +157,13 @@ OTHER_STAGES = {
 }
 
 
-def edited_sources(csrc: Path, edits: list) -> dict:
-    """{file name: text} of render_v3.cu and the shared headers with the
-    edits made. An edit replaces every match in the first file that holds
-    it, and must match."""
+def edited_sources(csrc: Path, edits: list,
+                   source: str = "render_v3") -> dict:
+    """{file name: text} of csrc/<source>.cu and the shared headers with
+    the edits made. An edit replaces every match in the first file that
+    holds it, and must match."""
     texts = {f.name: f.read_text()
-             for f in (csrc / "render_v3.cu", *sorted(csrc.glob("*.cuh")))}
+             for f in (csrc / f"{source}.cu", *sorted(csrc.glob("*.cuh")))}
     for old, new in edits:
         hit = next((f for f, t in texts.items() if old in t), None)
         if hit is None:
@@ -108,19 +172,21 @@ def edited_sources(csrc: Path, edits: list) -> dict:
     return texts
 
 
-def build_copies(csrc: Path, copies: dict, tag: str) -> dict:
-    """{name: edits} -> {name: (ctypes library, ptxas lines)}."""
+def build_copies(csrc: Path, copies: dict, tag: str,
+                 source: str = "render_v3") -> dict:
+    """{name: edits} of csrc/<source>.cu -> {name: (ctypes library, ptxas
+    lines)}."""
     jobs = {}
     for i, (name, edits) in enumerate(copies.items()):
         d = SPLIT_DIR / f"{tag}{i}"
         shutil.rmtree(d, ignore_errors=True)
         d.mkdir(parents=True)
-        for f, t in edited_sources(csrc, edits).items():
+        for f, t in edited_sources(csrc, edits, source).items():
             (d / f).write_text(t)
-        so = d / "librender_v3.so"
+        so = d / f"lib{source}.so"
         jobs[name] = (so, subprocess.Popen(
             [kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", str(so),
-             str(d / "render_v3.cu")], stdout=subprocess.PIPE,
+             str(d / f"{source}.cu")], stdout=subprocess.PIPE,
             stderr=subprocess.PIPE, text=True))
     out, failed = {}, []
     for name, (so, proc) in jobs.items():
@@ -165,6 +231,35 @@ def launcher(lib, maps: bool):
     return call
 
 
+def v4_launcher(lib, clusters: bool):
+    """A call (rows, payload, bigpay, cfg, U, max_batches, GT) of a v4
+    copy's entry point, early exit on; ``clusters``: the cluster copy."""
+    lib.gs_render_v4.argtypes = kernels.SIGNATURES["render_v4"]["gs_render_v4"]
+    lib.gs_render_v4_max_blocks.argtypes = [_I] * 3
+    if clusters:
+        lib.gs_render_v4_max_clusters.argtypes = [_I] * 4
+
+    def call(rows, payload, bigpay, cfg, U, max_batches, GT):
+        T, NPX, OB = rows.shape[0], cfg.tile_size ** 2, bigpay.shape[2]
+        T4 = -(-T // GT)
+        n = (GT * lib.gs_render_v4_max_clusters(cfg.tile_size, U, GT, OB)
+             if clusters else lib.gs_render_v4_max_blocks(cfg.tile_size, U,
+                                                          OB))
+        if n <= 0:
+            raise RuntimeError(f"v4 copy: occupancy query failed ({n})")
+        grid = min(T4 * GT, n)
+        out = torch.empty((T4, GT * NPX, 8), device=rows.device)
+        dz = torch.zeros((grid, OB, NPX), device=rows.device)
+        kernels.check(lib.gs_render_v4(
+            rows.data_ptr(), payload.data_ptr(), bigpay.data_ptr(),
+            out.data_ptr(), dz.data_ptr(), T, GT, cfg.tile_dims[0],
+            cfg.tile_size, U, max_batches, OB, 1, grid,
+            ctypes.c_void_p(kernels.stream_ptr(rows.device))),
+            "v4 copy launch")
+        return out
+    return call
+
+
 def _quantiles(x: torch.Tensor) -> dict:
     x = x.float().cpu().numpy()
     return {**{f"q{q}": float(np.quantile(x, q)) for q in (0, .5, .9, .99, 1)},
@@ -204,13 +299,14 @@ def main(argv) -> int:
     copies = {f"stage: {k}": v for k, v in STAGES.items()}
     copies.update({f"variant: {k}": v[0] for k, v in VARIANTS.items()})
     libs = build_copies(csrc, copies, "this")
+    v4libs = build_copies(csrc, V4_VARIANTS, "v4", "render_v4")
     other_rv = None
     if argv:
         other_rv, _ = import_other(Path(argv[0]).resolve())
         libs.update({f"other stage: {k}": v for k, v in build_copies(
             Path(argv[0]).resolve() / "godotgaussiansplatting_torch" / "csrc",
             OTHER_STAGES, "other").items()})
-    for name, (_, ptxas) in libs.items():
+    for name, (_, ptxas) in {**libs, **v4libs}.items():
         print(f"ptxas {name}: {json.dumps(ptxas)}", flush=True)
     cloud, base = scene_cloud("5.8M 1920x1080")
     for entry, cfg in (("words", base.fast_defaults()),
@@ -241,6 +337,21 @@ def main(argv) -> int:
                 lambda: other_rv.prepass_big_la(bigpay, cfg), 10)
         print(f"[{entry}] ms per call {json.dumps(ms, indent=0)}", flush=True)
         del args, bigla, cut
+    calls = {name: v4_launcher(lib, name != "plain CTAs (as built)")
+             for name, (lib, _) in v4libs.items()}
+    names = list(calls)
+    for cfg in (base.replace(kernel="v4").fast_defaults(),
+                base.replace(quality="fast", kernel="v4")):
+        rows, payload, bigpay, _, U, mb = frame_inputs(cloud, cfg)
+        ms = {"cooked v3": time_ms(lambda: rv._render_cuda(
+            rows, payload, bigpay, cfg, U, mb, True), 10)}
+        for GT in (1, 2, 4):
+            for name in names + names[::-1]:
+                ms.setdefault(f"GT={GT} {name}", []).append(time_ms(
+                    lambda: calls[name](rows, payload, bigpay, cfg, U, mb,
+                                        GT), 10))
+        print(f"[v4] tile {cfg.tile_size} U={U}: ms per call "
+              f"{json.dumps(ms, indent=0)}", flush=True)
     return 0
 
 

@@ -23,7 +23,8 @@ from godotgaussiansplatting_torch.ops import render_v4 as r4
 from godotgaussiansplatting_torch.ops.bigbin import bin_bigs
 from godotgaussiansplatting_torch.ops.binning2 import bin_blocks2
 from godotgaussiansplatting_torch.ops.blocks2 import (
-    adaptive_cell_shift, build_block_frame2_words)
+    adaptive_cell_shift, build_block_frame2, build_block_frame2_words)
+from godotgaussiansplatting_torch.ops.projection import project_splats
 
 
 @pytest.fixture
@@ -69,16 +70,15 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     rows = torch.zeros((4, 8, 128), dtype=torch.int32)
     payload = torch.zeros((1, 8, 128), dtype=torch.int32)
     bigpay = torch.zeros((4, 16, 128))
-    bigla = torch.zeros((4, 128, 1024)).transpose(1, 2)
     with pytest.raises(ValueError, match="CUDA"):
         rv._render_cuda(rows, payload, bigpay, cfg, 2, 128, True)
     cooked = torch.zeros((1, 16, 128))
     with pytest.raises(ValueError, match="CUDA"):
         rv._render_cuda(rows, cooked, bigpay, cfg, 2, 128, True)
     with pytest.raises(ValueError, match="CUDA"):
-        r4._render_v4_cuda(rows, cooked, bigpay, bigla, cfg, 2, 128, 4, True)
+        r4._render_v4_cuda(rows, cooked, bigpay, cfg, 2, 128, 4, True)
     with pytest.raises(ValueError, match="cooked"):
-        r4._render_v4_cuda(rows, payload, bigpay, bigla, cfg, 2, 128, 4, True)
+        r4._render_v4_cuda(rows, payload, bigpay, cfg, 2, 128, 4, True)
 
 
 def test_entry_points_default_to_the_card():
@@ -93,14 +93,19 @@ def test_entry_points_default_to_the_card():
         gt.make_uniforms(gt.Camera.reset_pose(), cfg)
 
 
-@pytest.mark.parametrize("copies", ["STAGES", "VARIANTS"])
+@pytest.mark.parametrize("copies", ["STAGES", "VARIANTS", "V4_VARIANTS"])
 def test_split_render_edits_match_the_kernel_source(copies):
     """Every stage and variant copy of split_render edits this checkout's
-    render_v3.cu (or a shared header) where it means to."""
+    render_v3.cu or render_v4.cu (or a shared header) where it means to:
+    each edited string is in one file only."""
+    source = "render_v4" if copies == "V4_VARIANTS" else "render_v3"
+    originals = split_render.edited_sources(kernels.CSRC, [], source)
     for name, edits in getattr(split_render, copies).items():
         if copies == "VARIANTS":
             edits = edits[0]
-        texts = split_render.edited_sources(kernels.CSRC, edits)
+        for old, _ in edits:
+            assert sum(old in t for t in originals.values()) == 1, (name, old)
+        texts = split_render.edited_sources(kernels.CSRC, edits, source)
         changed = [f for f, t in texts.items()
                    if t != (kernels.CSRC / f).read_text()]
         assert bool(changed) == bool(edits), name
@@ -117,14 +122,30 @@ def test_projection_kernel_matches_plain(cuda, size):
         assert torch.equal(getattr(wk, f), getattr(wr, f)), f
 
 
+def _cfg(tile, batch_u, **kw):
+    """Tile 32 as fast_defaults() sets it up (fused projection, bricks),
+    tile 16 as quality="fast" does (readable projection, screen
+    clustering)."""
+    base = gt.RasterizerConfig(width=320, height=224, batch_u=batch_u, **kw)
+    cfg = base.fast_defaults() if tile == 32 else base.replace(quality="fast")
+    assert cfg.tile_size == tile
+    return cfg
+
+
 def _render_inputs(cloud, cfg, batch_u, words):
     uni = gt.make_uniforms(gt.Camera.reset_pose(), cfg, device=cloud.device,
                            heatmap=1.0)
-    words_ = pk.project_words(cloud.means, cloud.cov3d, cloud.opacity,
-                              cloud.sh, cloud.upload_time, uni.view,
-                              uni.proj, uni.camera_pos, uni.model_scale,
-                              uni.time, cfg, num_splats=cloud.num_splats)
-    bf, bigs = build_block_frame2_words(words_, cfg, words_payload=words)
+    args = (cloud.means, cloud.cov3d, cloud.opacity, cloud.sh,
+            cloud.upload_time, uni.view, uni.proj, uni.camera_pos,
+            uni.model_scale, uni.time, cfg)
+    if cfg.projection_kernel:
+        bf, bigs = build_block_frame2_words(
+            pk.project_words(*args, num_splats=cloud.num_splats), cfg,
+            words_payload=words)
+    else:
+        bf, bigs = build_block_frame2(project_splats(*args), cfg,
+                                      num_splats=cloud.num_splats,
+                                      words_payload=words)
     bins = bin_blocks2(bf, cfg)
     tbig = bin_bigs(bigs, cfg)
     rows = rv.pack_tile_rows_v3(bins.tile_blocks, bins.tile_nblocks,
@@ -143,6 +164,13 @@ def _v3(args, early_exit):
     return rv._render_cuda(rows, payload, bigpay, cfg, U, mb, early_exit)
 
 
+def _v4(args, gt_, early_exit):
+    """The v4 kernel on the plain version's arguments (it takes no maps)."""
+    rows, payload, bigpay, _, cfg, U, mb = args
+    return r4._render_v4_cuda(rows, payload, bigpay, cfg, U, mb, gt_,
+                              early_exit)
+
+
 def _psnr(a, b):
     mse = float(((a[:3].clamp(0, 1) - b[:3].clamp(0, 1)) ** 2).mean())
     return 10 * np.log10(1.0 / max(mse, 1e-20))
@@ -153,8 +181,7 @@ def _psnr(a, b):
 @pytest.mark.parametrize("tile,batch_u,early_exit", [
     (32, 2, True), (32, 1, False), (16, 4, True), (16, 3, True)])
 def test_render_kernel_matches_plain(cuda, tile, batch_u, early_exit, words):
-    cfg = gt.RasterizerConfig(width=320, height=224, tile_size=tile,
-                              batch_u=batch_u).fast_defaults()
+    cfg = _cfg(tile, batch_u)
     args = _render_inputs(_cloud(cuda), cfg, batch_u, words)
     kernels.reset_launch_counts()
     tk = _v3(args, early_exit)
@@ -185,37 +212,57 @@ def test_render_kernel_straddles_big_lanes(cuda, words):
     assert torch.equal(tk[:, 5:], tr[:, 5:])
 
 
+def _hold_v4(args, gt_, early_exit):
+    """The v4 kernel bit-equal (all 8 channels) to the cooked v3 kernel on
+    the same inputs, and held to its plain version: RGB PSNR >= 50 dB,
+    t_final within 1e-3, channels 5-7 equal."""
+    cfg = args[4]
+    kernels.reset_launch_counts()
+    t4 = _v4(args, gt_, early_exit)
+    assert kernels.launch_counts()["render_v4"] == 1
+    t3 = _v3(args, early_exit)
+    tr = r4.render_tiles_v4_reference(*args, gt_, early_exit)
+    assert torch.isfinite(t4).all()
+    assert torch.equal(r4.tile_channels_v4(t4, cfg),
+                       rv.tile_channels_v3(t3, cfg))
+    (i4, tf4), (ir, tfr) = (r4.assemble_image_v4(t4, cfg),
+                            r4.assemble_image_v4(tr, cfg))
+    assert _psnr(i4, ir) >= 50.0
+    assert float((tf4 - tfr).abs().max()) <= 1e-3
+    assert float((t4[..., :5] - tr[..., :5]).abs().max()) <= 1e-3
+    assert torch.equal(t4[..., 5:], tr[..., 5:])
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("tile,batch_u,gt_", [
-    (32, 2, 4), (32, 2, 2), (32, 2, 1), (32, 2, 3), (16, 4, 2), (16, 4, 1)])
+    (32, 2, 4), (32, 2, 2), (32, 2, 1), (32, 2, 3), (16, 4, 2), (16, 4, 1),
+    (16, 4, 3), (16, 4, 4)])
 def test_render_v4_kernel_matches_plain_and_v3(cuda, tile, batch_u, gt_):
-    """The v4 kernel against its plain version, and within 60 dB and 1e-3
-    of t_final of the cooked v3 kernel on the same inputs, which sums in
-    another order (224 = 7 rows of tile 32: padded groups)."""
-    cfg = gt.RasterizerConfig(width=320, height=224, tile_size=tile,
-                              batch_u=batch_u, kernel="v4",
-                              lockstep_gt=gt_).fast_defaults()
+    """The v4 kernel bit-equal to the cooked v3 kernel and held to its
+    plain version, early exit on and off (224 = 7 rows of tile 32 and 14
+    of tile 16: padded groups)."""
+    cfg = _cfg(tile, batch_u, kernel="v4", lockstep_gt=gt_)
     args = _render_inputs(_cloud(cuda), cfg, batch_u, False)
     for early_exit in (True, False):
-        t4 = r4._render_v4_cuda(*args, gt_, early_exit)
-        t3 = _v3(args, early_exit)
-        tr = r4.render_tiles_v4_reference(*args, gt_, early_exit)
-        assert torch.isfinite(t4).all()
-        assert float((t4[..., :5] - tr[..., :5]).abs().max()) <= 1e-3
-        assert torch.equal(t4[..., 5:], tr[..., 5:])
-        (i4, tf4), (i3, tf3) = (r4.assemble_image_v4(t4, cfg),
-                                rv.assemble_image_v3(t3, cfg))
-        assert _psnr(i4, i3) >= 60.0
-        assert float((tf4 - tf3).abs().max()) <= 1e-3
+        _hold_v4(args, gt_, early_exit)
 
 
 @pytest.mark.gpu
-def test_render_v4_refuses_what_does_not_fit(cuda):
-    cfg = gt.RasterizerConfig(width=320, height=224, kernel="v4")
-    assert (cfg.tile_size, cfg.lockstep_gt) == (16, 4)
-    args = _render_inputs(_cloud(cuda), cfg, 4, False)
-    with pytest.raises(ValueError, match="bytes of shared memory"):
-        r4._render_v4_cuda(*args, 4, True)
+def test_render_v4_runs_its_quality_fast_defaults(cuda):
+    """RasterizerConfig(quality="fast", kernel="v4"), the JAX package's own
+    v4 defaults (tile 16, U=4, GT=4), runs on the card: the kernel meets
+    the gates of test_render_v4_kernel_matches_plain_and_v3 and the frame
+    renders."""
+    cfg = gt.RasterizerConfig(width=320, height=224, quality="fast",
+                              kernel="v4")
+    assert (cfg.tile_size, rv.default_batch_u(16), cfg.lockstep_gt) == (
+        16, 4, 4)
+    cloud = _cloud(cuda)
+    _hold_v4(_render_inputs(cloud, cfg, 4, False), 4, True)
+    out = gt.render_frame_fast(cloud, gt.make_uniforms(
+        gt.Camera.reset_pose(), cfg, device=cuda), cfg)
+    assert out.image.shape == (4, 224, 320)
+    assert torch.isfinite(out.image).all()
 
 
 @pytest.mark.gpu

@@ -1,5 +1,6 @@
-"""The orderings the v3 render kernel (csrc/render_v3.cu) rests on, held on
-the tile lists of both packages.
+"""The orderings the render kernels' per-tile pipeline (csrc/render_tile.cuh,
+run by the v3 and the v4 kernel) rests on, held on the tile lists of both
+packages.
 
 The kernel adds each resident big lane's log-alpha once per pixel per tile
 and each batch's mass once per big-lane suffix, which is exact only if:
@@ -13,8 +14,13 @@ and each batch's mass once per big-lane suffix, which is exact only if:
     suffix; and a batch the straddle gate passes over has no big lane in
     its depth range.
 
-A big-heavy parity scene goes through the JAX projection and block build;
-its BlockFrame2 and BigSet are binned by both packages (``bin_blocks2``,
+A big-heavy parity scene goes through the JAX projection and block build
+of four configurations: fast_defaults() with each clustering (fused
+projection, words, tile 32), and the two v4 configurations,
+RasterizerConfig(kernel="v4").fast_defaults() (the cooked payload, tile
+32, U=2) and RasterizerConfig(quality="fast", kernel="v4") (the readable
+projection, screen clustering, the cooked payload, tile 16, U=4). Each
+BlockFrame2 and BigSet is binned by both packages (``bin_blocks2``,
 ``bin_bigs``), and every check runs on both packages' lists.
 """
 
@@ -31,6 +37,7 @@ from godotgaussiansplatting_tpu.ops import bigbin as bigbin_j
 from godotgaussiansplatting_tpu.ops import binning2 as binning_j
 from godotgaussiansplatting_tpu.ops import blocks2 as blocks_j
 from godotgaussiansplatting_tpu.ops.pipeline import make_uniforms
+from godotgaussiansplatting_tpu.ops.projection import project_splats
 from godotgaussiansplatting_tpu.ops.projection_pallas import project_words
 
 from _torch_parity import np_, port_tuple
@@ -38,21 +45,42 @@ from _torch_parity import np_, port_tuple
 SIZE = (512, 384)
 
 
-@pytest.fixture(scope="module", params=["bricks", "screen"])
+# fixture id -> (RasterizerConfig keywords, fast_defaults())
+CONFIGS = {
+    "bricks": (dict(cluster="bricks"), True),
+    "screen": (dict(cluster="screen"), True),
+    "v4-tile32-cooked": (dict(kernel="v4"), True),
+    "v4-tile16-quality-fast": (dict(kernel="v4", quality="fast"), False),
+}
+
+
+@pytest.fixture(scope="module", params=list(CONFIGS))
 def lists(request):
     """{package: (nb, minmax, nbig, big depth, big rank, big prefix)} as
-    int64/f32 numpy arrays, for one clustering."""
+    int64/f32 numpy arrays, for one configuration."""
     w, h = SIZE
-    kw = dict(width=w, height=h, cluster=request.param)
-    cfg_j = gj.RasterizerConfig(**kw).fast_defaults()
-    cfg_t = gt.RasterizerConfig(**kw).fast_defaults()
-    cj = fast_cloud_view(gj.mortonize(gj.synthetic_scene(
-        16384, seed=9, extent=3.0, scale_range=(0.02, 0.25))))
+    kw, fast = CONFIGS[request.param]
+    cfg_j = gj.RasterizerConfig(width=w, height=h, **kw)
+    cfg_t = gt.RasterizerConfig(width=w, height=h, **kw)
+    if fast:
+        cfg_j, cfg_t = cfg_j.fast_defaults(), cfg_t.fast_defaults()
+    assert cfg_t.tile_size == (16 if request.param.startswith("v4-tile16")
+                               else 32)
+    cj = gj.mortonize(gj.synthetic_scene(16384, seed=9, extent=3.0,
+                                         scale_range=(0.02, 0.25)))
+    if cfg_j.projection_kernel:       # it reads the planar bf16 SH view
+        cj = fast_cloud_view(cj)
     u = make_uniforms(gj.Camera.reset_pose(), cfg_j)
-    wj = project_words(cj.means, cj.cov3d, cj.opacity, cj.sh,
-                       cj.upload_time, u.view, u.proj, u.camera_pos,
-                       u.model_scale, u.time, cfg_j, num_splats=cj.num_splats)
-    fj, bj = blocks_j.build_block_frame2_words(wj, cfg_j, words_payload=True)
+    args = (cj.means, cj.cov3d, cj.opacity, cj.sh, cj.upload_time, u.view,
+            u.proj, u.camera_pos, u.model_scale, u.time, cfg_j)
+    if cfg_j.projection_kernel:
+        fj, bj = blocks_j.build_block_frame2_words(
+            project_words(*args, num_splats=cj.num_splats), cfg_j,
+            words_payload=cfg_j.words_payload)
+    else:
+        fj, bj = blocks_j.build_block_frame2(
+            project_splats(*args), cfg_j, num_splats=cj.num_splats,
+            words_payload=cfg_j.words_payload)
     out = {}
     for name, bins, bigs in (
             ("jax", binning_j.bin_blocks2(fj, cfg_j),
