@@ -54,17 +54,38 @@ nvcc per source, all started together), then:
    that the cooked v3 kernel was held to; and a host count, from the v4 frame's rows, of the
    chain blocks a group's tiles fetch at the same batch that two or more
    of its GT tiles fetch (what TMA multicast across a cluster could load
-   once).
+   once); and the exact composite kernel against its plain version (which
+   composites the tiles in batches) on the 1080p exact frame's inputs at
+   the tile capacity phase 8 settled on, at phase 7's gates, both timed;
+7. the exact composite kernel (render_exact) against its plain version on
+   phase 3's cloud at 512x512, tile 16, heatmap 0 and 1, on a tile-32 case
+   and with a tile capacity of 1000 (not a power of two: the kernel must
+   truncate at 1024 slots as the plain version does): RGB within 1e-4,
+   tile_t0 within 1e-5, tile counts equal, finite output;
+8. the engine end to end at full width: the 5.8M-splat scene through
+   Rasterizer(cloud, texture_size=(1920, 1080)) (quality "exact", the
+   default) and Rasterizer(..., quality="fast"), 8 orbit cameras each with
+   rasterize(sync=True) after one warm-up frame: finite images, rendered
+   splats > 0, render_exact launched by every exact frame and projection
+   and render_v3 by every fast frame, a centre pick that is a splat mean on
+   both, the exact frames' num_overflow and final tile_capacity; the median
+   frame, the median Projection / Sort / Boundaries / Render (or Blocks /
+   Binning) stage times of debug_info() and the peak device memory; then
+   torch.profiler over 3 exact frames, and the PSNR of the fast frame
+   against the exact one at the reset camera (printed, not gated).
 
 The launch counters are set to 0 just before each full-frame path and read
-just after it; the `launches` of a kernel come from the path that runs it.
-The other numbers of the kernels line come from phase 6, the main paths'
-inputs. `bound_ms` is the larger of the bytes the kernel must move over
-3.35 TB/s and its operations over 67 TFLOP/s (f32), counted from this
-run's inputs (see `proj_bound` and `render_bound`: the render kernels read
-the payload rows of a tile's live big lanes, its first nbig, and evaluate
-each (pixel, live big lane) themselves); each record's `bound_counts` says
-what was counted. Any failed check
+just after it; the `launches` of a kernel come from the path that runs it
+(render_exact's from phase 8's exact frames). The other numbers of the
+kernels line come from phase 6, the main paths' inputs. `bound_ms` is the
+larger of the bytes the kernel must move over 3.35 TB/s and its operations
+over 67 TFLOP/s (f32), counted from this run's inputs (see `proj_bound`, `render_bound` and `exact_bound`: the
+render kernels read the payload rows of a tile's live big lanes, its first
+nbig, and evaluate each (pixel, live big lane) themselves; the exact kernel
+reads the id and splat data of each slot a tile loads, and its operations
+are counted per (pixel, slot that pixel processes), with the per-tile
+lockstep reading beside it); each record's `bound_counts` says what was
+counted. Any failed check
 raises, and the script exits non-zero. Without a CUDA device it raises
 before printing any result. The last three lines are the card's name and
 power limit, the kernels' JSON record and {"ok": true, "device": {...}}.
@@ -84,6 +105,7 @@ import torch
 import godotgaussiansplatting_torch as gt
 from godotgaussiansplatting_torch import kernels
 from godotgaussiansplatting_torch.ops import projection_kernel as pk
+from godotgaussiansplatting_torch.ops import render_exact as rx
 from godotgaussiansplatting_torch.ops import render_v3 as rv
 from godotgaussiansplatting_torch.ops import render_v4 as r4
 from godotgaussiansplatting_torch.ops.bigbin import bin_bigs
@@ -92,6 +114,8 @@ from godotgaussiansplatting_torch.ops.blocks2 import (
     _bits16, adaptive_cell_shift, build_block_frame2, build_block_frame2_words,
     u32)
 from godotgaussiansplatting_torch.ops.projection import project_splats
+from godotgaussiansplatting_torch.ops.sort import (emit_and_sort,
+                                                   tile_boundaries)
 
 CSRC = "godotgaussiansplatting_torch/csrc/"
 TPU = "godotgaussiansplatting_tpu/ops/"
@@ -100,6 +124,8 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
     "render_v3": (CSRC + "render_v3.cu", TPU + "render_pallas3.py:178"),
     "render_v3_cooked": (CSRC + "render_v3.cu", TPU + "render_pallas3.py:380"),
     "render_v4": (CSRC + "render_v4.cu", TPU + "render_pallas4.py:66"),
+    # XLA there, no Pallas kernel
+    "render_exact": (CSRC + "render_exact.cu", TPU + "render.py:79"),
 }
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 F32_OPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
@@ -118,6 +144,14 @@ RENDER_OPS_PER_LANE = 22
 # (3)), the prefix and chain-mass adds (2), the weight's two exps and
 # difference (3), the three colour sums (6) and the t_final sum (1).
 RENDER_OPS_PER_BIG = 25
+# Operations per (pixel, processed slot) of the exact composite, from the
+# kernel's loop body (built with --fmad=false, so no product and sum fuse):
+# the offsets dx, dy (2), the three-term power (9), exp (1), alpha (1), the
+# transmittance q * c and c * (1 - alpha) (3), the 1/255 test (1), the
+# weight (1) and the three colour products and sums (6).
+EXACT_OPS_PER_SLOT = 24
+# Bytes per processed slot: its splat id and the 9 floats of splat data.
+EXACT_BYTES_PER_SLOT = 4 + 36
 # What each kernel's bound counts (the kernels line carries it).
 _RENDER_COUNTS = ("bytes: tile rows, the 16 payload rows of each tile's live "
                   "big lanes, each processed block and the output once; "
@@ -130,6 +164,14 @@ BOUND_COUNTS = {
     "render_v3": _RENDER_COUNTS,
     "render_v3_cooked": _RENDER_COUNTS,
     "render_v4": _RENDER_COUNTS,
+    "render_exact": (f"bytes: {EXACT_BYTES_PER_SLOT} per slot a tile loads "
+                     "(its id and splat data; the most slots any of the "
+                     "tile's target pixels processes), the tile ranges and "
+                     f"the image once; operations: {EXACT_OPS_PER_SLOT} per "
+                     "(target pixel, slot that pixel processes), from the "
+                     "plain version's per-pixel counts; lockstep_bound_ms "
+                     "charges every pixel of a tile the tile's most, which "
+                     "is what the kernel evaluates"),
 }
 
 
@@ -524,10 +566,116 @@ def phase_render_v4(cloud, sizes) -> float:
     return worst
 
 
+def exact_inputs(cloud, cfg, heatmap: float):
+    """The exact composite's inputs for the reset camera: the readable
+    projection, emit_and_sort and tile_boundaries."""
+    uni = gt.make_uniforms(gt.Camera.reset_pose(), cfg, device=cloud.device,
+                           heatmap=heatmap)
+    prj = project_splats(cloud.means, cloud.cov3d, cloud.opacity, cloud.sh,
+                         cloud.upload_time, uni.view, uni.proj,
+                         uni.camera_pos, uni.model_scale, uni.time, cfg)
+    pairs = emit_and_sort(prj.valid, prj.rect, prj.num_tiles, prj.depth16,
+                          cfg)
+    start, end = tile_boundaries(pairs.keys, pairs.num_pairs, cfg)
+    return (pairs.values, start, end, prj.image_pos, prj.conic, prj.color,
+            uni.heatmap_factor)
+
+
+def exact_plain(args, cfg, capacity: int):
+    """The plain version on the card, 256 tiles a batch: its RenderOutput
+    and the (T, ts * ts) count of slots each tile pixel processed."""
+    return rx._composite(*args, cfg, capacity, 256, (0, 0))
+
+
+def exact_slots(cfg, n_proc: torch.Tensor) -> tuple:
+    """(slots the tiles load, (pixel, slot) pairs processed) from the plain
+    version's per-pixel counts, over the target's pixels only: a tile loads
+    the most slots any of its pixels processes."""
+    w, h = cfg.target_size
+    gx, gy = cfg.tile_dims
+    ts = cfg.tile_size
+    dev = n_proc.device
+    inside = ((torch.arange(gy * ts, device=dev) < h).reshape(gy, 1, ts, 1)
+              & (torch.arange(gx * ts, device=dev) < w).reshape(1, gx, 1, ts))
+    need = n_proc.reshape(gy, gx, ts, ts) * inside
+    return (int(need.amax(dim=(2, 3)).sum()), int(need.sum()))
+
+
+def exact_bound(args, cfg, n_proc: torch.Tensor) -> dict:
+    """Work of one exact composite from this run's data (see
+    BOUND_COUNTS["render_exact"]): the function's need, and as
+    ``lockstep_bound_ms`` the operations the kernel's per-tile lockstep
+    evaluates."""
+    w, h = cfg.target_size
+    tile_slots, pixel_slots = exact_slots(cfg, n_proc)
+    n_bytes = (tile_slots * EXACT_BYTES_PER_SLOT + nbytes(args[1], args[2])
+               + w * h * 16)
+    lockstep = bound(n_bytes, tile_slots * cfg.tile_size ** 2
+                     * EXACT_OPS_PER_SLOT)
+    return {**bound(n_bytes, pixel_slots * EXACT_OPS_PER_SLOT),
+            "lockstep_bound_ms": lockstep["bound_ms"]}
+
+
+def hold_exact(tag, ok, pr) -> float:
+    """The exact kernel against its plain version: RGB within 1e-4, tile_t0
+    within 1e-5, counts equal, finite. Returns the RGB max |d|."""
+    finite = bool(torch.isfinite(ok.image).all())
+    err = float((ok.image - pr.image).abs().max())
+    t0_err = float((ok.tile_t0 - pr.tile_t0).abs().max())
+    counts = torch.equal(ok.tile_counts, pr.tile_counts)
+    log(f"[{tag}] max |d rgb| {err:.3g}, max |d tile_t0| {t0_err:.3g}, "
+        f"counts equal {counts}, finite {finite}, PSNR "
+        f"{psnr(ok.image.permute(2, 0, 1), pr.image.permute(2, 0, 1)):.2f} dB")
+    check(finite, f"{tag}: non-finite kernel output")
+    check(err <= 1e-4, f"{tag}: RGB error {err}")
+    check(t0_err <= 1e-5, f"{tag}: tile_t0 error {t0_err}")
+    check(counts, f"{tag}: tile counts differ")
+    return err
+
+
+def phase_exact(cloud, size: int) -> float:
+    """Phase 7: the exact composite kernel against its plain version."""
+    worst = 0.0
+    cases = [(gt.RasterizerConfig(width=size, height=size), 2048, hm)
+             for hm in (0.0, 1.0)]
+    cases += [(gt.RasterizerConfig(width=size // 2, height=size // 2,
+                                   tile_size=32), 2048, 1.0),
+              (gt.RasterizerConfig(width=size, height=size), 1000, 0.0)]
+    for i, (cfg, cap, hm) in enumerate(cases):
+        args = exact_inputs(cloud, cfg, hm)
+        ok = rx.render_tiles(*args, cfg, tile_capacity=cap)
+        pr, n_proc = exact_plain(args, cfg, cap)
+        torch.cuda.synchronize()
+        w, h = cfg.target_size
+        counts = pr.tile_counts
+        tile_slots, pixel_slots = exact_slots(cfg, n_proc)
+        tag = (f"7 exact {w}x{h} tile {cfg.tile_size} capacity {cap} "
+               f"heatmap {hm}; tiles {counts.numel()}, count mean "
+               f"{float(counts.float().mean()):.1f} max {int(counts.max())}, "
+               f"over the capacity {int((counts > cap).sum())}, slots "
+               f"loaded {tile_slots} of "
+               f"{int(counts.clamp(max=rx.effective_capacity(cap)).sum())}, "
+               f"(pixel, slot) pairs processed {pixel_slots}")
+        worst = max(worst, hold_exact(tag, ok, pr))
+        if cap == 1000:
+            check(int((counts > 1024).sum()) > 0,
+                  "7: no tile is long enough to test the truncation")
+        if i == 0:
+            ms = time_ms(lambda: rx.render_tiles(*args, cfg), 10)
+            plain_ms = time_ms(lambda: exact_plain(args, cfg, 2048), 2)
+            bnd = exact_bound(args, cfg, n_proc)
+            log(f"[7 exact] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), "
+                f"lockstep bound {bnd['lockstep_bound_ms']:.4f} ms")
+    return worst
+
+
 def frame_cloud(n: int):
+    """bench.py's scene in its load order (full precision; the fast frames
+    read its fast_cloud_view)."""
     t0 = time.perf_counter()
-    cloud = gt.fast_cloud_view(gt.mortonize(gt.synthetic_scene(
-        n, seed=42, extent=4.0, scale_range=(0.004, 0.03), surfaces=True)))
+    cloud = gt.mortonize(gt.synthetic_scene(
+        n, seed=42, extent=4.0, scale_range=(0.004, 0.03), surfaces=True))
     return cloud, time.perf_counter() - t0
 
 
@@ -580,22 +728,19 @@ def phase_frame(tag: str, cloud, cfg, frames: int, expect) -> dict:
     return launches
 
 
-def profile_frames(tag: str, cloud, cfg, frames: int = 3) -> None:
-    """torch.profiler over ``frames`` orbit frames (after a warm-up): the
-    device's busy time (the union of its kernels' intervals) over the
-    device span, the kernels with the most device time and the matrix
-    products (gemm). A v4 frame must run none: its render kernel takes no
-    prepass_big_la maps."""
+def profile(tag: str, run_frame, frames: int) -> dict:
+    """torch.profiler over ``frames`` calls of ``run_frame(i)`` (after a
+    warm-up call): the device's busy time (the union of its kernels'
+    intervals) over the device span, the kernels with the most device time
+    and the matrix products (gemm). Returns the gemms by name."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    cams = gt.orbit_trajectory(frames, radius=5.0, target=(0, 0, 6.0))
-    unis = [gt.make_uniforms(c, cfg) for c in cams]
-    gt.render_frame_fast(cloud, unis[0], cfg)
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+    run_frame(0)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for uni in unis:
-            gt.render_frame_fast(cloud, uni, cfg)
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        for i in range(frames):
+            run_frame(i)
         torch.cuda.synchronize()
     ivs = sorted((e.time_range.start, e.time_range.end)
                  for e in prof.events() if e.device_type == DeviceType.CUDA)
@@ -622,8 +767,103 @@ def profile_frames(tag: str, cloud, cfg, frames: int = 3) -> None:
         f"{json.dumps({n[:60]: round(t / 1e3 / frames, 3) for n, t in top})}")
     log(f"[{tag} profile] matrix products (gemm), launches and device ms per "
         f"frame: {json.dumps({n: [c / frames, round(t / 1e3 / frames, 3)] for n, (c, t) in gemms.items()})}")
+    return gemms
+
+
+def profile_frames(tag: str, cloud, cfg, frames: int = 3) -> None:
+    """The profile of ``frames`` orbit frames of render_frame_fast. A v4
+    frame must run no gemm: its render kernel takes no prepass_big_la
+    maps."""
+    cams = gt.orbit_trajectory(frames, radius=5.0, target=(0, 0, 6.0))
+    unis = [gt.make_uniforms(c, cfg) for c in cams]
+    gemms = profile(tag, lambda i: gt.render_frame_fast(cloud, unis[i], cfg),
+                    frames)
     if cfg.kernel == "v4" and cfg.projection_kernel:
         check(not gemms, f"{tag} profile: the v4 frame runs a gemm")
+
+
+def engine_frames(tag: str, r, cloud, frames: int, expect) -> dict:
+    """Drive a Rasterizer over ``frames`` orbit cameras with
+    rasterize(sync=True) after one warm-up frame; the launch counters are
+    set to 0 just before each timed frame and read just after it, and every
+    kernel of ``expect`` must launch in every frame. Returns the launches
+    summed over the frames."""
+    cams = gt.orbit_trajectory(frames, radius=5.0, target=(0, 0, 6.0))
+    r.rasterize(sync=True)                                  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timings, overflow = [], []
+    launches = {name: 0 for name in kernels.COUNTERS}
+    for i, cam in enumerate(cams):
+        r.camera = cam
+        r.update_camera_matrices()
+        kernels.reset_launch_counts()
+        out = r.rasterize(sync=True)
+        counts = kernels.launch_counts()
+        for name in launches:
+            launches[name] += counts[name]
+        for name in expect:
+            check(counts[name] >= 1,
+                  f"{tag}: {name} not launched by frame {i} ({counts})")
+        info = r.debug_info()
+        timings.append(info["timings"])
+        overflow.append(info["pair_overflow_dropped"])
+        check(out.image.device.type == "cuda", f"{tag}: image not on the card")
+        check(bool(torch.isfinite(out.image).all()), f"{tag}: non-finite image")
+        check(info["rendered_splats"] > 0, f"{tag}: no rendered splats")
+    peak = torch.cuda.max_memory_allocated()
+    pick = r.get_splat_position((960, 540))
+    check(bool(np.all(np.isfinite(pick))), f"{tag}: centre pick {pick}")
+    ply = torch.tensor([-pick[0], -pick[1], pick[2]], device=cloud.device)
+    d_pick = float((cloud.means[:cloud.num_splats] - ply).norm(dim=1).min())
+    check(d_pick < 1e-4, f"{tag}: centre pick is not a splat mean ({d_pick})")
+    med = {k: statistics.median(t[k] for t in timings) for k in timings[0]}
+    log(f"[{tag}] {cloud.num_splats} splats 1920x1080, quality {r.quality}, "
+        f"tile {r.config.tile_size}, {frames} orbit frames with "
+        f"rasterize(sync=True): median frame {med['Frame']:.3f} ms (all "
+        f"{[round(t['Frame'], 3) for t in timings]}), median stages "
+        f"{json.dumps({k: round(v, 3) for k, v in med.items() if k != 'Frame'})}"
+        f", peak memory {peak / 2**30:.2f} GiB, rendered splats "
+        f"{info['rendered_splats']}, num_overflow {overflow}, final "
+        f"tile_capacity {r.tile_capacity}, launches {json.dumps(launches)}, "
+        f"centre pick {[float(x) for x in pick]}")
+    return launches
+
+
+def phase_engine(cloud, frames: int) -> tuple:
+    """Phase 8: the engine end to end at 1920x1080 on both qualities; then
+    torch.profiler over 3 exact frames and the fast frame's PSNR against
+    the exact one at the reset camera. Returns (render_exact's launches,
+    the exact Rasterizer's final tile capacity)."""
+    t0 = time.perf_counter()
+    exact = gt.Rasterizer(cloud, texture_size=(1920, 1080))
+    fast = gt.Rasterizer(cloud, texture_size=(1920, 1080), quality="fast")
+    log(f"[8 engine] both Rasterizers set up in "
+        f"{time.perf_counter() - t0:.1f} s")
+    check(exact.quality == "exact" and fast.quality == "fast",
+          "8: unexpected qualities")
+    launches = engine_frames("8 engine exact", exact, cloud, frames,
+                             ("render_exact",))
+    engine_frames("8 engine fast", fast, cloud, frames,
+                  ("projection", "render_v3"))
+    cams = gt.orbit_trajectory(3, radius=5.0, target=(0, 0, 6.0))
+
+    def exact_frame(i):
+        exact.camera = cams[i]
+        exact.update_camera_matrices()
+        exact.rasterize()
+
+    profile("8 engine exact", exact_frame, 3)
+    images = []
+    for r in (exact, fast):
+        r.camera = gt.Camera.reset_pose()
+        r.update_camera_matrices()
+        r.rasterize(sync=True)
+        images.append(torch.from_numpy(np.ascontiguousarray(
+            r.image())).permute(2, 0, 1))
+    log(f"[8 engine] fast against exact at the reset camera, 1920x1080: "
+        f"PSNR {psnr(images[1], images[0]):.2f} dB (not gated)")
+    return launches["render_exact"], exact.tile_capacity
 
 
 def _processed(tiles, cfg):
@@ -737,6 +977,35 @@ def phase_kernels_1080p(cloud, base, worst: dict) -> list:
     return rec
 
 
+def exact_1080p(cloud, base, capacity: int, worst: float) -> dict:
+    """Phase 6, the exact composite: the kernel against its plain version
+    on the 1080p exact frame's inputs (reset camera) at the tile capacity
+    the engine settled on, at phase 7's gates; both timed, beside the
+    bound. Returns the kernel's record."""
+    cfg = base
+    args = exact_inputs(cloud, cfg, 0.0)
+    ok = rx.render_tiles(*args, cfg, tile_capacity=capacity)
+    (pr, n_proc), plain_ms = time_once(lambda: exact_plain(args, cfg,
+                                                           capacity))
+    counts = pr.tile_counts
+    tile_slots, pixel_slots = exact_slots(cfg, n_proc)
+    tag = (f"6 render_exact 1080p tile {cfg.tile_size} capacity {capacity}; "
+           f"tiles {counts.numel()}, count mean "
+           f"{float(counts.float().mean()):.1f} max {int(counts.max())}, "
+           f"slots loaded {tile_slots} of "
+           f"{int(counts.clamp(max=rx.effective_capacity(capacity)).sum())}, "
+           f"(pixel, slot) pairs processed {pixel_slots}")
+    err = hold_exact(tag, ok, pr)
+    ms = time_ms(lambda: rx.render_tiles(*args, cfg, tile_capacity=capacity),
+                 5)
+    bnd = exact_bound(args, cfg, n_proc)
+    log(f"[6 render_exact 1080p] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+        f"(one call, 256 tiles a batch), bound {bnd['bound_ms']:.4f} ms "
+        f"({bnd['bound_by']}), lockstep bound "
+        f"{bnd['lockstep_bound_ms']:.4f} ms")
+    return record("render_exact", max(worst, err), ms, plain_ms, bnd)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; nothing was measured")
@@ -747,8 +1016,10 @@ def main() -> int:
     worst["render_v3"] = phase_render(cloud, 512)
     worst["render_v3_cooked"] = phase_render_cooked(cloud, 512)
     worst["render_v4"] = phase_render_v4(cloud, (512, 480))
+    worst["render_exact"] = phase_exact(cloud, 512)
     del cloud
-    cloud, setup_s = frame_cloud(5_800_000)
+    full, setup_s = frame_cloud(5_800_000)
+    cloud = gt.fast_cloud_view(full)
     log(f"[4 frame] scene set-up {setup_s:.1f} s")
     base = gt.RasterizerConfig(width=1920, height=1080)
     launches = {}
@@ -767,7 +1038,9 @@ def main() -> int:
     # profiled after every timed frame, so no timed frame follows a trace
     for tag, cfg, _ in frames:
         profile_frames(tag, cloud, cfg)
+    launches["render_exact"], capacity = phase_engine(full, 8)
     rec = phase_kernels_1080p(cloud, base, worst)
+    rec.append(exact_1080p(full, base, capacity, worst["render_exact"]))
     for r in rec:
         r["launches"] = launches[r["name"]]
     log(card)

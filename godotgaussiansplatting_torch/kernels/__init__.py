@@ -47,10 +47,14 @@ SIGNATURES = {
         "gs_render_v4_max_blocks": [_I] * 3,
         "gs_render_v4_smem_bytes": [_I] * 2,
     },
+    "render_exact": {
+        "gs_render_exact": [_P] * 10 + [_I] * 9 + [_P],
+    },
 }
 # One launch counter per kernel a wrapper launches (the v3 library holds
 # two: the word and the cooked payload).
-COUNTERS = ("projection", "render_v3", "render_v3_cooked", "render_v4")
+COUNTERS = ("projection", "render_v3", "render_v3_cooked", "render_v4",
+            "render_exact")
 
 _libs: dict = {}
 _launches = {name: 0 for name in COUNTERS}

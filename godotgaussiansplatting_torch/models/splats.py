@@ -186,3 +186,121 @@ def synthetic_scene(num_splats: int, seed: int = 0, extent: float = 4.0,
     if ncoef > 1:
         sh[:, 1:ncoef] = rng.normal(0, 0.12, (n, ncoef - 1, 3))
     return from_arrays(means, scales, quats, opac, sh, device=device)
+
+
+def photogrammetry_scene(num_splats: int, seed: int = 0, extent: float = 4.0,
+                         device="cuda") -> SplatCloud:
+    """Scene with the marginal statistics of a TRAINED Inria 3DGS model.
+
+    A copy of the JAX package's ``photogrammetry_scene``: the same seed
+    gives the same arrays. The reference's headline numbers come from real
+    MipNeRF-360 checkpoints (bicycle/garden, the reference's README.md:26,58),
+    which are not distributed with it, so this reproduces the distributions
+    a trained model exposes to the pipeline — the properties that actually
+    stress each stage:
+
+      * scales: LOG-NORMAL with a heavy upper tail (the Inria trainer stores
+        log-scale and densifies/splits by gradient; survivors span ~4 orders
+        of magnitude), strongly ANISOTROPIC per splat (thin plates along
+        surfaces, needles along edges) — drives the big-splat (radius>=32px)
+        extraction and the tile-rect distribution.
+      * opacity: BIMODAL in logit space (training prunes alpha<0.005 and
+        periodically resets opacity; converged splats saturate toward 1) —
+        drives the saturation early-exit (gsplat_render.glsl:45-48).
+      * layout: a well-observed central region with small dense surface
+        splats + a sparse BACKGROUND SHELL of giant low-detail splats (sky /
+        far field, the 360-capture signature) — the camera orbits INSIDE the
+        scene, so far-plane depth16 quantization (depth^3 keys,
+        gsplat_projection.glsl:218-226) is exercised.
+      * SH: band energy decays geometrically from DC (higher bands encode
+        view-dependent residuals only); channels are correlated (real
+        radiance is mostly grey-ish at high bands).
+    """
+    rng = np.random.default_rng(seed)
+    n = num_splats
+    n_bg = max(1, int(n * 0.06))          # background shell (sky/far field)
+    n_fol = max(1, int(n * 0.22))         # volumetric foliage / clutter
+    n_surf = n - n_bg - n_fol             # surface patches
+
+    # --- positions ---------------------------------------------------------
+    k = max(64, n_surf // 4096)
+    centers = rng.uniform(-extent, extent, (k, 3)).astype(np.float32)
+    centers[:, 1] *= 0.35                 # flatten vertically (ground scene)
+    normals = rng.normal(size=(k, 3)).astype(np.float32)
+    normals /= np.linalg.norm(normals, axis=-1, keepdims=True)
+    sizes = (rng.uniform(0.15, 0.8, (k, 1)).astype(np.float32)
+             * extent * 0.4)
+    u = rng.normal(size=(k, 3)).astype(np.float32)
+    u -= (u * normals).sum(-1, keepdims=True) * normals
+    u /= np.linalg.norm(u, axis=-1, keepdims=True)
+    v = np.cross(normals, u)
+    pid = rng.integers(0, k, n_surf)
+    a = rng.normal(size=(n_surf, 1)).astype(np.float32)
+    b = rng.normal(size=(n_surf, 1)).astype(np.float32)
+    c = rng.normal(0, 0.015, (n_surf, 1)).astype(np.float32)
+    p_surf = (centers[pid] + sizes[pid] * (a * u[pid] + b * v[pid])
+              + c * extent * normals[pid]).astype(np.float32)
+    p_surf = np.clip(p_surf, -1.6 * extent, 1.6 * extent)
+
+    p_fol = rng.normal(0, 0.55 * extent, (n_fol, 3)).astype(np.float32)
+    p_fol[:, 1] = np.abs(p_fol[:, 1]) * 0.6  # above ground
+
+    # background shell at 3-8x extent, roughly isotropic directions
+    d_bg = rng.normal(size=(n_bg, 3)).astype(np.float32)
+    d_bg /= np.linalg.norm(d_bg, axis=-1, keepdims=True)
+    r_bg = rng.uniform(3.0, 8.0, (n_bg, 1)).astype(np.float32) * extent
+    p_bg = (d_bg * r_bg).astype(np.float32)
+
+    means = np.concatenate([p_surf, p_fol, p_bg], axis=0)
+
+    # --- scales: log-normal, anisotropic -------------------------------------
+    # base sigma per population: surfaces ~ 0.004*extent median, foliage a bit
+    # larger, background giant (0.1-1 extent)
+    ln = np.empty((n, 3), np.float32)
+    base_s = rng.normal(np.log(0.004 * extent), 0.9, n_surf).astype(np.float32)
+    base_f = rng.normal(np.log(0.009 * extent), 0.7, n_fol).astype(np.float32)
+    base_b = rng.normal(np.log(0.25 * extent), 0.6, n_bg).astype(np.float32)
+    base = np.concatenate([base_s, base_f, base_b])
+    aniso = rng.normal(0, 0.55, (n, 3)).astype(np.float32)
+    ln[:] = base[:, None] + aniso
+    # plates: squash one random axis hard on ~45% (surfaces are locally 2D)
+    plate = rng.random(n) < 0.45
+    axis = rng.integers(0, 3, n)
+    ln[plate, axis[plate]] -= rng.uniform(1.0, 2.5, plate.sum()).astype(
+        np.float32)
+    scales = np.exp(ln).astype(np.float32)
+    # trainer clips: nothing smaller than ~1e-5 extent survives pruning
+    scales = np.maximum(scales, 1e-5 * extent)
+
+    # --- opacity: bimodal logit -----------------------------------------------
+    m = rng.random(n)
+    opac = np.where(
+        m < 0.55, 1.0 - rng.exponential(0.04, n),      # converged, near 1
+        np.where(m < 0.85, rng.uniform(0.10, 0.90, n), # mid
+                 0.005 + rng.exponential(0.05, n)))    # wispy, above prune
+    opac = np.clip(opac, 0.005, 0.9999).astype(np.float32)
+    opac[n_surf + n_fol:] = np.clip(                   # sky is mostly opaque
+        1.0 - rng.exponential(0.08, n_bg), 0.3, 0.9999).astype(np.float32)
+
+    # --- orientation: plates align to their patch normal ----------------------
+    quats = rng.normal(size=(n, 4)).astype(np.float32)
+
+    # --- SH: geometric band decay, channel-correlated --------------------------
+    sh = np.zeros((n, 16, 3), np.float32)
+    # DC: natural palette (greens/browns/sky-blue mixture via per-population hue)
+    dc_surf = rng.uniform(-0.8, 1.8, (n_surf, 3)).astype(np.float32)
+    dc_fol = (rng.uniform(-0.5, 1.2, (n_fol, 1))
+              * np.array([[0.6, 1.0, 0.5]], np.float32)
+              + rng.normal(0, 0.15, (n_fol, 3))).astype(np.float32)
+    dc_bg = (np.array([[0.4, 0.8, 1.6]], np.float32)
+             + rng.normal(0, 0.25, (n_bg, 3))).astype(np.float32)
+    sh[:, 0] = np.concatenate([dc_surf, dc_fol, dc_bg])
+    grey = rng.normal(0, 1.0, (n, 15, 1)).astype(np.float32)
+    chroma = rng.normal(0, 0.35, (n, 15, 3)).astype(np.float32)
+    band_sigma = np.concatenate([
+        np.full(3, 0.16), np.full(5, 0.07), np.full(7, 0.03)]).astype(
+        np.float32)                                     # l=1,2,3 decay
+    sh[:, 1:16] = (grey + chroma) * band_sigma[None, :, None]
+    sh[n_surf + n_fol:, 1:16] *= 0.3                    # sky is low-detail
+
+    return from_arrays(means, scales, quats, opac, sh, device=device)

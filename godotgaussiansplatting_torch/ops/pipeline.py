@@ -1,17 +1,24 @@
-"""Per-frame uniforms and frame statistics.
+"""The exact four-stage frame: projection -> sort -> boundaries -> render,
+with its per-frame uniforms, statistics and picking.
 
-Counterpart of ``godotgaussiansplatting_tpu/ops/pipeline.py:25-57``
-(``FrameUniforms``, ``make_uniforms``, ``FrameStats``). The exact-path frame
-of that module is not ported yet.
+Counterpart of ``godotgaussiansplatting_tpu/ops/pipeline.py``. Stage 1 is
+the readable projection (ops/projection.py), stages 2-3 ops/sort.py and
+stage 4 ops/render_exact.py, whose CUDA tensors go to the kernel
+csrc/render_exact.cu. torch runs eagerly, so there is no jit-compiled
+variant: ``render_frame`` is the whole frame.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import torch
 
 from ..config import RasterizerConfig
+from .projection import project_splats
+from .render_exact import render_tiles
+from .sort import emit_and_sort, tile_boundaries
 
 
 class FrameUniforms(NamedTuple):
@@ -50,3 +57,78 @@ class FrameStats(NamedTuple):
     num_pairs: torch.Tensor      # () i32 splat-tile pairs ("Rendered Splats")
     num_overflow: torch.Tensor   # () i32 pairs dropped by capacity caps
     max_tile_count: torch.Tensor  # () i32 densest tile
+
+
+class FrameOutput(NamedTuple):
+    image: torch.Tensor          # (H, W, 4) f32
+    stats: FrameStats
+    # what picking reads (get_splat_position):
+    sorted_values: torch.Tensor  # (K_max,) i32
+    tile_start: torch.Tensor     # (T,) i32
+    tile_end: torch.Tensor       # (T,) i32
+    tile_t0: torch.Tensor        # (T,) f32
+    splat_pos: torch.Tensor      # (P, 3) model-scaled positions
+
+
+def render_frame_staged(cloud, uniforms: FrameUniforms,
+                        cfg: RasterizerConfig, tile_capacity: int = 2048,
+                        timer=None) -> FrameOutput:
+    """One exact frame in the reference's four stages (Projection, Sort,
+    Boundaries, Render; gaussian_splatting_rasterizer.gd:135-160), each
+    timed by ``timer`` (``timer.stage(name)``, e.g. ``StageTimer``) when
+    one is passed."""
+    stage = timer.stage if timer is not None else (
+        lambda name: contextlib.nullcontext())
+    with stage("Projection"):
+        prj = project_splats(
+            cloud.means, cloud.cov3d, cloud.opacity, cloud.sh,
+            cloud.upload_time, uniforms.view, uniforms.proj,
+            uniforms.camera_pos, uniforms.model_scale, uniforms.time, cfg)
+    with stage("Sort"):
+        pairs = emit_and_sort(prj.valid, prj.rect, prj.num_tiles,
+                              prj.depth16, cfg)
+    with stage("Boundaries"):
+        start, end = tile_boundaries(pairs.keys, pairs.num_pairs, cfg)
+    with stage("Render"):
+        out = render_tiles(pairs.values, start, end, prj.image_pos,
+                           prj.conic, prj.color, uniforms.heatmap_factor,
+                           cfg, tile_capacity=tile_capacity)
+    stats = FrameStats(num_pairs=pairs.num_pairs,
+                       num_overflow=pairs.num_overflow,
+                       max_tile_count=out.tile_counts.max())
+    return FrameOutput(image=out.image, stats=stats,
+                       sorted_values=pairs.values, tile_start=start,
+                       tile_end=end, tile_t0=out.tile_t0, splat_pos=prj.pos)
+
+
+def render_frame(cloud, uniforms: FrameUniforms, cfg: RasterizerConfig,
+                 tile_capacity: int = 2048) -> FrameOutput:
+    """One exact frame (the JAX package's ``render_frame`` and
+    ``render_frame_jit``)."""
+    return render_frame_staged(cloud, uniforms, cfg, tile_capacity)
+
+
+def render_multiview(cloud, uniforms_batched: FrameUniforms,
+                     cfg: RasterizerConfig,
+                     tile_capacity: int = 2048) -> torch.Tensor:
+    """Several views of one cloud: every field of ``uniforms_batched`` has a
+    leading view axis. Returns (V, H, W, 4)."""
+    n = uniforms_batched.view.shape[0]
+    return torch.stack([
+        render_frame(cloud, FrameUniforms(*(f[i] for f in uniforms_batched)),
+                     cfg, tile_capacity).image
+        for i in range(n)])
+
+
+def pick_splat_position(frame: FrameOutput, tile_id) -> torch.Tensor:
+    """The splat 10% into the tile's depth-sorted range
+    (gaussian_splatting_rasterizer.gd:162-171, gsplat_render.glsl:103-110),
+    or +inf when the tile is empty or its pixel (0, 0) is untouched. The
+    host applies basis_override^-1 (-x, -y, z)."""
+    s = frame.tile_start[tile_id].to(torch.int64)
+    n = frame.tile_end[tile_id].to(torch.int64) - s
+    K = frame.sorted_values.shape[0]
+    idx = frame.sorted_values[torch.clamp(s + n // 10, 0, K - 1)]
+    pos = frame.splat_pos[idx.to(torch.int64)]
+    hit = (n > 0) & (frame.tile_t0[tile_id] != 1.0)
+    return torch.where(hit, pos, float("inf"))

@@ -6,10 +6,13 @@ both packages as numpy arrays; u32 words cross as int32 bit patterns.
 
 from __future__ import annotations
 
+import io
+
 import numpy as np
 import torch
 
 import godotgaussiansplatting_torch as gt
+from godotgaussiansplatting_torch.models.ply import write_ply
 
 
 def np_(a) -> np.ndarray:
@@ -55,3 +58,17 @@ def psnr(a, b, peak: float = 1.0) -> float:
     mse = float(np.mean((np.asarray(a, np.float64)
                          - np.asarray(b, np.float64)) ** 2))
     return 10.0 * np.log10(peak ** 2 / max(mse, 1e-20))
+
+
+def model_blob(n: int = 256, seed: int = 0) -> bytes:
+    """The .ply bytes of tests/test_engine.py's random model."""
+    rng = np.random.default_rng(seed)
+    means = rng.uniform(-1.5, 1.5, (n, 3)).astype(np.float32)
+    means[:, 2] += 3.0
+    scales = rng.uniform(0.02, 0.1, (n, 3)).astype(np.float32)
+    q = rng.normal(size=(n, 4)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    opac = rng.uniform(0.3, 0.9, (n,)).astype(np.float32)
+    sh = np.zeros((n, 16, 3), np.float32)
+    sh[:, 0] = rng.uniform(0.0, 2.0, (n, 3))
+    return write_ply(io.BytesIO(), means, scales, q, opac, sh)

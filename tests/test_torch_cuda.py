@@ -19,12 +19,17 @@ import godotgaussiansplatting_torch as gt
 from godotgaussiansplatting_torch import kernels, split_render
 from godotgaussiansplatting_torch.ops import projection_kernel as pk
 from godotgaussiansplatting_torch.ops import render_v3 as rv
+from godotgaussiansplatting_torch.ops import render_exact as rx
 from godotgaussiansplatting_torch.ops import render_v4 as r4
+from godotgaussiansplatting_torch.ops import sort as so
 from godotgaussiansplatting_torch.ops.bigbin import bin_bigs
 from godotgaussiansplatting_torch.ops.binning2 import bin_blocks2
 from godotgaussiansplatting_torch.ops.blocks2 import (
     adaptive_cell_shift, build_block_frame2, build_block_frame2_words)
+from godotgaussiansplatting_torch.models.ply import load_splats
 from godotgaussiansplatting_torch.ops.projection import project_splats
+
+from _torch_parity import model_blob
 
 
 @pytest.fixture
@@ -57,9 +62,14 @@ def test_cpu_frame_launches_no_kernel():
     out = gt.render_frame_fast(cloud, gt.make_uniforms(
         gt.Camera.reset_pose(), cfg, device="cpu"), cfg)
     assert out.image.device.type == "cpu"
+    exact = gt.RasterizerConfig(width=64, height=64)
+    out = gt.render_frame(cloud, gt.make_uniforms(
+        gt.Camera.reset_pose(), exact, device="cpu"), exact)
+    assert out.image.device.type == "cpu"
     assert kernels.launch_counts() == {name: 0 for name in kernels.COUNTERS}
     assert set(kernels.COUNTERS) == {"projection", "render_v3",
-                                     "render_v3_cooked", "render_v4"}
+                                     "render_v3_cooked", "render_v4",
+                                     "render_exact"}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -79,6 +89,12 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         r4._render_v4_cuda(rows, cooked, bigpay, cfg, 2, 128, 4, True)
     with pytest.raises(ValueError, match="cooked"):
         r4._render_v4_cuda(rows, payload, bigpay, cfg, 2, 128, 4, True)
+    T = cfg.num_tiles
+    tiles = torch.zeros((T,), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        rx._render_exact_cuda(torch.zeros((8,), dtype=torch.int32), tiles,
+                              tiles, torch.zeros((4, 2)), torch.zeros((4, 3)),
+                              torch.zeros((4, 4)), 0.0, cfg, 512)
 
 
 def test_entry_points_default_to_the_card():
@@ -91,6 +107,10 @@ def test_entry_points_default_to_the_card():
         gt.synthetic_scene(100)
     with pytest.raises((RuntimeError, AssertionError)):
         gt.make_uniforms(gt.Camera.reset_pose(), cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        gt.Rasterizer(gt.synthetic_scene(100, device="cpu"))
+    with pytest.raises((RuntimeError, AssertionError)):
+        load_splats(model_blob(16))
 
 
 @pytest.mark.parametrize("copies", ["STAGES", "VARIANTS", "V4_VARIANTS"])
@@ -274,3 +294,110 @@ def test_entry_points_run_on_the_card_by_default(cuda):
     out = gt.render_frame_fast(cloud, uni, cfg)
     assert out.image.device.type == "cuda"
     assert torch.isfinite(out.image).all()
+
+
+def _exact_inputs(cloud, cfg, heatmap):
+    """The exact frame's render inputs on ``cloud``'s device (reset
+    camera): projection, emission, sort and boundaries."""
+    uni = gt.make_uniforms(gt.Camera.reset_pose(), cfg, device=cloud.device,
+                           heatmap=heatmap)
+    prj = project_splats(cloud.means, cloud.cov3d, cloud.opacity, cloud.sh,
+                         cloud.upload_time, uni.view, uni.proj,
+                         uni.camera_pos, uni.model_scale, uni.time, cfg)
+    pairs = so.emit_and_sort(prj.valid, prj.rect, prj.num_tiles, prj.depth16,
+                             cfg)
+    start, end = so.tile_boundaries(pairs.keys, pairs.num_pairs, cfg)
+    return (pairs.values, start, end, prj.image_pos, prj.conic, prj.color,
+            uni.heatmap_factor)
+
+
+def _exact_cloud(device, n=40_000):
+    return gt.synthetic_scene(n, seed=4, scale_range=(0.005, 0.12),
+                              surfaces=True, device=device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile,capacity,offset", [
+    (16, 2048, (0, 0)), (16, 1000, (0, 0)), (32, 4096, (0, 0)),
+    (16, 300, (16, 8))])
+def test_render_exact_kernel_matches_plain(cuda, tile, capacity, offset):
+    """RGB within 1e-4, tile_t0 within 1e-5, counts equal, finite; the
+    non-power-of-two capacities truncate as the plain version does."""
+    cfg = gt.RasterizerConfig(width=320, height=224, tile_size=tile)
+    cloud = _exact_cloud(cuda)
+    for hm in (0.0, 1.0):
+        args = _exact_inputs(cloud, cfg, hm)
+        kernels.reset_launch_counts()
+        ok = rx.render_tiles(*args, cfg, tile_capacity=capacity,
+                             pixel_offset=offset)
+        assert kernels.launch_counts()["render_exact"] == 1
+        pr = rx.render_tiles_reference(*args, cfg, tile_capacity=capacity,
+                                       pixel_offset=offset)
+        assert torch.isfinite(ok.image).all()
+        assert float((ok.image - pr.image).abs().max()) <= 1e-4
+        assert float((ok.tile_t0 - pr.tile_t0).abs().max()) <= 1e-5
+        assert torch.equal(ok.tile_counts, pr.tile_counts)
+    if capacity == 1000:
+        assert int(ok.tile_counts.max()) > 1024, "no tile is truncated"
+
+
+@pytest.mark.gpu
+def test_emit_and_sort_on_the_card_equals_the_cpu(cuda):
+    cfg = gt.RasterizerConfig(width=320, height=224, max_tiles_per_splat=8,
+                              exact_tiers=((32, 64), (128, 16)),
+                              giant_splat_capacity=8)
+    cloud = _exact_cloud("cpu", n=20_000)
+    uni = gt.make_uniforms(gt.Camera.reset_pose(), cfg, device="cpu")
+    prj = project_splats(cloud.means, cloud.cov3d, cloud.opacity, cloud.sh,
+                         cloud.upload_time, uni.view, uni.proj,
+                         uni.camera_pos, uni.model_scale, uni.time, cfg)
+    inputs = (prj.valid, prj.rect, prj.num_tiles, prj.depth16)
+    for capacity in (None, 20_000):
+        host = so.emit_and_sort(*inputs, cfg, capacity=capacity)
+        card = so.emit_and_sort(*(t.to(cuda) for t in inputs), cfg,
+                                capacity=capacity)
+        for a, b in zip(host, card):
+            assert torch.equal(a, b.cpu())
+        assert torch.equal(
+            torch.stack(so.tile_boundaries(host.keys, host.num_pairs, cfg)),
+            torch.stack(so.tile_boundaries(card.keys, card.num_pairs,
+                                           cfg)).cpu())
+
+
+@pytest.mark.gpu
+def test_rasterizer_exact_frame_on_the_card_equals_the_cpu(cuda):
+    cloud = _exact_cloud("cpu", n=20_000)
+    imgs = []
+    for device in ("cpu", None):
+        kw = {} if device is None else {"device": device}
+        r = gt.Rasterizer(cloud, texture_size=(320, 224), **kw)
+        kernels.reset_launch_counts()
+        out = r.rasterize(sync=True)
+        assert out.image.device.type == (device or "cuda")
+        assert kernels.launch_counts()["render_exact"] == (
+            0 if device else 1)
+        imgs.append(r.image())
+    assert float(np.abs(imgs[0] - imgs[1]).max()) <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quality", ["exact", "fast"])
+def test_streaming_loader_on_the_card(cuda, quality):
+    """Chunks copied from pinned memory into the card's cloud while frames
+    render: every frame finite, and the loaded cloud equal to a one-shot
+    load apart from the order (quality "fast" streams in Morton order) and
+    the upload times."""
+    blob = model_blob(20_000, seed=3)
+    r = gt.Rasterizer(blob, texture_size=(320, 224), stream=True, chunks=16,
+                      quality=quality)
+    while r.loader.is_loading:
+        assert torch.isfinite(r.rasterize(sync=True).image).all()
+    r.loader.join()
+    assert r.num_splats_loaded == 20_000 and not r.loader._pending
+    whole = load_splats(blob)
+    key = [torch.sort(c.means[:20_000, 0] * 7 + c.means[:20_000, 1])[0]
+           for c in (r.cloud, whole)]
+    assert torch.equal(key[0], key[1])
+    assert torch.equal(torch.sort(r.cloud.opacity)[0],
+                       torch.sort(whole.opacity)[0])
+    assert torch.isfinite(r.rasterize(sync=True).image).all()
