@@ -72,30 +72,47 @@ nvcc per source, all started together), then:
    frame, the median Projection / Sort / Boundaries / Render (or Blocks /
    Binning) stage times of debug_info() and the peak device memory; then
    torch.profiler over 3 exact frames, and the PSNR of the fast frame
-   against the exact one at the reset camera (printed, not gated).
+   against the exact one at the reset camera (printed, not gated);
+9. the rate probe (sfu_probe.py, the port of benchmarks/vpu_probe.py's
+   kern), run right after phase 1 so that every bound can read its rate:
+   each body timed at (1024, 512), 64 steps of 16 reps (its main path),
+   then held to its plain version at that shape on the TPU probe's input
+   and on a noisy one (bit-equal for the FMA, bit-trick and power bodies;
+   the documented error of expf, __expf and __logf; 2 bf16 ulp), its
+   plain version timed, and its kernel's SASS counted (cuobjdump -sass):
+   ms, G elem-ops/s, share of its pipe's peak, instructions per element.
+   The highest MUFU instruction rate it reaches, or the spec peak where
+   that is higher, is the rate of the bounds' special-function term.
 
 The launch counters are set to 0 just before each full-frame path and read
 just after it; the `launches` of a kernel come from the path that runs it
-(render_exact's from phase 8's exact frames). The other numbers of the
-kernels line come from phase 6, the main paths' inputs. `bound_ms` is the
-larger of the bytes the kernel must move over 3.35 TB/s and its operations
-over 67 TFLOP/s (f32), counted from this run's inputs (see `proj_bound`, `render_bound` and `exact_bound`: the
-render kernels read the payload rows of a tile's live big lanes, its first
-nbig, and evaluate each (pixel, live big lane) themselves; the exact kernel
-reads the id and splat data of each slot a tile loads, and its operations
-are counted per (pixel, slot that pixel processes), with the per-tile
-lockstep reading beside it); each record's `bound_counts` says what was
-counted. Any failed check
-raises, and the script exits non-zero. Without a CUDA device it raises
-before printing any result. The last three lines are the card's name and
-power limit, the kernels' JSON record and {"ok": true, "device": {...}}.
+(render_exact's from phase 8's exact frames, sfu_probe's from phase 9's
+timed runs). The other numbers of the kernels line come from phase 6, the
+main paths' inputs, and phase 9 for sfu_probe (the render kernels' chain,
+__expf / __logf / __expf). `bound_ms` is the larger of the bytes the
+kernel must move over 3.35 TB/s and its operations over 67 TFLOP/s (f32)
+and, for the render kernels and the probe, the special-function (MUFU)
+instructions the function needs over the MUFU rate (`sfu_ms`: the
+alpha's exp a (pixel, lane); `bound_ms_f32` keeps the larger of the first
+two, `bound_term` names the largest; `formulation_sfu_ms` reads the MUFU
+instructions of the render kernels' log-domain blend beside it; the
+projection's `sfu_ms` is null), counted from this run's inputs (see `proj_bound`,
+`render_bound` and `exact_bound`: the render kernels read the payload
+rows of a tile's live big lanes, its first nbig, and evaluate each
+(pixel, live big lane) themselves; the exact kernel reads the id and
+splat data of each slot a tile loads, and its operations are counted per
+(pixel, slot that pixel processes), with the per-tile lockstep reading
+beside it); each record's `bound_counts` says what was counted. Any
+failed check raises, and the script exits non-zero. Without a CUDA device
+it raises before printing any result. The last three lines are the card's
+name and power limit, the kernels' JSON record and {"ok": true, "device":
+{...}}.
 """
 
 from __future__ import annotations
 
 import json
 import statistics
-import subprocess
 import sys
 import time
 
@@ -104,6 +121,7 @@ import torch
 
 import godotgaussiansplatting_torch as gt
 from godotgaussiansplatting_torch import kernels
+from godotgaussiansplatting_torch import sfu_probe as sp
 from godotgaussiansplatting_torch.ops import projection_kernel as pk
 from godotgaussiansplatting_torch.ops import render_exact as rx
 from godotgaussiansplatting_torch.ops import render_v3 as rv
@@ -126,9 +144,14 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
     "render_v4": (CSRC + "render_v4.cu", TPU + "render_pallas4.py:66"),
     # XLA there, no Pallas kernel
     "render_exact": (CSRC + "render_exact.cu", TPU + "render.py:79"),
+    "sfu_probe": (CSRC + "sfu_probe.cu", "benchmarks/vpu_probe.py:34"),
 }
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 F32_OPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
+# The special-function (MUFU) rate of the third bound term: the spec peak
+# (sfu_probe.card_peaks: SMs x 16 per clock at the maximum SM clock), or
+# the rate phase 9 measured where it is higher. Phase 9 sets it.
+SFU = {"per_s": None, "from": None}
 # Operations per splat of the fused projection: view and clip transforms,
 # fade-in, EWA covariance and eigen radius, tile rect, depth key, degree-3
 # SH colour (~200 of them) and the packing, each transcendental counted as
@@ -150,17 +173,52 @@ RENDER_OPS_PER_BIG = 25
 # transmittance q * c and c * (1 - alpha) (3), the 1/255 test (1), the
 # weight (1) and the three colour products and sums (6).
 EXACT_OPS_PER_SLOT = 24
+# Special-function instructions (MUFU) that the blend needs: the alpha's
+# exp, one per (pixel, chain lane), (pixel, big lane) and exact (pixel,
+# slot); T = prod(1 - alpha) and w = alpha T are products. The render
+# kernels' log-domain formulation issues more, and its reading stands
+# beside the bound as formulation_sfu_ms: per chain lane the alpha's exp,
+# log(1 - alpha) and the weight's exp; per big lane its log-alpha (exp and
+# log) and the weight's two exps (render_tile.cuh finish_tile).
+RENDER_MUFU_PER_LANE = 1
+RENDER_MUFU_PER_BIG = 1
+EXACT_MUFU_PER_SLOT = 1
+RENDER_FORM_MUFU_PER_LANE = 3
+RENDER_FORM_MUFU_PER_BIG = 4
+# The probe's own chain: per element evaluation, besides its 3 MUFU, the
+# min, 1 - a, la * 0.5, + a, x + r and the sum's add.
+PROBE_CHAIN_OPS = 6
 # Bytes per processed slot: its splat id and the 9 floats of splat data.
 EXACT_BYTES_PER_SLOT = 4 + 36
 # What each kernel's bound counts (the kernels line carries it).
+def _sfu_counts(what: str) -> str:
+    return (f"; special functions: {what}, in MUFU instructions over the MUFU "
+            "rate (sfu_rate: measured in phase 9, or the spec peak); "
+            "bound_ms is the largest of the three terms, bound_ms_f32 the "
+            "larger of the first two")
+
+
 _RENDER_COUNTS = ("bytes: tile rows, the 16 payload rows of each tile's live "
                   "big lanes, each processed block and the output once; "
                   f"operations: {RENDER_OPS_PER_LANE} per (pixel, chain lane "
                   f"past the coverage gate), {RENDER_OPS_PER_BIG} per (pixel,"
-                  " live big lane), its log-alpha evaluated in the kernel")
+                  " live big lane), its log-alpha evaluated in the kernel"
+                  + _sfu_counts(f"the alpha's exp, {RENDER_MUFU_PER_LANE} "
+                                "per (pixel, chain lane) and "
+                                f"{RENDER_MUFU_PER_BIG} per (pixel, live big "
+                                "lane)")
+                  + "; formulation_sfu_ms: the MUFU instructions of the "
+                  f"kernels' log-domain blend, {RENDER_FORM_MUFU_PER_LANE} "
+                  f"per (pixel, chain lane) and {RENDER_FORM_MUFU_PER_BIG} "
+                  "per (pixel, live big lane), over the same rate")
 BOUND_COUNTS = {
     "projection": ("bytes: the splat arrays read and the words written once; "
-                   f"operations: {PROJ_OPS_PER_SPLAT} per splat"),
+                   f"operations: {PROJ_OPS_PER_SPLAT} per splat, each "
+                   "transcendental one; special functions: not counted "
+                   "(sfu_ms null): the divides, square roots, exp, log and "
+                   "pow issue a few dozen MUFU instructions a splat, against "
+                   "about 170 bytes, so that term stays far below the bytes "
+                   "term"),
     "render_v3": _RENDER_COUNTS,
     "render_v3_cooked": _RENDER_COUNTS,
     "render_v4": _RENDER_COUNTS,
@@ -171,7 +229,15 @@ BOUND_COUNTS = {
                      "(target pixel, slot that pixel processes), from the "
                      "plain version's per-pixel counts; lockstep_bound_ms "
                      "charges every pixel of a tile the tile's most, which "
-                     "is what the kernel evaluates"),
+                     "is what the kernel evaluates"
+                     + _sfu_counts(f"the alpha's exp, {EXACT_MUFU_PER_SLOT}"
+                                   " per (pixel, slot)")),
+    "sfu_probe": ("the kernel of the render kernels' chain (__expf, __logf, "
+                  "__expf): bytes: the (1024, 512) f32 input read and the "
+                  f"output written once; operations: {PROBE_CHAIN_OPS} per "
+                  "element evaluation" + _sfu_counts(f"{sp.CHAIN.units} per element")
+                  + "; ms, plain_ms and max_abs_err are that body's, the "
+                  "other bodies are in phase 9's lines"),
 }
 
 
@@ -214,13 +280,39 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def bound(n_bytes: float, n_ops: float) -> dict:
-    """The least time the card could take: bytes over the memory rate or
-    operations over the f32 rate, whichever is larger."""
+def bound(n_bytes: float, n_ops: float, n_mufu: float | None,
+          form_mufu: float | None = None) -> dict:
+    """The least time the card could take: the largest of bytes over the
+    memory rate, operations over the f32 rate and the special-function
+    instructions the function needs, ``n_mufu``, over SFU["per_s"]
+    (``sfu_ms``; ``bound_ms_f32`` keeps the larger of the first two). An
+    ``n_mufu`` of None leaves that term out (``sfu_ms`` None).
+    ``formulation_sfu_ms`` reads ``form_mufu``, the instructions the
+    kernel's own formulation issues (``n_mufu`` where not given), over the
+    same rate; it is not part of the bound."""
     tb = n_bytes / HBM_BYTES_PER_S * 1e3
     to = n_ops / F32_OPS_PER_S * 1e3
-    return {"bound_ms": max(tb, to),
-            "bound_by": "bytes" if tb >= to else "operations"}
+    ts = None if n_mufu is None else n_mufu / SFU["per_s"] * 1e3
+    tf = (ts if form_mufu is None
+          else form_mufu / SFU["per_s"] * 1e3)
+    term = max((tb, "bytes"), (to, "f32"), (ts or 0.0, "sfu"))[1]
+    return {"bound_ms": max(tb, to, ts or 0.0),
+            "bound_by": "bytes" if term == "bytes" else "operations",
+            "bound_term": term, "bound_ms_f32": max(tb, to),
+            "sfu_ms": ts, "formulation_sfu_ms": tf,
+            "sfu_rate": dict(SFU) if ts is not None else None}
+
+
+def bound_text(bnd: dict) -> str:
+    """'bound X ms (by, term; f32-only Y ms, SFU Z ms, formulation's SFU
+    W ms)', the SFU readings where counted."""
+    t = (f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}, "
+         f"{bnd['bound_term']}; f32-only {bnd['bound_ms_f32']:.4f} ms")
+    if bnd["sfu_ms"] is not None:
+        t += f", SFU {bnd['sfu_ms']:.4f} ms"
+    if bnd["formulation_sfu_ms"] not in (None, bnd["sfu_ms"]):
+        t += f", formulation's SFU {bnd['formulation_sfu_ms']:.4f} ms"
+    return t + ")"
 
 
 def record(name: str, err: float, ms: float, plain_ms: float,
@@ -237,10 +329,7 @@ def psnr(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def phase_device() -> str:
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    card = smi.stdout.strip().splitlines()[0]
+    card = kernels.card_name_and_power()
     t0 = time.perf_counter()
     kernels.build(*kernels.SIGNATURES)
     wall = time.perf_counter() - t0
@@ -280,7 +369,7 @@ def proj_bound(args, words) -> dict:
     means, cov3d, opacity, sh, upload_time, vec = args[:6]
     P = means.shape[0]
     return bound(nbytes(means, cov3d, opacity, sh, upload_time, vec)
-                 + nbytes(*words), P * PROJ_OPS_PER_SPLAT)
+                 + nbytes(*words), P * PROJ_OPS_PER_SPLAT, None)
 
 
 def projection_vs_plain(tag: str, cloud, cfg, plain_reps: int):
@@ -317,7 +406,7 @@ def projection_vs_plain(tag: str, cloud, cfg, plain_reps: int):
         f"{int(valid.sum())}, mismatching words {json.dumps(bad)}, "
         f"max |d ix,iy| {ix_err:.3g} px, f16 max ulps {pc_ulps}, rgb9e5 "
         f"within 1 ulp {rgb_ok}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms,"
-        f" bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+        f" {bound_text(bnd)}")
     for f in ("key", "bkey", "cnt"):
         check(bad[f] == 0, f"{tag}: {f} differs on {bad[f]} entries")
     check(ix_err <= 1e-3, f"{tag}: ix/iy error {ix_err}")
@@ -407,7 +496,11 @@ def render_bound(args, processed: torch.Tensor):
                + n_blocks * lane_bytes + TG * 8 * NPX * 4)
     active, lanes = active_lanes(args, processed)
     n_ops = (active * RENDER_OPS_PER_LANE + n_big * RENDER_OPS_PER_BIG) * NPX
-    return bound(n_bytes, n_ops), active / max(lanes, 1)
+    n_mufu = (active * RENDER_MUFU_PER_LANE
+              + n_big * RENDER_MUFU_PER_BIG) * NPX
+    form = (active * RENDER_FORM_MUFU_PER_LANE
+            + n_big * RENDER_FORM_MUFU_PER_BIG) * NPX
+    return bound(n_bytes, n_ops, n_mufu, form), active / max(lanes, 1)
 
 
 def _describe(rows, processed):
@@ -479,9 +572,9 @@ def _time_render(tag, fn_kernel, fn_plain, args, processed):
     ms = time_ms(fn_kernel, 10)
     plain_ms = time_ms(fn_plain, 2)
     bnd, share = render_bound(args, processed)
-    log(f"[{tag}] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-        f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}; lanes past the "
-        f"coverage gate {100 * share:.1f}%)")
+    log(f"[{tag}] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"{bound_text(bnd)}; lanes past the coverage gate "
+        f"{100 * share:.1f}%")
 
 
 def render_cloud(n: int):
@@ -610,9 +703,11 @@ def exact_bound(args, cfg, n_proc: torch.Tensor) -> dict:
     tile_slots, pixel_slots = exact_slots(cfg, n_proc)
     n_bytes = (tile_slots * EXACT_BYTES_PER_SLOT + nbytes(args[1], args[2])
                + w * h * 16)
-    lockstep = bound(n_bytes, tile_slots * cfg.tile_size ** 2
-                     * EXACT_OPS_PER_SLOT)
-    return {**bound(n_bytes, pixel_slots * EXACT_OPS_PER_SLOT),
+    lock_pairs = tile_slots * cfg.tile_size ** 2
+    lockstep = bound(n_bytes, lock_pairs * EXACT_OPS_PER_SLOT,
+                     lock_pairs * EXACT_MUFU_PER_SLOT)
+    return {**bound(n_bytes, pixel_slots * EXACT_OPS_PER_SLOT,
+                    pixel_slots * EXACT_MUFU_PER_SLOT),
             "lockstep_bound_ms": lockstep["bound_ms"]}
 
 
@@ -665,8 +760,8 @@ def phase_exact(cloud, size: int) -> float:
             plain_ms = time_ms(lambda: exact_plain(args, cfg, 2048), 2)
             bnd = exact_bound(args, cfg, n_proc)
             log(f"[7 exact] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), "
-                f"lockstep bound {bnd['lockstep_bound_ms']:.4f} ms")
+                f"{bound_text(bnd)}, lockstep bound "
+                f"{bnd['lockstep_bound_ms']:.4f} ms")
     return worst
 
 
@@ -907,9 +1002,8 @@ def _render_1080p(name, cfg, args, kernel, plain) -> dict:
     ms = time_ms(kernel, 5)
     bnd, share = render_bound(args, processed)
     log(f"[{tag}] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (one call, "
-        f"tiles in chunks), bound {bnd['bound_ms']:.4f} ms "
-        f"({bnd['bound_by']}; lanes past the coverage gate "
-        f"{100 * share:.1f}%)")
+        f"tiles in chunks), {bound_text(bnd)}; lanes past the coverage "
+        f"gate {100 * share:.1f}%")
     return {"err": err, "ms": ms, "plain_ms": plain_ms, "bnd": bnd,
             "processed": processed, "kernel_out": tk, "plain_out": tr}
 
@@ -1000,10 +1094,46 @@ def exact_1080p(cloud, base, capacity: int, worst: float) -> dict:
                  5)
     bnd = exact_bound(args, cfg, n_proc)
     log(f"[6 render_exact 1080p] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-        f"(one call, 256 tiles a batch), bound {bnd['bound_ms']:.4f} ms "
-        f"({bnd['bound_by']}), lockstep bound "
-        f"{bnd['lockstep_bound_ms']:.4f} ms")
+        f"(one call, 256 tiles a batch), {bound_text(bnd)}, lockstep "
+        f"bound {bnd['lockstep_bound_ms']:.4f} ms")
     return record("render_exact", max(worst, err), ms, plain_ms, bnd)
+
+
+def phase_sfu_probe() -> tuple:
+    """Phase 9: the rate probe (python3 -m ...sfu_probe) on the card. The
+    launch counter is set to 0 just before the probe's timed runs of every
+    body (its main path) and read just after; then sfu_probe.report holds
+    every body to its plain version, checks its SASS and rates and times
+    its plain version, and SFU["per_s"] is set. Returns (the sfu_probe
+    record, its launches)."""
+    dev = torch.device("cuda")
+    peaks = sp.card_peaks()
+    kernels.reset_launch_counts()
+    times = sp.probe_times(dev)
+    launches = kernels.launch_counts()["sfu_probe"]
+    check(launches >= len(sp.BODIES), f"9: sfu_probe launched {launches} "
+          f"times for {len(sp.BODIES)} bodies")
+    res = sp.report(dev, times, peaks)
+    worst = res["worst"]
+    log(f"[9 sfu_probe] {sp.peaks_line(peaks)}; every body held to its "
+        f"plain version (max |d| "
+        f"{json.dumps({k: float(f'{v:.3g}') for k, v in worst.items()})})")
+    for text in res["lines"]:
+        log(f"[9 sfu_probe] {text}")
+    measured, spec = res["mufu_per_s"], peaks["mufu_per_s"]
+    SFU.update({"per_s": max(measured, spec),
+                "from": "phase 9" if measured > spec else "spec peak"})
+    log(f"[9 sfu_probe] MUFU instructions per second: measured "
+        f"{measured / 1e12:.4f} T/s ({100 * measured / spec:.1f}% of the "
+        f"spec peak); the render bounds use {SFU['per_s'] / 1e12:.4f} T/s "
+        f"(the {SFU['from']})")
+    name = sp.CHAIN.name
+    bnd = bound(2 * sp.R * sp.C * 4, sp.ELEM_OPS * PROBE_CHAIN_OPS,
+                sp.ELEM_OPS * sp.CHAIN.units)
+    log(f"[9 sfu_probe] {name}: kernel {times[name]:.4f} ms, "
+        f"{bound_text(bnd)}")
+    return (record("sfu_probe", worst[name], times[name],
+                   res["plain_ms"][name], bnd), launches)
 
 
 def main() -> int:
@@ -1011,6 +1141,7 @@ def main() -> int:
         raise SystemExit("chip_smoke: no CUDA device; nothing was measured")
     torch.backends.cuda.matmul.allow_tf32 = False
     card = phase_device()
+    probe, probe_launches = phase_sfu_probe()   # sets SFU before any bound
     worst = {"projection": phase_projection(1_000_000, 1920, 1080)}
     cloud = render_cloud(200_000)
     worst["render_v3"] = phase_render(cloud, 512)
@@ -1041,6 +1172,8 @@ def main() -> int:
     launches["render_exact"], capacity = phase_engine(full, 8)
     rec = phase_kernels_1080p(cloud, base, worst)
     rec.append(exact_1080p(full, base, capacity, worst["render_exact"]))
+    rec.append(probe)
+    launches["sfu_probe"] = probe_launches
     for r in rec:
         r["launches"] = launches[r["name"]]
     log(card)

@@ -50,11 +50,14 @@ SIGNATURES = {
     "render_exact": {
         "gs_render_exact": [_P] * 10 + [_I] * 9 + [_P],
     },
+    "sfu_probe": {
+        "gs_sfu_probe": [_P] * 2 + [_I] * 6 + [_P],
+    },
 }
 # One launch counter per kernel a wrapper launches (the v3 library holds
-# two: the word and the cooked payload).
+# two: the word and the cooked payload; sfu_probe counts every body).
 COUNTERS = ("projection", "render_v3", "render_v3_cooked", "render_v4",
-            "render_exact")
+            "render_exact", "sfu_probe")
 
 _libs: dict = {}
 _launches = {name: 0 for name in COUNTERS}
@@ -68,7 +71,7 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def _so_path(name: str) -> Path:
+def library_path(name: str) -> Path:
     """The library's path: its name and a hash of its source, the shared
     headers and the flags."""
     h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
@@ -84,7 +87,7 @@ def build(*names: str) -> None:
     before a failure raises."""
     jobs = []
     for name in names:
-        so = _so_path(name)
+        so = library_path(name)
         if name in _libs or so.exists():
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -112,7 +115,7 @@ def library(name: str) -> ctypes.CDLL:
     if lib is not None:
         return lib
     build(name)
-    lib = ctypes.CDLL(str(_so_path(name)))
+    lib = ctypes.CDLL(str(library_path(name)))
     for fn, argtypes in SIGNATURES[name].items():
         f = getattr(lib, fn)
         f.argtypes = argtypes
@@ -142,6 +145,22 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for k in _launches:
         _launches[k] = 0
+
+
+def _smi(query: str) -> str:
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.splitlines()[0]
+
+
+def card_name_and_power() -> str:
+    """nvidia-smi's name and power limit of the first card."""
+    return _smi("name,power.limit").strip()
+
+
+def max_sm_clock_mhz() -> float:
+    """nvidia-smi's maximum SM clock of the first card, in MHz."""
+    return float(_smi("clocks.max.sm").split()[0])
 
 
 def require_cuda(what: str, *tensors: torch.Tensor) -> None:

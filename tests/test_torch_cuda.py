@@ -16,7 +16,7 @@ import pytest
 import torch
 
 import godotgaussiansplatting_torch as gt
-from godotgaussiansplatting_torch import kernels, split_render
+from godotgaussiansplatting_torch import kernels, sfu_probe, split_render
 from godotgaussiansplatting_torch.ops import projection_kernel as pk
 from godotgaussiansplatting_torch.ops import render_v3 as rv
 from godotgaussiansplatting_torch.ops import render_exact as rx
@@ -69,7 +69,7 @@ def test_cpu_frame_launches_no_kernel():
     assert kernels.launch_counts() == {name: 0 for name in kernels.COUNTERS}
     assert set(kernels.COUNTERS) == {"projection", "render_v3",
                                      "render_v3_cooked", "render_v4",
-                                     "render_exact"}
+                                     "render_exact", "sfu_probe"}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -401,3 +401,31 @@ def test_streaming_loader_on_the_card(cuda, quality):
     assert torch.equal(torch.sort(r.cloud.opacity)[0],
                        torch.sort(whole.opacity)[0])
     assert torch.isfinite(r.rasterize(sync=True).image).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", [b.name for b in sfu_probe.BODIES])
+def test_sfu_probe_kernel_matches_plain(cuda, name):
+    """Each probe body's kernel against its plain version at the full
+    (1024, 512) shape, 64 steps, on the TPU probe's input and on a noisy
+    one, at the body's tolerance (sfu_probe.hold: bit-equal for the FMA,
+    bit-trick and power bodies, the documented error of expf, __expf and
+    __logf, 2 bf16 ulp); one launch each."""
+    body = sfu_probe.BY_NAME[name]
+    for noise in (False, True):
+        x = sfu_probe.probe_input(body, cuda, noise)
+        kernels.reset_launch_counts()
+        k = sfu_probe.sum_reps(x, body)
+        assert kernels.launch_counts()["sfu_probe"] == 1
+        sfu_probe.hold(body, k, sfu_probe.sum_reps_reference(x, body))
+
+
+@pytest.mark.gpu
+def test_sfu_probe_sass_issues_each_bodys_work(cuda):
+    """cuobjdump -sass of the built library: one kernel instance a body,
+    each issuing at least the MUFU its formula needs and, for the FMA-pipe
+    bodies, one arithmetic instruction an evaluation."""
+    kernels.library("sfu_probe")
+    counts = sfu_probe.sass_counts()
+    for body in sfu_probe.BODIES:
+        sfu_probe.check_sass(body, counts[body.id])
