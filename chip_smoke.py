@@ -56,12 +56,20 @@ nvcc per source, all started together), then:
    of its GT tiles fetch (what TMA multicast across a cluster could load
    once); and the exact composite kernel against its plain version (which
    composites the tiles in batches) on the 1080p exact frame's inputs at
-   the tile capacity phase 8 settled on, at phase 7's gates, both timed;
+   the tile capacity phase 8 settled on, at phase 7's gates, both timed,
+   with its walk (see phase 7) and the ms per G evaluations and FP32-issue
+   share they imply;
 7. the exact composite kernel (render_exact) against its plain version on
    phase 3's cloud at 512x512, tile 16, heatmap 0 and 1, on a tile-32 case
-   and with a tile capacity of 1000 (not a power of two: the kernel must
-   truncate at 1024 slots as the plain version does): RGB within 1e-4,
-   tile_t0 within 1e-5, tile counts equal, finite output;
+   and with tile capacities of 1000 and 300 (not multiples of the kernel's
+   32-slot piece: the kernel must truncate at 1024 and 300 slots as the
+   plain version does): RGB within 1e-4, tile_t0 bit-equal, tile counts
+   equal, finite output; beside the slots loaded and the (pixel, slot)
+   pairs processed, the evaluations the kernel's walk makes (counted by
+   the kernel in one more launch, and held equal to
+   render_exact.schedule_evaluations' model of the walk) and its
+   instructions per evaluation, by opcode, from cuobjdump -sass of the
+   built library (these are logged, not part of the kernels line);
 8. the engine end to end at full width: the 5.8M-splat scene through
    Rasterizer(cloud, texture_size=(1920, 1080)) (quality "exact", the
    default) and Rasterizer(..., quality="fast"), 8 orbit cameras each with
@@ -713,19 +721,51 @@ def exact_bound(args, cfg, n_proc: torch.Tensor) -> dict:
 
 def hold_exact(tag, ok, pr) -> float:
     """The exact kernel against its plain version: RGB within 1e-4, tile_t0
-    within 1e-5, counts equal, finite. Returns the RGB max |d|."""
+    bit-equal, counts equal, finite. Returns the RGB max |d|."""
     finite = bool(torch.isfinite(ok.image).all())
     err = float((ok.image - pr.image).abs().max())
-    t0_err = float((ok.tile_t0 - pr.tile_t0).abs().max())
+    t0_equal = torch.equal(ok.tile_t0, pr.tile_t0)
     counts = torch.equal(ok.tile_counts, pr.tile_counts)
-    log(f"[{tag}] max |d rgb| {err:.3g}, max |d tile_t0| {t0_err:.3g}, "
-        f"counts equal {counts}, finite {finite}, PSNR "
+    log(f"[{tag}] max |d rgb| {err:.3g}, max |d tile_t0| "
+        f"{float((ok.tile_t0 - pr.tile_t0).abs().max()):.3g} (bit-equal "
+        f"{t0_equal}), counts equal {counts}, finite {finite}, PSNR "
         f"{psnr(ok.image.permute(2, 0, 1), pr.image.permute(2, 0, 1)):.2f} dB")
     check(finite, f"{tag}: non-finite kernel output")
     check(err <= 1e-4, f"{tag}: RGB error {err}")
-    check(t0_err <= 1e-5, f"{tag}: tile_t0 error {t0_err}")
+    check(t0_equal, f"{tag}: tile_t0 not bit-equal")
     check(counts, f"{tag}: tile counts differ")
     return err
+
+
+def exact_walk(args, cfg, n_proc, counts, capacity: int,
+               ms: float | None = None) -> str:
+    """The kernel's walk on these inputs, for the log: the (pixel, slot)
+    evaluations it makes, counted by the kernel in one launch
+    (render_exact.count_evaluations) and held equal to the count
+    render_exact.schedule_evaluations models from the plain version's
+    per-pixel counts; the instructions an evaluation takes in its kernel
+    instance (render_exact.sass_per_evaluation of the built library:
+    "all", base opcodes and MUFU.EX2); with the kernel's ``ms``, ms per G
+    evaluations and the issue share they imply (instructions over the
+    card's 128 lane-instructions per SM and clock)."""
+    piece, threads = rx.walk_shape()
+    ev = rx.count_evaluations(*args, cfg, capacity)
+    model = rx.schedule_evaluations(n_proc, cfg, piece, threads, counts,
+                                    capacity)
+    check(ev == model, f"render_exact {cfg.target_size}: the kernel made "
+          f"{ev} evaluations, schedule_evaluations models {model}")
+    ppt = rx.pixels_per_thread(cfg.tile_size, threads)
+    sass = rx.sass_per_evaluation(kernels.sass("render_exact"))[ppt]
+    shown = {k: round(v, 3) for k, v in sass.items()
+             if "." not in k or k == "MUFU.EX2"}
+    t = (f"walk: {ev} evaluations counted by the kernel (schedule_evaluations"
+         f" {model}; pieces of {piece}), SASS per evaluation of "
+         f"render_exact_kernel<{ppt}> {json.dumps(shown)}")
+    if ms is not None:
+        issue = ev * sass["all"] / (ms * 1e-3) / sp.card_peaks()["fma_per_s"]
+        t += (f", {ms / (ev / 1e9):.4f} ms per G evaluations, issue share "
+              f"{100 * issue:.1f}%")
+    return t
 
 
 def phase_exact(cloud, size: int) -> float:
@@ -735,7 +775,8 @@ def phase_exact(cloud, size: int) -> float:
              for hm in (0.0, 1.0)]
     cases += [(gt.RasterizerConfig(width=size // 2, height=size // 2,
                                    tile_size=32), 2048, 1.0),
-              (gt.RasterizerConfig(width=size, height=size), 1000, 0.0)]
+              (gt.RasterizerConfig(width=size, height=size), 1000, 0.0),
+              (gt.RasterizerConfig(width=size, height=size), 300, 1.0)]
     for i, (cfg, cap, hm) in enumerate(cases):
         args = exact_inputs(cloud, cfg, hm)
         ok = rx.render_tiles(*args, cfg, tile_capacity=cap)
@@ -752,11 +793,13 @@ def phase_exact(cloud, size: int) -> float:
                f"{int(counts.clamp(max=rx.effective_capacity(cap)).sum())}, "
                f"(pixel, slot) pairs processed {pixel_slots}")
         worst = max(worst, hold_exact(tag, ok, pr))
-        if cap == 1000:
-            check(int((counts > 1024).sum()) > 0,
+        if cap in (300, 1000):
+            check(int((counts > rx.effective_capacity(cap)).sum()) > 0,
                   "7: no tile is long enough to test the truncation")
+        ms = (time_ms(lambda: rx.render_tiles(*args, cfg), 10) if i == 0
+              else None)
+        log(f"[{tag}] {exact_walk(args, cfg, n_proc, counts, cap, ms)}")
         if i == 0:
-            ms = time_ms(lambda: rx.render_tiles(*args, cfg), 10)
             plain_ms = time_ms(lambda: exact_plain(args, cfg, 2048), 2)
             bnd = exact_bound(args, cfg, n_proc)
             log(f"[7 exact] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
@@ -1093,9 +1136,10 @@ def exact_1080p(cloud, base, capacity: int, worst: float) -> dict:
     ms = time_ms(lambda: rx.render_tiles(*args, cfg, tile_capacity=capacity),
                  5)
     bnd = exact_bound(args, cfg, n_proc)
+    walk = exact_walk(args, cfg, n_proc, counts, capacity, ms)
     log(f"[6 render_exact 1080p] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
         f"(one call, 256 tiles a batch), {bound_text(bnd)}, lockstep "
-        f"bound {bnd['lockstep_bound_ms']:.4f} ms")
+        f"bound {bnd['lockstep_bound_ms']:.4f} ms; {walk}")
     return record("render_exact", max(worst, err), ms, plain_ms, bnd)
 
 

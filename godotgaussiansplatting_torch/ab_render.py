@@ -1,25 +1,32 @@
-"""A/B timing of the render kernels (v3, both entry points, and v4): this
-checkout's against another checkout's, in one process, on the same inputs.
+"""A/B timing of the render kernels (v3, both entry points, v4 and the
+exact composite): this checkout's against another checkout's, in one
+process, on the same inputs.
 
-    python3 -m godotgaussiansplatting_torch.ab_render OTHER_CHECKOUT
+    python3 -m godotgaussiansplatting_torch.ab_render OTHER_CHECKOUT [ENTRY ...]
 
 OTHER_CHECKOUT is the root of another tree of this repository, for example
 one unpacked with ``git archive <commit> | tar -x -C build/ab_base``. Its
 port package is copied to ``build/ab/gsother`` and imported beside this
-one; each builds its kernels from its own sources. The inputs are made once
-with this checkout's pipeline under the reset camera: 200K splats at
-512x512 (chip_smoke.py's phases 3 and 3b) and the 5.8M-splat scene at
-1920x1080 (phase 6), each under fast_defaults() (the word payload,
-``gs_render_v3``), RasterizerConfig(quality="fast") (the cooked payload,
-``gs_render_v3_cooked``) and RasterizerConfig(kernel="v4").fast_defaults()
-(the cooked payload into ``gs_render_v4`` at GT 4). A side whose
-``_render_cuda`` or ``_render_v4_cuda`` takes the big log-alpha maps
-(``bigla``) computes them with its own ``prepass_big_la`` inside each timed
-call, as its frame does. The script prints both sides' render_v3 and
-render_v4 ptxas reports (registers, stack frame, spills), the RGB PSNR,
-the largest difference and whether the two outputs are bit-equal, and the
-ms per call of 20 calls of each side (CUDA events, after a warm-up call) in
-the order other, this, this, other, three times. Needs a CUDA device.
+one; each builds its kernels from its own sources. ENTRY is any of
+``words``, ``cooked``, ``v4`` and ``exact`` (all four by default). The
+inputs are made once with this checkout's pipeline under the reset camera:
+200K splats at 512x512 (chip_smoke.py's phases 3, 3b and 7) and the
+5.8M-splat scene at 1920x1080 (phase 6), each under fast_defaults() (the
+word payload, ``gs_render_v3``), RasterizerConfig(quality="fast") (the
+cooked payload, ``gs_render_v3_cooked``),
+RasterizerConfig(kernel="v4").fast_defaults() (the cooked payload into
+``gs_render_v4`` at GT 4) and the default exact quality (the readable
+projection, emit_and_sort and tile_boundaries into ``gs_render_exact`` at
+tile 16, with tile capacity 2048 at 512x512 and 16384, where the engine
+settles, at 1080p). A side whose ``_render_cuda`` or ``_render_v4_cuda``
+takes the big log-alpha maps (``bigla``) computes them with its own
+``prepass_big_la`` inside each timed call, as its frame does. The script
+prints both sides' ptxas reports (registers, stack frame, spills) and
+``render_exact``'s instructions per evaluation (``cuobjdump -sass``,
+``render_exact.sass_per_evaluation``), the RGB PSNR, the largest
+difference and whether the two outputs are bit-equal, and the ms per call
+of 20 calls of each side (CUDA events, after a warm-up call) in the order
+other, this, this, other, three times. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ import torch
 import godotgaussiansplatting_torch as gt
 from godotgaussiansplatting_torch import kernels
 from godotgaussiansplatting_torch.ops import projection_kernel as pk
+from godotgaussiansplatting_torch.ops import render_exact as rx
 from godotgaussiansplatting_torch.ops import render_v3 as rv
 from godotgaussiansplatting_torch.ops import render_v4 as r4
 from godotgaussiansplatting_torch.ops.bigbin import bin_bigs
@@ -44,6 +52,8 @@ from godotgaussiansplatting_torch.ops.binning2 import bin_blocks2
 from godotgaussiansplatting_torch.ops.blocks2 import (
     build_block_frame2, build_block_frame2_words)
 from godotgaussiansplatting_torch.ops.projection import project_splats
+from godotgaussiansplatting_torch.ops.sort import (emit_and_sort,
+                                                   tile_boundaries)
 
 AB_DIR = Path(__file__).resolve().parent.parent / "build" / "ab"
 # The scenes of chip_smoke.py's phases 3/3b (200K splats, scales up to 0.12,
@@ -56,18 +66,25 @@ SCENES = {
 }
 
 
+ENTRIES = ("words", "cooked", "v4", "exact")
+# render_exact's tile capacity a scene: phase 7's, and phase 8's at 1080p
+EXACT_CAPACITY = {"200K 512x512": 2048, "5.8M 1920x1080": 16384}
+
+
 def scene_cloud(tag: str):
-    """The cloud of SCENES[tag] and its base configuration."""
+    """The full-precision cloud of SCENES[tag] (the fast frames read its
+    fast_cloud_view) and its base configuration."""
     scene, (width, height) = SCENES[tag]
     scene = dict(scene)
-    cloud = gt.fast_cloud_view(gt.mortonize(gt.synthetic_scene(
-        scene.pop("n"), surfaces=True, **scene)))
+    cloud = gt.mortonize(gt.synthetic_scene(scene.pop("n"), surfaces=True,
+                                            **scene))
     return cloud, gt.RasterizerConfig(width=width, height=height)
 
 
 def import_other(root: Path):
     """The other checkout's render_v3 and kernels modules, as gsother (its
-    render_v4 is gsother.ops.render_v4)."""
+    render_v4 and render_exact are gsother.ops.render_v4 and
+    gsother.ops.render_exact)."""
     dst = AB_DIR / "gsother"
     shutil.rmtree(dst, ignore_errors=True)
     shutil.copytree(root / "godotgaussiansplatting_torch", dst,
@@ -98,6 +115,29 @@ def frame_inputs(cloud, cfg):
     return rows, bf.payload, tbig.bigpay, cfg, U, max_batches
 
 
+def exact_inputs(cloud, cfg):
+    """render_tiles' arguments up to the heatmap factor for the reset
+    camera: the readable projection, emit_and_sort and tile_boundaries."""
+    uni = gt.make_uniforms(gt.Camera.reset_pose(), cfg)
+    prj = project_splats(cloud.means, cloud.cov3d, cloud.opacity, cloud.sh,
+                         cloud.upload_time, uni.view, uni.proj,
+                         uni.camera_pos, uni.model_scale, uni.time, cfg)
+    pairs = emit_and_sort(prj.valid, prj.rect, prj.num_tiles, prj.depth16,
+                          cfg)
+    start, end = tile_boundaries(pairs.keys, pairs.num_pairs, cfg)
+    return (pairs.values, start, end, prj.image_pos, prj.conic, prj.color,
+            uni.heatmap_factor)
+
+
+def exact_sass(lib_module) -> dict:
+    """A side's render_exact instructions per evaluation, by instance."""
+    per = rx.sass_per_evaluation(kernels.sass(
+        "render_exact", lib_module.library_path("render_exact")))
+    return {ppt: {k: round(v, 3) for k, v in c.items()
+                  if "." not in k or k == "MUFU.EX2"}
+            for ppt, c in per.items()}
+
+
 def _call(mod, mod4, args):
     """One call of a side's render kernel wrapper (v4 when the config says
     so), with its own big log-alpha maps when it takes them."""
@@ -125,11 +165,11 @@ def time_ms(fn, reps: int = 20) -> float:
 
 
 def _ptxas(lib_module, name: str) -> list:
-    """The stack, spill and register lines of a render library's build
-    log."""
-    logs = sorted(Path(lib_module.BUILD_DIR).glob(f"lib{name}-*.log"))
-    return [ln.strip() for ln in logs[-1].read_text().splitlines()
-            if "stack" in ln or "registers" in ln] if logs else []
+    """The stack, spill and register lines of the build log of a side's
+    render library."""
+    log = lib_module.library_path(name).with_suffix(".log")
+    return [ln.strip() for ln in log.read_text().splitlines()
+            if "stack" in ln or "registers" in ln] if log.exists() else []
 
 
 def _compare(a, b, cfg) -> str:
@@ -145,34 +185,68 @@ def _compare(a, b, cfg) -> str:
             f"{torch.equal(a, b)}")
 
 
+def _ab(tag: str, fns: dict, cmp: str) -> None:
+    """Time the two sides in the order other, this, this, other, three
+    times, and print the line."""
+    ms = {k: [] for k in fns}
+    for _ in range(3):
+        for who in ("other", "this", "this", "other"):
+            ms[who].append(time_ms(fns[who]))
+    print(f"{tag}: {cmp}; ms per call {json.dumps(ms)}", flush=True)
+
+
+def _compare_exact(a, b) -> str:
+    ia, ib = (o.image[..., :3].clamp(0, 1) for o in (a, b))
+    mse = float(((ia - ib) ** 2).mean())
+    return (f"PSNR {10 * np.log10(1.0 / max(mse, 1e-20)):.2f} dB, max |d| "
+            f"{float((a.image - b.image).abs().max()):.3g}, tile_t0 "
+            f"bit-equal {torch.equal(a.tile_t0, b.tile_t0)}, counts equal "
+            f"{torch.equal(a.tile_counts, b.tile_counts)}, bit-equal "
+            f"{torch.equal(a.image, b.image)}")
+
+
 def main(argv) -> int:
-    if len(argv) != 1 or not torch.cuda.is_available():
+    if not argv or not torch.cuda.is_available() or any(
+            e not in ENTRIES for e in argv[1:]):
         raise SystemExit(__doc__)
+    entries = argv[1:] or ENTRIES
     other_rv, other_kernels = import_other(Path(argv[0]).resolve())
     other_r4 = importlib.import_module("gsother.ops.render_v4")
-    for name in ("render_v3", "render_v4"):
+    other_rx = importlib.import_module("gsother.ops.render_exact")
+    for name in ("render_v3", "render_v4", "render_exact"):
         kernels.library(name)
         other_kernels.library(name)
         print(f"ptxas {name}, other:", json.dumps(_ptxas(other_kernels, name)))
         print(f"ptxas {name}, this:", json.dumps(_ptxas(kernels, name)))
+    print("render_exact SASS per evaluation, other:",
+          json.dumps(exact_sass(other_kernels)))
+    print("render_exact SASS per evaluation, this:",
+          json.dumps(exact_sass(kernels)))
     for tag in SCENES:
-        cloud, base = scene_cloud(tag)
+        full, base = scene_cloud(tag)
+        cloud = gt.fast_cloud_view(full)
         for entry, cfg in (("words", base.fast_defaults()),
                            ("cooked", base.replace(quality="fast")),
                            ("v4", base.replace(kernel="v4").fast_defaults())):
+            if entry not in entries:
+                continue
             args = frame_inputs(cloud, cfg)
             fns = {"other": lambda: _call(other_rv, other_r4, args),
                    "this": lambda: _call(rv, r4, args)}
-            cmp = _compare(fns["other"](), fns["this"](), cfg)
-            ms = {k: [] for k in fns}
-            for _ in range(3):
-                for who in ("other", "this", "this", "other"):
-                    ms[who].append(time_ms(fns[who]))
-            print(f"{tag} {entry} (tile {cfg.tile_size}, U={args[4]}"
-                  f"{f', GT={cfg.lockstep_gt}' if entry == 'v4' else ''}): "
-                  f"{cmp}; ms per call {json.dumps(ms)}", flush=True)
+            _ab(f"{tag} {entry} (tile {cfg.tile_size}, U={args[4]}"
+                f"{f', GT={cfg.lockstep_gt}' if entry == 'v4' else ''})",
+                fns, _compare(fns["other"](), fns["this"](), cfg))
             del args, fns
-        del cloud
+        if "exact" in entries:
+            args = exact_inputs(full, base)
+            cap = EXACT_CAPACITY[tag]
+            fns = {"other": lambda: other_rx._render_exact_cuda(
+                       *args, base, cap),
+                   "this": lambda: rx._render_exact_cuda(*args, base, cap)}
+            _ab(f"{tag} exact (tile {base.tile_size}, capacity {cap})", fns,
+                _compare_exact(fns["other"](), fns["this"]()))
+            del args, fns
+        del cloud, full
     return 0
 
 

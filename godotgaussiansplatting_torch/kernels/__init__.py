@@ -16,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -48,7 +49,9 @@ SIGNATURES = {
         "gs_render_v4_smem_bytes": [_I] * 2,
     },
     "render_exact": {
-        "gs_render_exact": [_P] * 10 + [_I] * 9 + [_P],
+        "gs_render_exact": [_P] * 10 + [_I] * 9 + [_P] * 2,
+        "gs_render_exact_piece": [],
+        "gs_render_exact_threads": [],
     },
     "sfu_probe": {
         "gs_sfu_probe": [_P] * 2 + [_I] * 6 + [_P],
@@ -161,6 +164,62 @@ def card_name_and_power() -> str:
 def max_sm_clock_mhz() -> float:
     """nvidia-smi's maximum SM clock of the first card, in MHz."""
     return float(_smi("clocks.max.sm").split()[0])
+
+
+_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                   r"([A-Z][A-Z0-9_.]*)(?:\s+0x([0-9a-f]+))?")
+
+
+def sass(name: str, path: Path | None = None) -> str:
+    """``cuobjdump -sass`` of a built library (this checkout's ``name`` by
+    default)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    return subprocess.run([tool, "-sass", str(path or library_path(name))],
+                          capture_output=True, text=True, check=True).stdout
+
+
+def sass_functions(listing: str, func: re.Pattern) -> dict:
+    """{func's first group: [(address, opcode, branch target or None)]} for
+    every kernel instance of a ``cuobjdump -sass`` listing whose name
+    ``func`` matches."""
+    funcs: dict = {}
+    cur = None
+    for line in listing.splitlines():
+        m = func.search(line)
+        if m:
+            cur = funcs.setdefault(m.group(1), [])
+            continue
+        if "Function :" in line:
+            cur = None
+        m = _INSN.search(line)
+        if cur is not None and m:
+            target = (int(m.group(3), 16)
+                      if m.group(2) == "BRA" and m.group(3) else None)
+            cur.append((int(m.group(1), 16), m.group(2), target))
+    return funcs
+
+
+def loops(insns: list) -> list:
+    """(first, last) addresses of each loop of an instance: from the
+    target of a backward branch to the branch."""
+    return sorted((t, a) for a, _, t in insns if t is not None and t <= a)
+
+
+def op_counts(insns: list, lo: float, hi: float) -> dict:
+    """Instructions at addresses lo..hi by opcode: each under its full
+    name, its base name (FFMA.FTZ counts as FFMA) and, for MUFU, its
+    function (MUFU.EX2)."""
+    counts: dict = {}
+    for a, op, _ in insns:
+        if not lo <= a <= hi:
+            continue
+        parts = op.split(".")
+        keys = {op, parts[0]}
+        if parts[0] == "MUFU" and len(parts) > 1:
+            keys.add(".".join(parts[:2]))
+        for k in keys:
+            counts[k] = counts.get(k, 0) + 1
+    return counts
 
 
 def require_cuda(what: str, *tensors: torch.Tensor) -> None:

@@ -20,11 +20,27 @@ slots (C = ``tile_capacity``), not exactly C; alpha is ``a * exp(power)``
 with no clamps (gsplat_render.glsl:85-87); the heatmap lerp uses the
 untruncated tile counts; ``tile_t0`` is each tile's pixel (0, 0) final
 transmittance.
+
+The kernel, one block of 256 threads a tile, is bound by issuing
+evaluations: a tile's pixels saturate after about 80 of its 2,300 slots,
+each at its own slot. It walks the list in pieces of 32 slots that never
+straddle a chunk end, votes at each piece boundary and leaves once every
+pixel is saturated; a warp whose pixels are all saturated skips a piece's
+evaluations; and the next pieces' splat data is gathered into shared
+memory with ``cp.async`` while one is evaluated. The evaluation's
+arithmetic is the plain version's, so ``tile_t0`` is bit-equal to it.
+``walk_shape`` reads the piece and the block size from the built library.
+``schedule_evaluations`` models the (pixel, slot) evaluations that walk
+makes, from the plain version's per-pixel processed counts;
+``count_evaluations`` has the kernel count them on the card, and
+``sass_per_evaluation`` reads the instructions each takes from the built
+kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
+import re
 from typing import NamedTuple
 
 import torch
@@ -155,14 +171,94 @@ def render_tiles_reference(sorted_values, tile_start, tile_end, image_pos,
                       pixel_offset)[0]
 
 
+def walk_shape() -> tuple:
+    """The built kernel's (slots a piece, threads a block)."""
+    lib = kernels.library("render_exact")
+    return lib.gs_render_exact_piece(), lib.gs_render_exact_threads()
+
+
+def pixels_per_thread(tile_size: int, threads: int) -> int:
+    """The kernel instance a tile size runs: 1, 2 or 4 pixels a thread of
+    a block of ``threads``."""
+    ppt = 1
+    while threads * ppt < tile_size * tile_size:
+        ppt *= 2
+    return ppt
+
+
+def schedule_evaluations(n_proc: torch.Tensor, cfg: RasterizerConfig,
+                         piece: int, threads: int, tile_counts: torch.Tensor,
+                         tile_capacity: int) -> int:
+    """The (pixel, slot) evaluations the kernel's walk (pieces of ``piece``
+    slots, blocks of ``threads``: ``walk_shape()``) makes, from the plain
+    version's (T, ts * ts) per-pixel processed counts (``_composite``'s
+    second output) and the (T,) tile counts.
+
+    A tile's list (its first ``effective_capacity`` slots) is walked in
+    pieces of ``piece`` slots from each chunk's base, and every piece is
+    evaluated whole (the slots past a chunk's or the list's end are zero
+    records). Before each piece the block votes: a pixel is live at slot e
+    while it processes slot e (its count is above e), and the block leaves
+    once no pixel is. Warp w evaluates a piece for its 32 * PPT pixels
+    (pixels (w * PPT + k) * 32 + lane) when one of its pixels inside the
+    tile is live; every in-tile pixel is live at slot 0. Since the
+    processed slots are a prefix, warp w evaluates the pieces that start
+    below its largest count, and at least the first."""
+    T, npx = n_proc.shape
+    ppt = pixels_per_thread(cfg.tile_size, threads)
+    lanes = threads * ppt
+    chunk = min(CHUNK, tile_capacity)
+    n_eff = tile_counts.to(torch.int64).clamp(0, effective_capacity(
+        tile_capacity))
+    pad = torch.full((T, lanes - npx), -1, dtype=torch.int64,
+                     device=n_proc.device)
+    warp = torch.cat([n_proc.to(torch.int64), pad], dim=1).reshape(
+        T, threads // 32, 32 * ppt).amax(dim=2)            # (T, warps)
+    inside = warp >= 0
+    x = torch.minimum(warp.clamp(min=1), n_eff[:, None])
+    base = (x - 1).clamp(min=0) // chunk * chunk
+    pieces = (base // chunk * -(-chunk // piece)
+              + (x - base + piece - 1) // piece)
+    pieces = torch.where(inside & (x > 0), pieces, 0)
+    return int(pieces.sum()) * piece * 32 * ppt
+
+
+_SASS_FUNC = re.compile(r"Function : \S*render_exact_kernelILi(\d+)E")
+
+
+def sass_per_evaluation(listing: str) -> dict:
+    """{PPT: {opcode: instructions per (pixel, slot) evaluation}} from
+    ``cuobjdump -sass`` of the render_exact library: per kernel instance,
+    of its innermost loops that hold the alpha's exp (MUFU.EX2, one an
+    evaluation) the one with the most, its instructions (counted as
+    ``kernels.op_counts`` counts them, and under "all" every instruction
+    once) over its MUFU.EX2. The loop's own
+    instructions and its shared-memory loads are shared out among its
+    evaluations."""
+    out = {}
+    for ppt, insns in kernels.sass_functions(listing, _SASS_FUNC).items():
+        spans = kernels.loops(insns)
+        inner = [(lo, hi) for lo, hi in spans
+                 if not any(lo <= a <= b <= hi and (a, b) != (lo, hi)
+                            for a, b in spans)]
+        best = max(((kernels.op_counts(insns, lo, hi).get("MUFU.EX2", 0),
+                     lo, hi) for lo, hi in inner), default=(0, 0, 0))
+        if best[0] == 0:
+            raise RuntimeError(f"render_exact<{ppt}>: no loop holds an exp")
+        counts = kernels.op_counts(insns, best[1], best[2])
+        counts["all"] = sum(best[1] <= a <= best[2] for a, _, _ in insns)
+        out[int(ppt)] = {k: v / best[0] for k, v in sorted(counts.items())}
+    return out
+
+
 def _render_exact_cuda(sorted_values, tile_start, tile_end, image_pos, conic,
                        color, heatmap_factor, cfg: RasterizerConfig,
-                       tile_capacity: int, pixel_offset=(0, 0)
-                       ) -> RenderOutput:
-    """The kernel (csrc/render_exact.cu): one thread block a tile."""
+                       tile_capacity: int, pixel_offset=(0, 0),
+                       evals: torch.Tensor | None = None) -> RenderOutput:
+    """The kernel (csrc/render_exact.cu): one thread block a tile. With
+    ``evals``, a zeroed (1,) int64 tensor on the card, the kernel adds to
+    it the (pixel, slot) evaluations its walk makes."""
     ts = cfg.tile_size
-    if ts * ts > 4 * 256:
-        raise ValueError("the render_exact kernel supports tile_size <= 32")
     gx, gy = cfg.tile_dims
     T = gx * gy
     P = image_pos.shape[0]
@@ -175,6 +271,13 @@ def _render_exact_cuda(sorted_values, tile_start, tile_end, image_pos, conic,
         raise ValueError("render_exact: unexpected input shapes/dtypes")
     kernels.require_cuda("render_exact", sorted_values, tile_start, tile_end,
                          image_pos, conic, color)
+    lib = kernels.library("render_exact")
+    if ts * ts > 4 * lib.gs_render_exact_threads():
+        raise ValueError("the render_exact kernel supports tile_size <= 32")
+    if image_pos.data_ptr() % 8 or color.data_ptr() % 16:
+        # the kernel copies their rows whole, 8 and 16 bytes at a time
+        raise ValueError("render_exact: image_pos must be 8-byte and color "
+                         "16-byte aligned")
     dev = sorted_values.device
     hf = torch.as_tensor(heatmap_factor, dtype=torch.float32,
                          device=dev).reshape(1).contiguous()
@@ -182,17 +285,29 @@ def _render_exact_cuda(sorted_values, tile_start, tile_end, image_pos, conic,
     image = torch.empty((h, w, 4), dtype=torch.float32, device=dev)
     tile_t0 = torch.empty((T,), dtype=torch.float32, device=dev)
     counts = torch.empty((T,), dtype=torch.int32, device=dev)
-    lib = kernels.library("render_exact")
     err = lib.gs_render_exact(
         sorted_values.data_ptr(), tile_start.data_ptr(), tile_end.data_ptr(),
         image_pos.data_ptr(), conic.data_ptr(), color.data_ptr(),
         hf.data_ptr(), image.data_ptr(), tile_t0.data_ptr(),
         counts.data_ptr(), gx, gy, ts, w, h, min(CHUNK, tile_capacity),
         effective_capacity(tile_capacity), int(pixel_offset[0]),
-        int(pixel_offset[1]), ctypes.c_void_p(kernels.stream_ptr(dev)))
+        int(pixel_offset[1]), None if evals is None else evals.data_ptr(),
+        ctypes.c_void_p(kernels.stream_ptr(dev)))
     kernels.check(err, "render_exact kernel launch")
     kernels.count_launch("render_exact")
     return RenderOutput(image=image, tile_t0=tile_t0, tile_counts=counts)
+
+
+def count_evaluations(sorted_values, tile_start, tile_end, image_pos, conic,
+                      color, heatmap_factor, cfg: RasterizerConfig,
+                      tile_capacity: int, pixel_offset=(0, 0)) -> int:
+    """The (pixel, slot) evaluations the kernel's walk makes on these
+    inputs, counted by the kernel on the card (one launch)."""
+    evals = torch.zeros(1, dtype=torch.int64, device=sorted_values.device)
+    _render_exact_cuda(sorted_values, tile_start, tile_end, image_pos, conic,
+                       color, heatmap_factor, cfg, tile_capacity,
+                       pixel_offset, evals)
+    return int(evals.item())
 
 
 def render_tiles(sorted_values, tile_start, tile_end, image_pos, conic,

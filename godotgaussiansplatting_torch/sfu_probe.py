@@ -31,8 +31,6 @@ from __future__ import annotations
 import ctypes
 import math
 import re
-import shutil
-import subprocess
 import sys
 from typing import Callable, NamedTuple
 
@@ -308,8 +306,6 @@ def card_peaks(device: int = 0) -> dict:
 
 
 _FUNC = re.compile(r"Function : \S*probe_(?:f32|bf16x2)ILi(\d+)E")
-_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?"
-                   r"([A-Z][A-Z0-9_.]*)(?:\s+0x([0-9a-f]+))?")
 # Opcode groups: base name (before the first '.'), MUFU by function.
 FP32_OPS = ("FFMA", "FMUL", "FADD")
 SHOWN = ("MUFU.EX2", "MUFU.LG2", "FFMA", "FMUL", "FADD", "HFMA2", "HMUL2",
@@ -320,47 +316,17 @@ def parse_sass(listing: str) -> dict:
     """{body id: {opcode: count}} from ``cuobjdump -sass`` of the probe's
     library: per kernel instance, the instructions of its step loop (from
     the target of its backward branch to the branch; the whole kernel if
-    it has none), each opcode counted under its full name, its base name
-    (FFMA.FTZ counts as FFMA) and, for MUFU, its function (MUFU.EX2)."""
-    funcs: dict = {}
-    cur = None
-    for line in listing.splitlines():
-        m = _FUNC.search(line)
-        if m:
-            cur = funcs.setdefault(int(m.group(1)), [])
-            continue
-        if "Function :" in line:
-            cur = None
-        m = _INSN.search(line)
-        if cur is not None and m:
-            target = (int(m.group(3), 16)
-                      if m.group(2) == "BRA" and m.group(3) else None)
-            cur.append((int(m.group(1), 16), m.group(2), target))
+    it has none), counted as ``kernels.op_counts`` counts them."""
     out = {}
-    for fid, insns in funcs.items():
-        back = [(t, a) for a, _, t in insns if t is not None and t <= a]
-        lo, hi = min(back) if back else (0, math.inf)
-        counts: dict = {}
-        for a, op, _ in insns:
-            if not lo <= a <= hi:
-                continue
-            parts = op.split(".")
-            keys = {op, parts[0]}
-            if parts[0] == "MUFU" and len(parts) > 1:
-                keys.add(".".join(parts[:2]))
-            for k in keys:
-                counts[k] = counts.get(k, 0) + 1
-        out[fid] = counts
+    for fid, insns in kernels.sass_functions(listing, _FUNC).items():
+        lo, hi = (kernels.loops(insns) or [(0, math.inf)])[0]
+        out[int(fid)] = kernels.op_counts(insns, lo, hi)
     return out
 
 
 def sass_counts() -> dict:
     """parse_sass of the built library (cuobjdump from the CUDA toolkit)."""
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    listing = subprocess.run(
-        [tool, "-sass", str(kernels.library_path("sfu_probe"))],
-        capture_output=True, text=True, check=True).stdout
-    counts = parse_sass(listing)
+    counts = parse_sass(kernels.sass("sfu_probe"))
     missing = [b.name for b in BODIES if b.id not in counts]
     if missing:
         raise RuntimeError(f"sfu_probe: no SASS found for {missing}")

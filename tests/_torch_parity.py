@@ -72,3 +72,37 @@ def model_blob(n: int = 256, seed: int = 0) -> bytes:
     sh = np.zeros((n, 16, 3), np.float32)
     sh[:, 0] = rng.uniform(0.0, 2.0, (n, 3))
     return write_ply(io.BytesIO(), means, scales, q, opac, sh)
+
+
+def exact_tile_lists(seed: int, cfg, opacity: tuple, P: int = 600,
+                     max_count: int = 1400, sigma: tuple = (3, 40),
+                     device="cpu") -> tuple:
+    """Random per-tile sorted lists over P random splats, as torch tensors
+    on ``device`` in render_tiles' argument order (values, start, end,
+    image_pos, conic, color): positions over the frame, positive definite
+    conics of ``sigma`` px, opacities uniform in ``opacity`` (an opaque range
+    saturates every pixel within a few slots, a faint one never does), one
+    tile in five empty."""
+    rng = np.random.default_rng(seed)
+    gx, gy = cfg.tile_dims
+    T = gx * gy
+    w, h = cfg.target_size
+    pos = np.stack([rng.uniform(-8, w + 8, P), rng.uniform(-8, h + 8, P)], 1)
+    sig = rng.uniform(*sigma, (P, 2))
+    rho = rng.uniform(-0.6, 0.6, P)
+    a, c = sig[:, 0] ** 2, sig[:, 1] ** 2
+    b = rho * sig[:, 0] * sig[:, 1]
+    det = a * c - b * b
+    conic = np.stack([c / det, -b / det, a / det], 1)
+    color = np.concatenate([rng.uniform(0, 1.5, (P, 3)),
+                            rng.uniform(*opacity, (P, 1))], 1)
+    counts = rng.integers(1, max_count, T)
+    counts[rng.random(T) < 0.2] = 0
+    end = np.cumsum(counts)
+    start = end - counts
+    values = rng.integers(0, P, int(end[-1]) + 7)
+    ints = (torch.from_numpy(x.astype(np.int32)).to(device)
+            for x in (values, start, end))
+    floats = (torch.from_numpy(x.astype(np.float32)).to(device)
+              for x in (pos, conic, color))
+    return (*ints, *floats)

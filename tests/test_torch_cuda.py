@@ -29,7 +29,7 @@ from godotgaussiansplatting_torch.ops.blocks2 import (
 from godotgaussiansplatting_torch.models.ply import load_splats
 from godotgaussiansplatting_torch.ops.projection import project_splats
 
-from _torch_parity import model_blob
+from _torch_parity import exact_tile_lists, model_blob
 
 
 @pytest.fixture
@@ -316,29 +316,61 @@ def _exact_cloud(device, n=40_000):
                               surfaces=True, device=device)
 
 
+# Random tile lists (tests/_torch_parity.exact_tile_lists) beside the
+# pipeline's: opaque wide splats saturate a tile within its first piece of
+# 32 slots, faint ones never saturate, so every tile walks to its end.
+_LISTS = {"opaque": dict(opacity=(0.85, 0.99), sigma=(80, 200)),
+          "faint": dict(opacity=(0.001, 0.004)),
+          "mixed": dict(opacity=(0.02, 0.3))}
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("tile,capacity,offset", [
-    (16, 2048, (0, 0)), (16, 1000, (0, 0)), (32, 4096, (0, 0)),
-    (16, 300, (16, 8))])
-def test_render_exact_kernel_matches_plain(cuda, tile, capacity, offset):
-    """RGB within 1e-4, tile_t0 within 1e-5, counts equal, finite; the
-    non-power-of-two capacities truncate as the plain version does."""
+@pytest.mark.parametrize("scene,tile,capacity,offset", [
+    ("cloud", 16, 2048, (0, 0)), ("cloud", 16, 1000, (0, 0)),
+    ("cloud", 32, 4096, (0, 0)), ("cloud", 16, 300, (16, 8)),
+    ("opaque", 16, 2048, (0, 0)), ("faint", 16, 1000, (0, 0)),
+    ("faint", 16, 300, (0, 0)), ("opaque", 32, 2048, (0, 0)),
+    ("mixed", 32, 2048, (8, 0))])
+def test_render_exact_kernel_matches_plain(cuda, scene, tile, capacity,
+                                           offset):
+    """RGB within 1e-4, tile_t0 bit-equal (the kernel keeps the plain
+    version's arithmetic, so every per-pixel decision), counts equal,
+    finite; the capacities that are not a multiple of the 32-slot piece
+    truncate as the plain version does; the evaluations the kernel counts
+    are the ones schedule_evaluations models."""
     cfg = gt.RasterizerConfig(width=320, height=224, tile_size=tile)
-    cloud = _exact_cloud(cuda)
+    if scene == "cloud":
+        cloud = _exact_cloud(cuda)
     for hm in (0.0, 1.0):
-        args = _exact_inputs(cloud, cfg, hm)
+        if scene == "cloud":
+            args = _exact_inputs(cloud, cfg, hm)
+        else:
+            args = (*exact_tile_lists(tile + capacity, cfg, device=cuda,
+                                      **_LISTS[scene]), hm)
         kernels.reset_launch_counts()
         ok = rx.render_tiles(*args, cfg, tile_capacity=capacity,
                              pixel_offset=offset)
         assert kernels.launch_counts()["render_exact"] == 1
-        pr = rx.render_tiles_reference(*args, cfg, tile_capacity=capacity,
-                                       pixel_offset=offset)
+        pr, n_proc = rx._composite(*args, cfg, capacity, 16, offset)
         assert torch.isfinite(ok.image).all()
         assert float((ok.image - pr.image).abs().max()) <= 1e-4
-        assert float((ok.tile_t0 - pr.tile_t0).abs().max()) <= 1e-5
+        assert torch.equal(ok.tile_t0, pr.tile_t0)
         assert torch.equal(ok.tile_counts, pr.tile_counts)
-    if capacity == 1000:
-        assert int(ok.tile_counts.max()) > 1024, "no tile is truncated"
+    piece, threads = rx.walk_shape()
+    kernels.reset_launch_counts()
+    evals = rx.count_evaluations(*args, cfg, capacity, offset)
+    assert kernels.launch_counts()["render_exact"] == 1
+    assert evals == rx.schedule_evaluations(n_proc, cfg, piece, threads,
+                                            ok.tile_counts, capacity)
+    n_eff = ok.tile_counts.clamp(max=rx.effective_capacity(capacity))
+    if scene == "opaque":
+        top = n_proc[ok.tile_counts > 0].amax(dim=1)
+        assert (top <= piece).float().mean() >= 0.9, "tiles walk on"
+    if scene == "faint":
+        assert torch.equal(n_proc, n_eff[:, None].long().expand_as(n_proc))
+    if capacity in (300, 1000):
+        cap = rx.effective_capacity(capacity)
+        assert int((ok.tile_counts > cap).sum()) > 0, "no tile is truncated"
 
 
 @pytest.mark.gpu
