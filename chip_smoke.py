@@ -90,7 +90,27 @@ nvcc per source, all started together), then:
    plain version timed, and its kernel's SASS counted (cuobjdump -sass):
    ms, G elem-ops/s, share of its pipe's peak, instructions per element.
    The highest MUFU instruction rate it reaches, or the spec peak where
-   that is higher, is the rate of the bounds' special-function term.
+   that is higher, is the rate of the bounds' special-function term;
+10. the viewer (viewer/server.py), run last: make_server on
+   Rasterizer(5.8M scene, 1920x1080, quality="fast") on port 0, driven
+   over HTTP as the browser page does (90 ticks of /input with free-look
+   fly, an orbit drag, wheel steps and centre picks, a /state change, a
+   /frame and a /stats each tick). The launch counters are set to 0 once
+   the loop has paused on idle, just before the traffic, and read once it
+   has paused again: projection and render_v3 must have launched once for
+   every frame served. The served frame (through /frame and read_png)
+   must equal a direct rasterize + to_uint8 of the viewer's camera (or,
+   should the direct render not repeat bit for bit, read >= 50 dB). Then
+   a 1M-splat .ply (write_ply of synthetic_arrays, 62 properties) is
+   POSTed to /load: the native swizzle and Morton calls must have run, the
+   model must stream onto the card, the device memory allocated after it
+   must be below that before (the 5.8M model freed), and its frames are
+   held as above. Last, render_orbit writes 8 frames of that model at
+   1080p to build/chip_smoke/orbit/, each launching both kernels once.
+   It logs the served frames a second, a served frame's split (rasterize,
+   image() readback, PNG encode), the /frame round trip, the parse,
+   native and numpy swizzle and upload times; the render loop's
+   last_error must stay None, and ViewerState.close() ends the loop.
 
 The launch counters are set to 0 just before each full-frame path and read
 just after it; the `launches` of a kernel come from the path that runs it
@@ -119,16 +139,21 @@ name and power limit, the kernels' JSON record and {"ok": true, "device":
 
 from __future__ import annotations
 
+import dataclasses
+import io
 import json
 import statistics
 import sys
+import threading
 import time
+import urllib.request
+from pathlib import Path
 
 import numpy as np
 import torch
 
 import godotgaussiansplatting_torch as gt
-from godotgaussiansplatting_torch import kernels
+from godotgaussiansplatting_torch import kernels, native
 from godotgaussiansplatting_torch import sfu_probe as sp
 from godotgaussiansplatting_torch.ops import projection_kernel as pk
 from godotgaussiansplatting_torch.ops import render_exact as rx
@@ -142,6 +167,16 @@ from godotgaussiansplatting_torch.ops.blocks2 import (
 from godotgaussiansplatting_torch.ops.projection import project_splats
 from godotgaussiansplatting_torch.ops.sort import (emit_and_sort,
                                                    tile_boundaries)
+from godotgaussiansplatting_torch.models.ply import (PlyFile,
+                                                     splat_arrays_from_ply,
+                                                     splat_soa_from_ply,
+                                                     write_ply)
+from godotgaussiansplatting_torch.models.splats import (build_covariance,
+                                                        synthetic_arrays)
+from godotgaussiansplatting_torch.utils.image import (png_bytes, read_png,
+                                                      to_uint8)
+from godotgaussiansplatting_torch.viewer import server as vserver
+from godotgaussiansplatting_torch.viewer.offline import render_orbit
 
 CSRC = "godotgaussiansplatting_torch/csrc/"
 TPU = "godotgaussiansplatting_tpu/ops/"
@@ -154,6 +189,7 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
     "render_exact": (CSRC + "render_exact.cu", TPU + "render.py:79"),
     "sfu_probe": (CSRC + "sfu_probe.cu", "benchmarks/vpu_probe.py:34"),
 }
+BUILD = Path(__file__).resolve().parent / "build" / "chip_smoke"
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 F32_OPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
 # The special-function (MUFU) rate of the third bound term: the spec peak
@@ -282,6 +318,13 @@ def time_once(fn):
     b.record()
     torch.cuda.synchronize()
     return out, a.elapsed_time(b)
+
+
+def time_host(fn):
+    """(result, ms) of one call on the host's clock."""
+    t0 = time.perf_counter()
+    out = fn()
+    return out, (time.perf_counter() - t0) * 1e3
 
 
 def nbytes(*ts) -> int:
@@ -1180,6 +1223,259 @@ def phase_sfu_probe() -> tuple:
                    res["plain_ms"][name], bnd), launches)
 
 
+def _viewer_get(base: str, path: str) -> bytes:
+    with urllib.request.urlopen(base + path, timeout=120) as resp:
+        return resp.read()
+
+
+def _viewer_post(base: str, path: str, payload) -> None:
+    data = (payload if isinstance(payload, bytes)
+            else json.dumps(payload).encode())
+    req = urllib.request.Request(base + path, data=data, method="POST")
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        check(resp.status == 200, f"10 viewer: POST {path} -> {resp.status}")
+
+
+def _viewer_wait(what: str, cond, timeout: float) -> None:
+    deadline = time.monotonic() + timeout
+    while not cond():
+        check(time.monotonic() < deadline, f"10 viewer: timed out on {what}")
+        time.sleep(0.05)
+
+
+def _viewer_settle(state) -> None:
+    """Wait until the render loop has paused on idle: no frame is in
+    flight, and the last one served showed the current camera and state."""
+    _viewer_wait("the idle pause", lambda: state.paused, 120)
+
+
+def _viewer_drive(base: str, ticks: int) -> list:
+    """The browser's traffic for ``ticks`` ticks of 33 ms: free-look fly
+    with the mouse, a UI change, an orbit drag with a wheel step, a centre
+    pick, one /frame and one /stats a tick. Returns the /frame round trips
+    in ms."""
+    trips = []
+    for i in range(ticks):
+        phase = i * 3 // ticks
+        if phase == 0:
+            body = {"keys": {"w": 1, "d": int(i % 4 == 0)}, "rmb": 1,
+                    "dx": 6, "dy": -2}
+        elif phase == 1:
+            body = {"lmb": 1, "dx": 8, "dy": 1, "wheel": int(i % 7 == 0)}
+        else:
+            body = {"pick": {"x": 0.5, "y": 0.5}} if i % 5 == 0 else {}
+        if i == ticks // 2:
+            _viewer_post(base, "/state", {"fov": 70.0, "mscale": 1.1,
+                                          "rscale": 1.0, "heatmap": 0,
+                                          "pause": 1})
+        _viewer_post(base, "/input", body)
+        t0 = time.perf_counter()
+        png = _viewer_get(base, "/frame")
+        trips.append((time.perf_counter() - t0) * 1e3)
+        check(png[:8] == b"\x89PNG\r\n\x1a\n", "10 viewer: /frame not a PNG")
+        json.loads(_viewer_get(base, "/stats"))
+        time.sleep(0.033)
+    return trips
+
+
+def _viewer_served_vs_direct(tag: str, base: str, state) -> str:
+    """The served frame (read back through /frame and read_png) against a
+    direct rasterize + to_uint8 of the viewer's camera: equal."""
+    path = BUILD / "served.png"
+    path.write_bytes(_viewer_get(base, "/frame"))
+    served = read_png(path)
+    with state.render_lock:
+        r = state.r
+        r.camera = dataclasses.replace(state.ctl.camera, fov_y=state.fov)
+        r.update_camera_matrices()
+        r.rasterize(sync=True)
+        direct = to_uint8(r.image())
+        del r
+    check(served.shape == direct.shape,
+          f"{tag}: served {served.shape}, direct {direct.shape}")
+    diff = np.abs(served.astype(np.int32) - direct.astype(np.int32))
+    check(np.array_equal(served, direct),
+          f"{tag}: served frame differs from the direct render in "
+          f"{int((diff > 0).sum())} values, by up to {int(diff.max())}")
+    return "served frame equal to the direct render"
+
+
+def _viewer_split(state) -> str:
+    split = np.median(np.asarray(state.frame_ms), axis=0)
+    return (f"median split of the last {len(state.frame_ms)} served frames: "
+            f"rasterize {split[0]:.3f} ms, image() readback {split[1]:.3f} "
+            f"ms, PNG encode {split[2]:.3f} ms")
+
+
+def _encode_split(state) -> str:
+    """The PNG encode of the last frame, timed in its two parts: to_uint8
+    (the sRGB transfer and the cast) and the PNG bytes (row filter bytes,
+    zlib level 1, CRCs)."""
+    with state.render_lock:
+        img = state.r.image()
+    rgb8, u8_ms = time_host(lambda: to_uint8(img))
+    png, png_ms = time_host(lambda: vserver.encode_jpeg_fallback_png(img))
+    _, zlib_ms = time_host(lambda: png_bytes(rgb8, 1))
+    check(png == png_bytes(rgb8, 1), "10 viewer: PNG bytes differ")
+    return (f"one encode of the served image on the host, alone: "
+            f"{png_ms:.1f} ms, of which to_uint8 {u8_ms:.1f} ms and the PNG "
+            f"bytes (rows, zlib level 1) {zlib_ms:.1f} ms")
+
+
+def phase_viewer(full, card: str) -> None:
+    """Phase 10: the viewer (viewer/server.py) on the card, driven over
+    HTTP as a browser does; then a .ply POSTed to /load and render_orbit."""
+    t0 = time.perf_counter()
+    httpd, state = vserver.make_server(
+        gt.Rasterizer(full, texture_size=(1920, 1080), quality="fast"),
+        port=0)
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        _viewer_wait("the first frame", lambda: state.frames > 0, 300)
+        log(f"[10 viewer] {card}: server on {base}, Rasterizer(5.8M scene, "
+            f"1920x1080, quality fast) set up and first frame served in "
+            f"{time.perf_counter() - t0:.1f} s")
+        _viewer_settle(state)
+        # (a) the browser's traffic; the counters read while no frame is in
+        # flight, just before and just after
+        frames0 = state.frames
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        trips = _viewer_drive(base, 90)
+        drive_s = time.perf_counter() - t0
+        served = state.frames - frames0
+        _viewer_settle(state)
+        launches = kernels.launch_counts()
+        rendered = state.frames - frames0
+        check(rendered >= 5, f"10 viewer: only {rendered} frames served")
+        for name in ("projection", "render_v3"):
+            check(launches[name] == rendered,
+                  f"10 viewer: {name} launched {launches[name]} times for "
+                  f"{rendered} frames")
+        stats = json.loads(_viewer_get(base, "/stats"))
+        check(stats["last_error"] is None,
+              f"10 viewer: render loop error {stats['last_error']}")
+        log(f"[10 viewer] {len(trips)} input ticks of the browser's "
+            f"traffic in {drive_s:.2f} s: {served} frames served, "
+            f"{served / drive_s:.2f} served frames a second; {rendered} "
+            f"frames rendered until the idle pause, launches "
+            f"{json.dumps({k: v for k, v in launches.items() if v})}; "
+            f"{_viewer_split(state)}; /frame round trip median "
+            f"{statistics.median(trips):.3f} ms (min {min(trips):.3f}, max "
+            f"{max(trips):.3f}), {len(state.frame_png)} bytes a frame")
+        log(f"[10 viewer] camera {np.round(state.ctl.camera.position, 3)}"
+            f", fov {state.fov}: "
+            f"{_viewer_served_vs_direct('10 viewer', base, state)}; "
+            f"{_encode_split(state)}")
+        # (b) a 1M-splat .ply through /load: native swizzle, streamed in
+        arrays = synthetic_arrays(1_000_000, seed=7, extent=4.0,
+                                  scale_range=(0.004, 0.03), surfaces=True)
+        blob = write_ply(io.BytesIO(), *arrays)
+        n = arrays[0].shape[0]
+        ply, parse_ms = time_host(lambda: PlyFile.parse(blob))
+        _, build_ms = time_host(native.load)       # g++ at first use
+        native.reset_call_counts()
+        soa, native_ms = time_host(lambda: splat_soa_from_ply(ply))
+        check(native.call_counts()["swizzle"] == 1,
+              "10 viewer: splat_soa_from_ply did not take the native swizzle")
+
+        def numpy_soa():
+            m, s, q, o, sh = splat_arrays_from_ply(ply)
+            return m, build_covariance(s, q), o, sh
+
+        ref, numpy_ms = time_host(numpy_soa)
+        cov_err = float(np.abs(soa[1] - ref[1]).max())
+        check(all(np.array_equal(a, b) for a, b in ((soa[0], ref[0]),
+                                                     (soa[3], ref[3]))),
+              "10 viewer: native and numpy swizzles disagree on means/sh")
+        del ply, soa, ref
+        # the viewer frees its model before it allocates the new, smaller
+        # one: the peak over the load stays at or below the start
+        mem_before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        native.reset_call_counts()
+        t0 = time.perf_counter()
+        _viewer_post(base, "/load", blob)
+        post_s = time.perf_counter() - t0
+        _viewer_wait("the streamed load", lambda: (
+            state.r.is_loaded and state.r.num_splats_loaded == n), 600)
+        load_s = time.perf_counter() - t0
+        r = state.r
+        check(r.loader.error is None, f"10 viewer: loader {r.loader.error}")
+        check(r.cloud.device.type == "cuda" and r.cloud.num_splats == n,
+              "10 viewer: the streamed model is not on the card")
+        calls = native.call_counts()
+        check(calls["swizzle"] >= 1 and calls["morton3"] >= 1,
+              f"10 viewer: /load did not go through the native library "
+              f"({calls})")
+        seconds = dict(r.loader.seconds)
+        del r
+        mem_peak = torch.cuda.max_memory_allocated()
+        check(mem_peak <= mem_before, f"10 viewer: device memory peaked at "
+              f"{mem_peak} during the load of the 1M model, above the "
+              f"{mem_before} before it (the viewer's 5.8M model was not "
+              f"freed first)")
+        time.sleep(1.5)                # past the last chunk's fade-in
+        frames0 = state.frames
+        kernels.reset_launch_counts()
+        _viewer_drive(base, 30)
+        _viewer_settle(state)
+        launches = kernels.launch_counts()
+        rendered = state.frames - frames0
+        for name in ("projection", "render_v3"):
+            check(launches[name] == rendered and rendered > 0,
+                  f"10 viewer /load: {name} launched {launches[name]} "
+                  f"times for {rendered} frames")
+        mem_after = torch.cuda.memory_allocated()
+        check(mem_after < mem_before, f"10 viewer: device memory "
+              f"{mem_after} after the load of the 1M model, {mem_before} "
+              f"before (the viewer's 5.8M model was not freed)")
+        log(f"[10 viewer /load] {len(blob) / 2**20:.1f} MiB .ply of {n} "
+            f"splats, 62 properties: parse {parse_ms:.1f} ms, native library "
+            f"loaded (built with g++ if not yet) in {build_ms:.1f} ms, "
+            f"swizzle native {native_ms:.1f} ms against numpy "
+            f"{numpy_ms:.1f} ms (max |cov "
+            f"difference| {cov_err:.3g}); POST /load returned in "
+            f"{post_s:.2f} s, loaded on the card in {load_s:.2f} s (loader: "
+            f"swizzle {seconds['swizzle']:.3f} s, Morton order "
+            f"{seconds['order']:.3f} s, upload {seconds['upload']:.3f} s); "
+            f"native calls {json.dumps(calls)}; device memory allocated "
+            f"{mem_before / 2**30:.2f} GiB before (the viewer's model and "
+            f"this script's 5.8M clouds), peak {mem_peak / 2**30:.2f} GiB "
+            f"during the load, {mem_after / 2**30:.2f} GiB after; "
+            f"{rendered} frames, launches "
+            f"{json.dumps({k: v for k, v in launches.items() if v})}; "
+            f"{_viewer_split(state)}")
+        log(f"[10 viewer /load] "
+            f"{_viewer_served_vs_direct('10 viewer /load', base, state)}")
+        stats = json.loads(_viewer_get(base, "/stats"))
+        check(stats["last_error"] is None and state.last_error is None,
+              f"10 viewer: render loop error {state.last_error}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        state.close()
+        server.join(30)
+    # (c) an offline orbit of the loaded model
+    out = BUILD / "orbit"
+    kernels.reset_launch_counts()
+    summary = render_orbit(state.r, str(out), num_frames=8)
+    launches = kernels.launch_counts()
+    for name in ("projection", "render_v3"):
+        check(launches[name] == 8, f"10 orbit: {name} launched "
+              f"{launches[name]} times for 8 frames")
+    pngs = [read_png(out / f"frame_{i:04d}.png") for i in range(8)]
+    check(all(p.shape == (1080, 1920, 3) for p in pngs),
+          "10 orbit: wrong PNG shape")
+    check(len({p.tobytes() for p in pngs}) == 8,
+          "10 orbit: two orbit frames are equal")
+    log(f"[10 orbit] render_orbit, 8 frames of the loaded model at "
+        f"1920x1080 to PNGs: {json.dumps(summary)}, launches "
+        f"{json.dumps({k: v for k, v in launches.items() if v})}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; nothing was measured")
@@ -1218,6 +1514,8 @@ def main() -> int:
     rec.append(exact_1080p(full, base, capacity, worst["render_exact"]))
     rec.append(probe)
     launches["sfu_probe"] = probe_launches
+    BUILD.mkdir(parents=True, exist_ok=True)
+    phase_viewer(full, card)
     for r in rec:
         r["launches"] = launches[r["name"]]
     log(card)

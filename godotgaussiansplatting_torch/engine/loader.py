@@ -2,9 +2,13 @@
 
 Counterpart of ``godotgaussiansplatting_tpu/engine/loader.py``
 (``PlyFile.load_gaussian_splats``, ply_file.gd:28-77): a background thread
-swizzles chunks of the model and writes them into the live cloud while
+swizzles the model and writes it, chunk by chunk, into the live cloud while
 frames render, with a progress counter, a cancel flag and a completion
-callback; each chunk's upload time drives the per-splat fade-in.
+callback; each chunk's upload time drives the per-splat fade-in. The
+swizzle is ``models/ply.splat_soa_from_ply``, as for every .ply load of the
+port: the native one where it is built (the JAX loader takes the numpy
+swizzle and builds each chunk's covariance in numpy; the two covariances
+differ in rounding).
 
 The device SoA is allocated once, zero-filled (inert: opacity 0). Each chunk
 is an in-place ``copy_`` into a slice of it, which replaces JAX's donated
@@ -22,13 +26,14 @@ from __future__ import annotations
 
 import threading
 import time
+import traceback
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 from ..models import ply as plyio
-from ..models.splats import PAD_MULTIPLE, SplatCloud, build_covariance
+from ..models.splats import PAD_MULTIPLE, SplatCloud
 
 
 class StreamingLoader:
@@ -38,6 +43,8 @@ class StreamingLoader:
       cancel()           the should_terminate flag (ply_file.gd:35,70)
       on_loaded          completion callback (the ``loaded`` signal)
       cloud              the live, partially filled SplatCloud
+      seconds            once loaded: the swizzle, order and upload times
+      error              the worker's traceback, if it raised
 
     ``morton=True`` orders the splats by ``ops.blocks.morton_order`` before
     chunking, as the JAX loader does (the non-streamed fast path orders
@@ -58,6 +65,8 @@ class StreamingLoader:
         self.write_lock = threading.RLock()
         self.num_splats_loaded = 0
         self._pending: list = []   # (event, pinned buffers) of chunk copies
+        self.seconds: dict = {}
+        self.error: Optional[str] = None   # the worker's traceback
 
         n = ply.size
         cap = max(PAD_MULTIPLE, -(-n // PAD_MULTIPLE) * PAD_MULTIPLE)
@@ -111,16 +120,25 @@ class StreamingLoader:
         self._pending.append((done, bufs))
 
     def _run(self) -> None:
+        try:
+            self._load()
+        except Exception:
+            self.error = traceback.format_exc()
+            raise
+
+    def _load(self) -> None:
         ply = self._ply
         n = ply.size
         stride = -(-n // self._chunks)
-        means, scales, quats, opac, sh = plyio.splat_arrays_from_ply(ply)
+        t0 = time.perf_counter()
+        soa = plyio.splat_soa_from_ply(ply)
+        t1 = time.perf_counter()
         if self._morton:
             from ..ops.blocks import morton_order
-            order = morton_order(means)
-            means, scales, quats, opac, sh = (
-                means[order], scales[order], quats[order], opac[order],
-                sh[order])
+            order = morton_order(soa[0])
+            soa = tuple(a[order] for a in soa)
+        t2 = time.perf_counter()
+        means, cov6, opac, sh = soa
         for c in range(self._chunks):
             if self._cancel:
                 break
@@ -128,11 +146,11 @@ class StreamingLoader:
             hi = min(n, lo + stride)
             if lo >= hi:
                 break
-            cov6 = build_covariance(scales[lo:hi], quats[lo:hi])
             now = np.float32(self._time_fn())
             with self.write_lock:
                 self._write_chunk(lo, (
-                    np.ascontiguousarray(means[lo:hi]), cov6,
+                    np.ascontiguousarray(means[lo:hi]),
+                    np.ascontiguousarray(cov6[lo:hi]),
                     np.ascontiguousarray(opac[lo:hi]),
                     np.ascontiguousarray(sh[lo:hi]),
                     np.full((hi - lo,), now, np.float32)))
@@ -141,6 +159,8 @@ class StreamingLoader:
         for done, _ in self._pending:
             done.synchronize()
         self._pending = []
+        self.seconds = {"swizzle": t1 - t0, "order": t2 - t1,
+                        "upload": time.perf_counter() - t2}
         if self._cancel:
             return
         if self._on_loaded:

@@ -27,7 +27,7 @@ import torch
 from ..config import RasterizerConfig
 from ..models import ply as plyio
 from ..models.camera import Camera
-from ..models.splats import (SplatCloud, fast_cloud_view, from_arrays,
+from ..models.splats import (SplatCloud, fast_cloud_view, from_soa,
                              mortonize)
 from ..ops.fast_pipeline import (pick_splat_position_fast,
                                  render_frame_fast_staged)
@@ -101,8 +101,8 @@ class Rasterizer:
                     device=self.device).start()
                 self.cloud = self.loader.cloud
             else:
-                m, s, q, o, sh = plyio.splat_arrays_from_ply(ply)
-                self.cloud = from_arrays(m, s, q, o, sh, device=self.device)
+                self.cloud = from_soa(*plyio.splat_soa_from_ply(ply),
+                                      device=self.device)
         if self.quality == "fast" and self.loader is None:
             self.cloud = mortonize(self.cloud)
 

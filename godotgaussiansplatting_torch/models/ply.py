@@ -1,8 +1,13 @@
 """Inria-format .ply splat model loader.
 
-numpy copy of ``godotgaussiansplatting_tpu/models/ply.py`` (its numpy path;
-the native C++ swizzle, ``native/plyio.cpp``, is not ported: it waits for
-the viewer). Replaces the reference's PlyFile parser (`util/ply_file.gd:10-26`)
+Counterpart of ``godotgaussiansplatting_tpu/models/ply.py``:
+``splat_soa_from_ply`` takes the port's native C++ swizzle
+(``native/plyio.cpp``) where it can be built, as the JAX package's does, and
+the numpy path otherwise; the other functions are numpy. Every .ply load of
+the port goes through ``splat_soa_from_ply``, so a streamed model and one
+loaded at once are the same cloud. (The JAX package's loads take its numpy
+swizzle; its covariance differs from the native one in rounding.) Replaces the
+reference's PlyFile parser (`util/ply_file.gd:10-26`)
 and the swizzle in `load_gaussian_splats` (:28-77). The header grammar
 follows the reference: 'format' picks endianness, 'element <name> N' sets
 the count, 'property <type> <name>' appends a property; the payload is
@@ -94,6 +99,9 @@ class PlyFile:
 
 # The canonical Inria property layout (SURVEY.md §2.3).
 _N_REST = 45
+_REQUIRED = (["x", "y", "z", "opacity"] + [f"f_dc_{i}" for i in range(3)]
+             + [f"scale_{i}" for i in range(3)]
+             + [f"rot_{i}" for i in range(4)])
 
 
 def splat_arrays_from_ply(ply: PlyFile):
@@ -128,24 +136,41 @@ def splat_arrays_from_ply(ply: PlyFile):
         quats.astype(np.float32), opac.astype(np.float32), sh
 
 
+def check_properties(ply: PlyFile) -> None:
+    """Raise PlyError unless the model has every property a splat needs
+    (the f_rest coefficients are optional)."""
+    missing = [p for p in _REQUIRED if p not in set(ply.properties)]
+    if missing:
+        raise PlyError(f"missing property {missing[0]!r}")
+
+
 def splat_soa_from_ply(ply: PlyFile):
     """(means, cov6, opacity, sh): the splat SoA with the precomputed
-    covariance, in numpy."""
+    covariance, through the native swizzle where it is available (g++ is
+    found) and the f_rest columns are consecutive; the numpy path
+    otherwise. Every .ply load of the port goes through it: load_splats,
+    the Rasterizer's one-shot load and the streaming loader."""
+    from .. import native
     from .splats import build_covariance
+    check_properties(ply)
+    if native.available():
+        try:
+            return native.swizzle(ply.vertices, ply.properties, False)
+        except native.NonContiguousRest:
+            pass  # the numpy path reads any layout
     means, scales, quats, opac, sh = splat_arrays_from_ply(ply)
     return means, build_covariance(scales, quats), opac, sh
 
 
 def load_splats(path_or_bytes, upload_time: float = 0.0, capacity=None,
                 device="cuda"):
-    """Parse, swizzle and upload: .ply -> SplatCloud on ``device`` (the card
-    unless the caller asks for another)."""
-    from .splats import from_arrays
-    ply = PlyFile.parse(path_or_bytes)
-    means, scales, quats, opac, sh = splat_arrays_from_ply(ply)
-    return from_arrays(means, scales, quats, opac, sh,
-                       upload_time=upload_time, capacity=capacity,
-                       device=device)
+    """Parse, swizzle (``splat_soa_from_ply``) and upload: .ply ->
+    SplatCloud on ``device`` (the card unless the caller asks for
+    another)."""
+    from .splats import from_soa
+    return from_soa(*splat_soa_from_ply(PlyFile.parse(path_or_bytes)),
+                    upload_time=upload_time, capacity=capacity,
+                    device=device)
 
 
 def write_ply(path, means, scales_linear, quats_xyzw, opacities, sh,

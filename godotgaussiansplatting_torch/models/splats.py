@@ -104,17 +104,27 @@ def from_arrays(means, scales, quats_xyzw, opacities, sh,
     """Build a SplatCloud from host arrays: post-sigmoid ``opacities``,
     linear ``scales``, (N, 16, 3) coeff-major ``sh`` (lower degrees are
     zero-padded)."""
+    return from_soa(means, build_covariance(scales, quats_xyzw), opacities,
+                    sh, upload_time, capacity, device)
+
+
+def from_soa(means, cov6, opacities, sh,
+             upload_time: float | np.ndarray = 0.0,
+             capacity: Optional[int] = None,
+             device="cuda") -> SplatCloud:
+    """``from_arrays`` from the covariance itself (the (N, 6) upper
+    triangle, as ``models/ply.splat_soa_from_ply`` gives it)."""
     n = means.shape[0]
     cap = capacity or n
     cap = max(PAD_MULTIPLE, -(-cap // PAD_MULTIPLE) * PAD_MULTIPLE)
-    cov6 = build_covariance(scales, quats_xyzw)
     if np.ndim(upload_time) == 0:
         upload_time = np.full((n,), float(upload_time), np.float32)
     sh = np.asarray(sh, np.float32)
     if sh.shape[1] < 16:
         sh = np.pad(sh, ((0, 0), (0, 16 - sh.shape[1]), (0, 0)))
     return cloud_from_numpy(
-        _pad(np.asarray(means, np.float32), cap), _pad(cov6, cap),
+        _pad(np.asarray(means, np.float32), cap),
+        _pad(np.asarray(cov6, np.float32), cap),
         _pad(np.asarray(opacities, np.float32), cap), _pad(sh, cap),
         _pad(np.asarray(upload_time, np.float32), cap), n, device=device)
 
@@ -149,6 +159,16 @@ def synthetic_scene(num_splats: int, seed: int = 0, extent: float = 4.0,
                     surfaces: bool = False, device="cuda") -> SplatCloud:
     """Deterministic random scene for tests and benchmarks; the same seed
     gives the same arrays as the JAX package's synthetic_scene."""
+    return from_arrays(*synthetic_arrays(num_splats, seed, extent,
+                                         scale_range, sh_degree, surfaces),
+                       device=device)
+
+
+def synthetic_arrays(num_splats: int, seed: int = 0, extent: float = 4.0,
+                     scale_range: tuple = (0.005, 0.05), sh_degree: int = 3,
+                     surfaces: bool = False) -> tuple:
+    """synthetic_scene's host arrays (means, linear scales, quaternions
+    xyzw, opacities, sh), as ``from_arrays`` and ``write_ply`` take them."""
     rng = np.random.default_rng(seed)
     n = num_splats
     if surfaces:
@@ -185,7 +205,7 @@ def synthetic_scene(num_splats: int, seed: int = 0, extent: float = 4.0,
     sh[:, 0] = rng.uniform(-1.0, 2.0, (n, 3))
     if ncoef > 1:
         sh[:, 1:ncoef] = rng.normal(0, 0.12, (n, ncoef - 1, 3))
-    return from_arrays(means, scales, quats, opac, sh, device=device)
+    return means, scales, quats, opac, sh
 
 
 def photogrammetry_scene(num_splats: int, seed: int = 0, extent: float = 4.0,

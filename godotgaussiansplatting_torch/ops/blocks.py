@@ -1,7 +1,8 @@
 """Clustering constants and the load-time space-filling-curve order.
 
-Counterpart of ``godotgaussiansplatting_tpu/ops/blocks.py``. Host-side numpy,
-run once at load: ordering splats along a 3D curve gives consecutive
+Counterpart of ``godotgaussiansplatting_tpu/ops/blocks.py``. Host-side numpy
+(the Morton codes from the native library where it is built), run once at
+load: ordering splats along a 3D curve gives consecutive
 128-splat runs ("bricks") compact world-space extents, so their projected
 tile rects and depth ranges stay tight for any camera. The shipped curve is
 Hilbert; the JAX package's sweep-only environment overrides are constants
@@ -25,7 +26,14 @@ def _quantize(means: np.ndarray, bits: int) -> np.ndarray:
 
 
 def morton_order(means: np.ndarray, bits: int = 10) -> np.ndarray:
-    """Argsort of splat positions along the 3D Morton (Z) curve."""
+    """Argsort of splat positions along the 3D Morton (Z) curve: the codes
+    of the native ``morton3`` (quantised in f32, 10 bits an axis) where it
+    is available, as in the JAX package, else numpy's (quantised in f64 at
+    ``bits``). The two can differ at cell boundaries."""
+    from .. import native
+    if native.available():
+        return np.argsort(native.morton3(np.asarray(means, np.float32)),
+                          kind="stable")
     q = _quantize(means, bits).astype(np.uint64)
 
     def spread(x):

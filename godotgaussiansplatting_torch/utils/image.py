@@ -50,12 +50,9 @@ def to_uint8(image: np.ndarray, srgb: bool = True) -> np.ndarray:
     return (np.clip(rgb, 0, 1) * 255.0 + 0.5).astype(np.uint8)
 
 
-def write_png(path, image: np.ndarray, srgb: bool = True) -> None:
-    """Write (H, W, 3|4) float (linear) or uint8 image as PNG (stdlib zlib)."""
-    img = _host(image)
-    rgb8 = img if img.dtype == np.uint8 else to_uint8(img, srgb=srgb)
-    if rgb8.ndim == 2:
-        rgb8 = np.repeat(rgb8[:, :, None], 3, axis=2)
+def png_bytes(rgb8: np.ndarray, level: int) -> bytes:
+    """(H, W, 3) uint8 -> PNG bytes: 8-bit RGB, filter 0 on every row,
+    zlib at ``level``."""
     h, w, _ = rgb8.shape
     raw = b"".join(b"\x00" + rgb8[i].tobytes() for i in range(h))
 
@@ -64,12 +61,26 @@ def write_png(path, image: np.ndarray, srgb: bool = True) -> None:
         return struct.pack(">I", len(payload)) + c + struct.pack(
             ">I", zlib.crc32(c))
 
-    png = (b"\x89PNG\r\n\x1a\n"
-           + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-           + chunk(b"IDAT", zlib.compress(raw, 6))
-           + chunk(b"IEND", b""))
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw, level))
+            + chunk(b"IEND", b""))
+
+
+def write_png(path, image: np.ndarray, srgb: bool = True) -> None:
+    """Write (H, W, 3|4) float (linear) or uint8 image as PNG (stdlib zlib)."""
+    img = _host(image)
+    rgb8 = img if img.dtype == np.uint8 else to_uint8(img, srgb=srgb)
+    if rgb8.ndim == 2:
+        rgb8 = np.repeat(rgb8[:, :, None], 3, axis=2)
     with open(path, "wb") as f:
-        f.write(png)
+        f.write(png_bytes(rgb8, 6))
+
+
+def encode_jpeg_fallback_png(image: np.ndarray, srgb: bool = True) -> bytes:
+    """In-memory PNG bytes of a float image (the HTTP viewer's frame
+    stream): zlib level 1, the same bytes as the JAX package's."""
+    return png_bytes(to_uint8(image, srgb=srgb), 1)
 
 
 def read_png(path) -> np.ndarray:

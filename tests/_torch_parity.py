@@ -106,3 +106,21 @@ def exact_tile_lists(seed: int, cfg, opacity: tuple, P: int = 600,
     floats = (torch.from_numpy(x.astype(np.float32)).to(device)
               for x in (pos, conic, color))
     return (*ints, *floats)
+
+
+def jax_native_library():
+    """Load the JAX package's native library, built by its Makefile in its
+    package directory at first use. Another test process may be writing
+    that file at the same moment (it is not written atomically): retry a
+    load that fails on a partial file until the build has finished."""
+    import time
+    from godotgaussiansplatting_tpu import native as jnative
+    deadline = time.monotonic() + 120
+    while True:
+        try:
+            if jnative.available():
+                return jnative
+        except OSError:
+            pass
+        assert time.monotonic() < deadline, "the JAX native library failed"
+        time.sleep(0.2)

@@ -57,7 +57,8 @@ def test_streamed_cloud_equals_loaded_cloud(quality, monkeypatch):
     """Frames race the loader's chunk writes (a short switch interval, and
     a clock that sleeps, so chunks land between frames): every frame is
     finite, and the loaded cloud is a one-shot load's, apart from the
-    per-chunk upload times; quality "fast" streams in ``morton_order``."""
+    per-chunk upload times; quality "fast" streams in ``morton_order``.
+    The Rasterizer's own one-shot load is load_splats' cloud too."""
     def slow_now(self):
         time.sleep(0.01)
         return time.monotonic() - self._t0
@@ -86,6 +87,9 @@ def test_streamed_cloud_equals_loaded_cloud(quality, monkeypatch):
                            getattr(whole, f)[:3000][order]), f
     assert float(r.cloud.opacity[3000:].abs().max()) == 0.0
     assert len(torch.unique(r.cloud.upload_time[:3000])) <= 12
+    once = _rast(blob, texture_size=(32, 32)).cloud   # exact: file order
+    for f in ("means", "cov3d", "opacity", "sh", "upload_time"):
+        assert torch.equal(getattr(once, f), getattr(whole, f)), f
 
 
 def test_loader_calls_on_loaded():

@@ -1,7 +1,8 @@
 """The port's .ply I/O and photogrammetry scene: tests/test_ply.py's and
 tests/test_photogrammetry_scene.py's cases on the port, and against the JAX
-package: the swizzled arrays bit-equal to its numpy path (and close to its
-native loader's), the scene's arrays bit-equal for the same seed."""
+package: the numpy swizzle bit-equal to its numpy path, the native swizzle
+bit-equal to its native loader, the scene's arrays bit-equal for the same
+seed."""
 
 import io
 
@@ -21,7 +22,7 @@ from godotgaussiansplatting_tpu.models import ply as jply
 from godotgaussiansplatting_tpu.models.splats import (
     build_covariance as j_build_covariance)
 
-from _torch_parity import np_, psnr
+from _torch_parity import jax_native_library, np_, psnr
 
 
 def _random_model(n=64, seed=0):
@@ -53,32 +54,50 @@ def test_roundtrip(big_endian):
     np.testing.assert_allclose(sh2, sh, atol=1e-6)
 
 
-def test_arrays_bit_equal_to_jax():
-    """Bit-equal to the JAX package's numpy path. Its splat_soa_from_ply
-    takes its native C++ loader where that is built, whose arithmetic
-    rounds differently: the covariance within 2e-6 of each splat's largest
-    entry (1.01e-6 measured) and the opacity within 1e-6."""
+def test_arrays_bit_equal_to_jax(monkeypatch):
+    """The numpy paths bit-equal: the swizzled arrays, the SoA with the
+    covariance built in numpy, and load_splats' clouds (the port's on its
+    numpy path, as on a machine without g++)."""
+    from godotgaussiansplatting_torch import native
     blob = write_ply(io.BytesIO(), *_random_model(n=200, seed=5))
     ours = splat_arrays_from_ply(PlyFile.parse(blob))
     theirs = jply.splat_arrays_from_ply(jply.PlyFile.parse(blob))
     for a, b in zip(ours, theirs):
         np.testing.assert_array_equal(a, b)
-    soa = splat_soa_from_ply(PlyFile.parse(blob))
-    numpy_path = (theirs[0], j_build_covariance(*theirs[1:3]),
-                  theirs[3], theirs[4])
-    for a, b in zip(soa, numpy_path):
+    numpy_soa = (ours[0], build_covariance(*ours[1:3]), ours[3], ours[4])
+    jax_numpy_soa = (theirs[0], j_build_covariance(*theirs[1:3]),
+                     theirs[3], theirs[4])
+    for a, b in zip(numpy_soa, jax_numpy_soa):
         np.testing.assert_array_equal(a, b)
-    native = jply.splat_soa_from_ply(jply.PlyFile.parse(blob))
-    row = np.abs(native[1]).max(axis=1, keepdims=True)
-    assert float((np.abs(soa[1] - native[1]) / row).max()) <= 2e-6
-    np.testing.assert_allclose(soa[2], native[2], rtol=0, atol=1e-6)
-    np.testing.assert_array_equal(soa[0], native[0])
-    np.testing.assert_array_equal(soa[3], native[3])
+    monkeypatch.setattr(native, "available", lambda: False)
     cloud_t = load_splats(blob, upload_time=-3.0, device="cpu")
     cloud_j = jply.load_splats(blob, upload_time=-3.0)
     for f in ("means", "cov3d", "opacity", "sh", "upload_time"):
         np.testing.assert_array_equal(np_(getattr(cloud_t, f)),
                                       np_(getattr(cloud_j, f)))
+
+
+@pytest.mark.parametrize("big_endian", [False, True])
+def test_native_soa_bit_equal_to_jax_native(big_endian):
+    """splat_soa_from_ply through each package's native swizzle (the same
+    source and flags): bit-equal, where it was held within 2e-6 of a row's
+    largest covariance entry while the port had only the numpy path; and
+    the port's load_splats, which swizzles through it, gives that SoA."""
+    from godotgaussiansplatting_torch import native
+    assert native.available()
+    jax_native_library()
+    blob = write_ply(io.BytesIO(), *_random_model(n=200, seed=5),
+                     big_endian=big_endian)
+    native.reset_call_counts()
+    soa = splat_soa_from_ply(PlyFile.parse(blob))
+    assert native.call_counts()["swizzle"] == 1
+    theirs = jply.splat_soa_from_ply(jply.PlyFile.parse(blob))
+    for a, b in zip(soa, theirs):
+        np.testing.assert_array_equal(a, b)
+    cloud = load_splats(blob, device="cpu")
+    assert native.call_counts()["swizzle"] == 2
+    for f, b in zip(("means", "cov3d", "opacity", "sh"), theirs):
+        np.testing.assert_array_equal(np_(getattr(cloud, f))[:200], b)
 
 
 def test_property_order_independent():
