@@ -110,7 +110,34 @@ nvcc per source, all started together), then:
    It logs the served frames a second, a served frame's split (rasterize,
    image() readback, PNG encode), the /frame round trip, the parse,
    native and numpy swizzle and upload times; the render loop's
-   last_error must stay None, and ViewerState.close() ends the loop.
+   last_error must stay None, and ViewerState.close() ends the loop;
+11. the sharded paths (parallel/sharded.py), run last: phase 4's scene
+   padded with inert slots to a multiple of 4 x 8,192 splats (every shard
+   a whole number of superblocks 1, 2 and 4 ways) is written once under
+   build/chip_smoke/sharded/, with the single-device frames of the 8
+   orbit cameras for three paths: fast_defaults(), exact without the
+   boundary quirk (at phase 8's tile capacity) and that exact frame with
+   one emission group (no tiers, no giant path, no per-splat cap). Ranks
+   are spawned (torch.multiprocessing, spawn): one over NCCL on a (1, 1)
+   mesh, then four over gloo sharing the card on (1, 2), (1, 4) and
+   (2, 2) meshes (NCCL refuses two ranks on one GPU; gloo goes through
+   host memory). Each rank reads only its shard through memory-mapped
+   .npy files into its shard_cloud on the card and renders each path over
+   the orbit (n_view cameras a frame) after a warm-up frame, the launch
+   counters (and the mesh's traffic) set to 0 just before each frame and
+   read just after it: projection and render_v3 once a fast frame,
+   render_exact once an exact one, on every rank of the mesh. Rank 0 holds every view to its
+   camera's single-device frame: fast >= 50 dB at world 1 and >= 40 dB
+   past it; exact within 2e-3 at world 1 and past it >= 70 dB with max
+   |d| <= 0.035 (a slab may emit a wide splat's pairs in another group,
+   so equal (tile, depth16) keys composite in another order), at the
+   cameras where
+   neither side dropped pairs; with one emission group within 2e-3 at
+   every camera; num_pairs equal and no exchange overflow. Each rank
+   prints its median stage times (CUDA events), the bytes its collectives
+   moved in a frame (Mesh.traffic: the exchange's blocks, the big lanes,
+   the projected splats, the image) and its peak device memory. A rank that raises
+   fails the phase.
 
 The launch counters are set to 0 just before each full-frame path and read
 just after it; the `launches` of a kernel come from the path that runs it
@@ -142,6 +169,7 @@ from __future__ import annotations
 import dataclasses
 import io
 import json
+import math
 import statistics
 import sys
 import threading
@@ -175,6 +203,7 @@ from godotgaussiansplatting_torch.models.splats import (build_covariance,
                                                         synthetic_arrays)
 from godotgaussiansplatting_torch.utils.image import (png_bytes, read_png,
                                                       to_uint8)
+from godotgaussiansplatting_torch.parallel import sharded
 from godotgaussiansplatting_torch.viewer import server as vserver
 from godotgaussiansplatting_torch.viewer.offline import render_orbit
 
@@ -1476,6 +1505,289 @@ def phase_viewer(full, card: str) -> None:
         f"{json.dumps({k: v for k, v in launches.items() if v})}")
 
 
+# --- phase 11: the sharded paths (parallel/sharded.py) -----------------------
+
+SHARDED = BUILD / "sharded"
+SHARDED_CAMERAS = 8
+# (backend, world, meshes): NCCL with one rank on the card; gloo for ranks
+# that share it (NCCL refuses two ranks on one GPU). A (1, 2) mesh in the
+# 4-rank world leaves ranks 2 and 3 outside.
+SHARDED_RUNS = (("nccl", 1, ((1, 1),)),
+                ("gloo", 4, ((1, 2), (1, 4), (2, 2))))
+SHARDED_FIELDS = ("means", "cov3d", "opacity", "sh", "upload_time")
+# Every shard a whole number of 8,192-splat superblocks 1, 2 and 4 ways, so
+# the shards cluster as the single device does (the >= 40 dB gate).
+SHARDED_MULTIPLE = 8192 * 4
+# The paths: the fast frame (fast_defaults()); the exact frame without the
+# boundary quirk; and the same with one emission group (no tiers, no giant
+# path, no per-splat cap). A slab clips a wide splat's rect, so it may emit
+# its pairs in another group than the whole frame does, and pairs of equal
+# (tile, depth16) keys then composite in another order (the JAX package's
+# sharded path does the same); with one group the order is the splat order
+# on both sides.
+SHARDED_PATHS = ("fast", "exact", "exact_1group")
+FAST_GATE_DB = {1: 50.0}        # world 1; every other mesh: 40 dB
+EXACT_GATE = 2e-3               # tests/test_multichip.py:45
+# The exact path past world 1 (see above): on an H100 the scene read 77.05
+# dB, max |d| 0.0172 at 2 and at 4 ranks; the gate sits 7 dB and 2x below.
+EXACT_TIES_GATE = {"psnr": 70.0, "max_abs": 0.035}
+
+
+def _sharded_cfg(base, path: str):
+    if path == "fast":
+        return base.fast_defaults()
+    cfg = base.replace(reference_boundary_quirk=False)
+    if path == "exact_1group":
+        gx, gy = cfg.tile_dims
+        cfg = cfg.replace(exact_tiers=(), giant_splat_capacity=0,
+                          max_tiles_per_splat=gx * gy)
+    return cfg
+
+
+def _padded(cloud, capacity: int):
+    """``cloud`` (a fast_cloud_view: planar (48, P) SH) padded with inert
+    slots (zeros, opacity 0) to ``capacity``, as from_arrays(capacity=...)
+    pads before mortonize."""
+    def pad(t):
+        return torch.cat([t, t.new_zeros((capacity - t.shape[0],)
+                                         + t.shape[1:])])
+    return dataclasses.replace(
+        cloud, means=pad(cloud.means), cov3d=pad(cloud.cov3d),
+        opacity=pad(cloud.opacity), upload_time=pad(cloud.upload_time),
+        sh=pad(cloud.sh.T).T.contiguous())
+
+
+def _mapped_cloud():
+    """The scene phase 11 wrote, as CPU tensors on memory-mapped .npy
+    files: a rank reads only the pages of the shard it moves to its card."""
+    def load(name):
+        return torch.from_numpy(np.load(SHARDED / f"{name}.npy",
+                                        mmap_mode="c"))
+    meta = json.loads((SHARDED / "cloud.json").read_text())
+    arrays = {f: load(f) for f in SHARDED_FIELDS}
+    arrays["sh"] = arrays["sh"].view(torch.bfloat16)
+    return gt.SplatCloud(**arrays, num_splats=meta["num_splats"])
+
+
+def _sharded_hold(path: str, cam: int, img: torch.Tensor, pairs: int,
+                  over: int) -> dict:
+    """One view of a sharded frame against the single-device frame phase 11
+    saved for its camera."""
+    ref = torch.from_numpy(np.load(SHARDED / f"ref_{path}_{cam}.npy")).to(
+        img.device)
+    meta = json.loads((SHARDED / f"ref_{path}_{cam}.json").read_text())
+    if path != "fast":
+        img, ref = img.permute(2, 0, 1), ref.permute(2, 0, 1)
+    return {"camera": cam, "psnr": psnr(img, ref),
+            "max_abs": float((img - ref).abs().max()),
+            "bit_equal": bool(torch.equal(img, ref)), "pairs": pairs,
+            "ref_pairs": meta["pairs"], "overflow": over,
+            "ref_overflow": meta["overflow"]}
+
+
+def _sharded_path(mesh, shard, P: int, base, path: str,
+                  tile_capacity: int, rank: int) -> dict:
+    """Drive one path over the orbit on this rank (``shard``: its resident
+    shard_cloud of the P-splat scene, None outside the mesh): a warm-up
+    frame, then SHARDED_CAMERAS / n_view timed frames; the launch counters
+    and the mesh's traffic are set to 0 just before each frame and read
+    just after it (the record keeps the last frame's traffic)."""
+    fast = path == "fast"
+    cfg = _sharded_cfg(base, path)
+    fn = (sharded.render_frame_fast_sharded if fast
+          else sharded.render_frame_sharded)
+    kw = {} if fast else {"tile_capacity": tile_capacity}
+    expect = ("projection", "render_v3") if fast else ("render_exact",)
+    n_view = mesh.shape["view"]
+    cams = gt.orbit_trajectory(SHARDED_CAMERAS, radius=5.0,
+                               target=(0, 0, 6.0))
+    unis = [sharded.stack_uniforms([gt.make_uniforms(c, cfg)
+                                    for c in cams[i:i + n_view]])
+            for i in range(0, SHARDED_CAMERAS, n_view)]
+    fn(shard, unis[0], cfg, mesh, **kw)                 # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stages, frame_ms, held = [], [], []
+    launches = {name: 0 for name in kernels.COUNTERS}
+    for f, uni in enumerate(unis):
+        timer = gt.StageTimer(mesh.device) if mesh.member else None
+        mesh.traffic.clear()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn(shard, uni, cfg, mesh, timer=timer, **kw)
+        torch.cuda.synchronize()
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+        counts = kernels.launch_counts()
+        for name in launches:
+            launches[name] += counts[name]
+        if not mesh.member:
+            check(out is None, "11: a rank outside the mesh got a frame")
+            continue
+        stages.append(timer.times_ms())
+        for name in expect:
+            check(counts[name] == 1, f"11 rank {rank}: {name} launched "
+                  f"{counts[name]} times in frame {f}")
+        img, pairs, over = out
+        check(bool(torch.isfinite(img).all()), "11: non-finite image")
+        if rank == 0:
+            held += [_sharded_hold(path, f * n_view + v, img[v],
+                                   int(pairs[v]), int(over[v]))
+                     for v in range(n_view)]
+    n_tile = mesh.shape["tile"]
+    b_local, k_x = sharded.exchange_shape(P, n_tile)
+    rec = {"mesh": [n_view, n_tile], "path": path,
+           "rank": rank, "member": mesh.member, "launches": launches,
+           "traffic": {k: dict(v) for k, v in mesh.traffic.items()},
+           "exchange_shape": {"b_local": b_local, "k_x": k_x},
+           "frame_ms": statistics.median(frame_ms), "held": held,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    if stages:
+        rec["stages_ms"] = {k: statistics.median(s[k] for s in stages)
+                            for k in stages[0]}
+    return rec
+
+
+def _sharded_rank(rank: int, world: int, port: int, backend: str,
+                  meshes: tuple, base, tile_capacity: int) -> None:
+    """One rank of phase 11 (a spawned process: torch and the port)."""
+    from datetime import timedelta
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world,
+                            timeout=timedelta(seconds=600))
+    try:
+        cloud = _mapped_cloud()
+        recs = []
+        for n_view, n_tile in meshes:
+            mesh = sharded.make_mesh(n_view, n_tile, backend=backend)
+            shard = sharded.shard_cloud(cloud, mesh)
+            for path in SHARDED_PATHS:
+                recs.append(_sharded_path(mesh, shard, cloud.capacity, base,
+                                          path, tile_capacity, rank))
+            del shard
+        (SHARDED / f"{backend}_rank{rank}.json").write_text(json.dumps(recs))
+    finally:
+        dist.destroy_process_group()
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_sharded(cloud, base, tile_capacity: int, card: str) -> None:
+    """Phase 11: the sharded paths at 1920x1080 on the 5.8M scene (padded
+    to whole superblocks on every shard), through spawned ranks on the
+    card, each held per view to the single-device frame of its camera."""
+    import torch.multiprocessing as mp
+    SHARDED.mkdir(parents=True, exist_ok=True)
+    P = -(-cloud.capacity // SHARDED_MULTIPLE) * SHARDED_MULTIPLE
+    padded = _padded(cloud, P)
+    t0 = time.perf_counter()
+    for f in SHARDED_FIELDS:
+        a = getattr(padded, f)
+        a = a.view(torch.int16) if a.dtype == torch.bfloat16 else a
+        np.save(SHARDED / f"{f}.npy", a.cpu().numpy())
+    (SHARDED / "cloud.json").write_text(json.dumps(
+        {"num_splats": padded.num_splats}))
+    cams = gt.orbit_trajectory(SHARDED_CAMERAS, radius=5.0,
+                               target=(0, 0, 6.0))
+    for path in SHARDED_PATHS:
+        cfg = _sharded_cfg(base, path)
+        for i, cam in enumerate(cams):
+            uni = gt.make_uniforms(cam, cfg)
+            out = (gt.render_frame_fast(padded, uni, cfg)
+                   if path == "fast" else
+                   gt.render_frame(padded, uni, cfg,
+                                   tile_capacity=tile_capacity))
+            np.save(SHARDED / f"ref_{path}_{i}.npy", out.image.cpu().numpy())
+            (SHARDED / f"ref_{path}_{i}.json").write_text(json.dumps({
+                "pairs": int(out.stats.num_pairs),
+                "overflow": int(out.stats.num_overflow)}))
+    del padded
+    log(f"[11 sharded] {card}: {cloud.num_splats} splats padded to "
+        f"capacity {P} ({P // SHARDED_MULTIPLE} x {SHARDED_MULTIPLE}), "
+        f"written to {SHARDED} with the single-device frames of "
+        f"{SHARDED_CAMERAS} orbit cameras (fast_defaults; exact without "
+        f"the boundary quirk, tile capacity {tile_capacity}, and so with one "
+        f"emission group) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for backend, world, meshes in SHARDED_RUNS:
+        t0 = time.perf_counter()
+        mp.start_processes(_sharded_rank, nprocs=world, join=True,
+                           start_method="spawn",
+                           args=(world, _free_port(), backend, meshes, base,
+                                 tile_capacity))
+        ranks = [json.loads((SHARDED / f"{backend}_rank{rank}.json")
+                            .read_text()) for rank in range(world)]
+        log(f"[11 sharded {backend}] {world} rank(s) on one card, spawned "
+            f"and run in {time.perf_counter() - t0:.1f} s")
+        for i in range(len(ranks[0])):
+            _sharded_report([recs[i] for recs in ranks], backend, world,
+                            card, f"{base.width}x{base.height}")
+
+
+def _sharded_report(recs: list, backend: str, world: int, card: str,
+                    size: str) -> None:
+    """Check every rank's record of one (mesh, path) and log it: rank 0's
+    frames held per view, then each mesh rank's times and launches."""
+    n_view, n_tile = recs[0]["mesh"]
+    fast = recs[0]["path"] == "fast"
+    tag = f"11 sharded {backend} ({n_view}, {n_tile}) {recs[0]['path']}"
+    frames = SHARDED_CAMERAS // n_view
+    expect = ("projection", "render_v3") if fast else ("render_exact",)
+    members = [r for r in recs if r["member"]]
+    for rec in members:
+        for name in expect:
+            check(rec["launches"][name] == frames,
+                  f"{tag} rank {rec['rank']}: {name} launched "
+                  f"{rec['launches'][name]} times for {frames} frames")
+    held = recs[0]["held"]
+    check(len(held) == SHARDED_CAMERAS, f"{tag}: {len(held)} views held")
+    # the least PSNR (dB), the most max |d|, or both
+    gate = {"fast": {"psnr": FAST_GATE_DB.get(world, 40.0)},
+            "exact": ({"max_abs": EXACT_GATE} if world == 1
+                      else EXACT_TIES_GATE),
+            "exact_1group": {"max_abs": EXACT_GATE}}[recs[0]["path"]]
+    gated, other = [], []
+    for h in held:
+        if fast or (h["overflow"] == 0 and h["ref_overflow"] == 0):
+            gated.append(h)
+            ok = (h["psnr"] >= gate.get("psnr", -math.inf)
+                  and h["max_abs"] <= gate.get("max_abs", math.inf))
+            check(ok and h["pairs"] == h["ref_pairs"] and h["overflow"] == 0,
+                  f"{tag} camera {h['camera']}: {h}, gate {gate}")
+        else:
+            other.append(h)
+    check(recs[0]["path"] != "exact_1group" or not other,
+          f"{tag}: one emission group overflowed: {other}")
+    log(f"[{tag}] {card}, {size}, {len(members)} of {world} ranks: views "
+        f"held to the single-device frames at cameras "
+        f"{[h['camera'] for h in gated]} ("
+        + ", ".join(f"PSNR >= {v} dB" if k == "psnr" else f"max |d| <= {v}"
+                    for k, v in gate.items())
+        + f", pairs equal): PSNR "
+        f"{[round(h['psnr'], 2) for h in gated]} dB, max |d| "
+        f"{max(h['max_abs'] for h in gated):.3g}, bit-equal at "
+        f"{[h['camera'] for h in gated if h['bit_equal']]}, overflow "
+        f"{[h['overflow'] for h in gated]}"
+        + (f"; not gated (an overflow on either side): {json.dumps(other)}"
+           if other else "")
+        + (f"; exchange shape {json.dumps(recs[0]['exchange_shape'])}"
+           if fast else ""))
+    for rec in members:
+        log(f"[{tag}] {card}, rank {rec['rank']}: median frame "
+            f"{rec['frame_ms']:.3f} ms (host clock), median stages "
+            f"{json.dumps({k: round(v, 3) for k, v in rec['stages_ms'].items()})}"
+            f", peak memory {rec['peak_gib']:.2f} GiB, launches "
+            f"{json.dumps({k: v for k, v in rec['launches'].items() if v})}"
+            f", bytes of its collectives in the last frame (buffer: its "
+            f"input; sent / received: to and from the other ranks) "
+            f"{json.dumps(rec['traffic'])}")
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; nothing was measured")
@@ -1516,6 +1828,7 @@ def main() -> int:
     launches["sfu_probe"] = probe_launches
     BUILD.mkdir(parents=True, exist_ok=True)
     phase_viewer(full, card)
+    phase_sharded(cloud, base, capacity, card)
     for r in rec:
         r["launches"] = launches[r["name"]]
     log(card)

@@ -76,13 +76,14 @@ def bin_bigs(bigs, cfg: RasterizerConfig, obig: int = 128,
                 & (wyy[:, :, None] < rects_c[:, None, :, 3])
                 & cand_valid[:, None])              # (NS, NGS, C1)
 
-    if N > 0xFFFF:
-        raise ValueError("big_cap beyond 65535 needs a second sort operand")
+    # (position, lane) in one int64 key: the lane takes the low 32 bits
+    # (the JAX package packs it into 16 of a u32 and asserts N <= 65535,
+    # which a sharded frame's gathered big set exceeds at real sizes)
     pos = torch.arange(C1, dtype=torch.int64, device=dev)[None, None]
-    key2 = torch.where(covers_t, (pos << 16) | cand[:, None, :], C1 << 16)
+    key2 = torch.where(covers_t, (pos << 32) | cand[:, None, :], C1 << 32)
     k2s = torch.sort(key2, dim=2, stable=True).values[:, :, :OB]
-    hit = (k2s >> 16) != C1
-    sel = torch.where(hit, k2s & 0xFFFF, 0)
+    hit = (k2s >> 32) != C1
+    sel = torch.where(hit, k2s & 0xFFFFFFFF, 0)
     nbig = covers_t.sum(dim=2)
     over_l2 = torch.clamp(nbig - OB, min=0).sum()
     nbig = torch.clamp(nbig, max=OB)

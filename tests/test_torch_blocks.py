@@ -186,6 +186,29 @@ def test_bigbins_bit_equal(big_words, obig):
     assert int(np_(gj_.tile_nbig).max()) > 8
 
 
+def test_bigbins_past_65535_lanes(big_words):
+    """The port's bin_bigs takes more than 65,535 lanes (a sharded frame
+    gathers n_tile big sets; the JAX package asserts N <= 65535): the big
+    set with 70,000 dead lanes appended bins exactly as the big set
+    alone."""
+    _, wt = big_words
+    _, cfg_t = _cfgs("bricks", 512, 512)
+    _, bt = blocks_t.build_block_frame2_words(wt, cfg_t, words_payload=True)
+    pad = 70_000
+    wide = blocks_t.BigSet(
+        table=torch.cat([bt.table, bt.table.new_zeros((pad, 16))]),
+        depth16=torch.cat([bt.depth16, bt.depth16.new_full((pad,), 0xFFFF)]),
+        rect=torch.cat([bt.rect, bt.rect.new_zeros((pad, 4))]),
+        valid=torch.cat([bt.valid, bt.valid.new_zeros(pad)]),
+        residual=bt.residual)
+    assert wide.table.shape[0] > 0xFFFF
+    a = bigbin_t.bin_bigs(bt, cfg_t, obig=32)
+    b = bigbin_t.bin_bigs(wide, cfg_t, obig=32)
+    for f in a._fields:
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+    assert int(a.tile_nbig.max()) > 8
+
+
 # --- tests/test_bigs.py cases, on the port -----------------------------------
 
 def _n_true_and_valid(wt):

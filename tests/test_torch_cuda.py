@@ -397,6 +397,53 @@ def test_emit_and_sort_on_the_card_equals_the_cpu(cuda):
 
 
 @pytest.mark.gpu
+def test_sharded_paths_at_world_one_on_the_card(cuda):
+    """A world of one rank over NCCL: the (1, 1) mesh's fast and exact
+    frames at 256x256 against the single-device frames (fast >= 50 dB,
+    exact within 2e-3, pairs equal), each through its kernels."""
+    import socket
+    import torch.distributed as dist
+    from godotgaussiansplatting_torch.parallel import sharded
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    try:
+        mesh = sharded.make_mesh(1, 1)
+        assert mesh.device.type == "cuda" and mesh.backend == "nccl"
+        cloud = _cloud(cuda)
+        shard = sharded.shard_cloud(cloud, mesh)
+        base = gt.RasterizerConfig(width=256, height=256)
+        for cfg, fast in ((base.fast_defaults(), True),
+                          (base.replace(reference_boundary_quirk=False),
+                           False)):
+            uni = gt.make_uniforms(gt.Camera.reset_pose(), cfg)
+            fn = (sharded.render_frame_fast_sharded if fast
+                  else sharded.render_frame_sharded)
+            kernels.reset_launch_counts()
+            img, pairs, over = fn(shard, sharded.stack_uniforms([uni]), cfg,
+                                  mesh)
+            counts = kernels.launch_counts()
+            for name in (("projection", "render_v3") if fast
+                         else ("render_exact",)):
+                assert counts[name] == 1, (name, counts)
+            assert int(over[0]) == 0
+            if fast:
+                ref = gt.render_frame_fast(cloud, uni, cfg)
+                assert img.shape == (1, 4, 256, 256)
+                mse = float(((img[0, :3] - ref.image[:3]) ** 2).mean())
+                assert 10 * np.log10(1 / max(mse, 1e-20)) >= 50.0
+            else:
+                ref = gt.render_frame(cloud, uni, cfg, tile_capacity=512)
+                assert img.shape == (1, 256, 256, 4)
+                assert float((img[0] - ref.image).abs().max()) <= 2e-3
+            assert int(pairs[0]) == int(ref.stats.num_pairs) > 0
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
 def test_rasterizer_exact_frame_on_the_card_equals_the_cpu(cuda):
     cloud = _exact_cloud("cpu", n=20_000)
     imgs = []
