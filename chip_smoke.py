@@ -78,9 +78,12 @@ nvcc per source, all started together), then:
    and render_v3 by every fast frame, a centre pick that is a splat mean on
    both, the exact frames' num_overflow and final tile_capacity; the median
    frame, the median Projection / Sort / Boundaries / Render (or Blocks /
-   Binning) stage times of debug_info() and the peak device memory; then
-   torch.profiler over 3 exact frames, and the PSNR of the fast frame
-   against the exact one at the reset camera (printed, not gated);
+   Binning) stage times of debug_info() and the peak device memory; the
+   fast frames are replays of one capture (ops/fast_pipeline.py
+   FastFrameGraph: its capture time and the launches a replay counts are
+   logged); then torch.profiler over 3 exact frames, and the PSNR of the
+   fast frame against the exact one at the reset camera (printed, not
+   gated);
 9. the rate probe (sfu_probe.py, the port of benchmarks/vpu_probe.py's
    kern), run right after phase 1 so that every bound can read its rate:
    each body timed at (1024, 512), 64 steps of 16 reps (its main path),
@@ -91,7 +94,7 @@ nvcc per source, all started together), then:
    ms, G elem-ops/s, share of its pipe's peak, instructions per element.
    The highest MUFU instruction rate it reaches, or the spec peak where
    that is higher, is the rate of the bounds' special-function term;
-10. the viewer (viewer/server.py), run last: make_server on
+10. the viewer (viewer/server.py): make_server on
    Rasterizer(5.8M scene, 1920x1080, quality="fast") on port 0, driven
    over HTTP as the browser page does (90 ticks of /input with free-look
    fly, an orbit drag, wheel steps and centre picks, a /state change, a
@@ -111,7 +114,7 @@ nvcc per source, all started together), then:
    image() readback, PNG encode), the /frame round trip, the parse,
    native and numpy swizzle and upload times; the render loop's
    last_error must stay None, and ViewerState.close() ends the loop;
-11. the sharded paths (parallel/sharded.py), run last: phase 4's scene
+11. the sharded paths (parallel/sharded.py): phase 4's scene
    padded with inert slots to a multiple of 4 x 8,192 splats (every shard
    a whole number of superblocks 1, 2 and 4 ways) is written once under
    build/chip_smoke/sharded/, with the single-device frames of the 8
@@ -137,7 +140,23 @@ nvcc per source, all started together), then:
    prints its median stage times (CUDA events), the bytes its collectives
    moved in a frame (Mesh.traffic: the exchange's blocks, the big lanes,
    the projected splats, the image) and its peak device memory. A rank that raises
-   fails the phase.
+   fails the phase;
+12. the fast frame as captured CUDA graphs (FastFrameGraph), run last: on
+   phase 4's scene at 1920x1080 over 8 orbit cameras, for fast_defaults(),
+   RasterizerConfig(kernel="v4").fast_defaults() and
+   RasterizerConfig(quality="fast"), each graphed frame bit-equal to the
+   eager render_frame_fast_staged frame (image, tile_t0, tile lists,
+   payloads, tile_nbig, stats), the launches a replay counts equal to an
+   eager frame's, and a kept frame's image unchanged by later replays; it
+   logs the capture seconds, the eager and graphed frames' medians in
+   turns (host clock, CUDA events, stages), the memory each holds between
+   frames and at its peak, and torch.profiler's busy share over 3 frames
+   of each. Then Rasterizer(quality="fast") on the scene: one capture over
+   the 8 cameras and a heatmap toggle, one more after a texture_size
+   change, frames bit-equal to the eager frames of its view; and a 200,000
+   splat .ply streamed in 16 chunks while frames render, whose frame after
+   the load is bit-equal to the eager frame of the loaded cloud's own
+   fast view.
 
 The launch counters are set to 0 just before each full-frame path and read
 just after it; the `launches` of a kernel come from the path that runs it
@@ -167,6 +186,7 @@ name and power limit, the kernels' JSON record and {"ok": true, "device":
 from __future__ import annotations
 
 import dataclasses
+import gc
 import io
 import json
 import math
@@ -189,6 +209,8 @@ from godotgaussiansplatting_torch.ops import render_v3 as rv
 from godotgaussiansplatting_torch.ops import render_v4 as r4
 from godotgaussiansplatting_torch.ops.bigbin import bin_bigs
 from godotgaussiansplatting_torch.ops.binning2 import bin_blocks2
+from godotgaussiansplatting_torch.ops.fast_pipeline import FastFrameGraph
+from godotgaussiansplatting_torch.ops.pipeline import pack_uniforms
 from godotgaussiansplatting_torch.ops.blocks2 import (
     _bits16, adaptive_cell_shift, build_block_frame2, build_block_frame2_words,
     u32)
@@ -1056,6 +1078,12 @@ def phase_engine(cloud, frames: int) -> tuple:
                              ("render_exact",))
     engine_frames("8 engine fast", fast, cloud, frames,
                   ("projection", "render_v3"))
+    check(fast.graph_captures == 1,
+          f"8 engine fast: {fast.graph_captures} graph captures over the "
+          f"orbit (one expected: its frames are replays)")
+    log(f"[8 engine fast] frames replayed from one capture of "
+        f"{fast.fast_graph.capture_seconds:.2f} s (warm-up frame and four "
+        f"graphs), launches a replay {json.dumps(fast.fast_graph.launches)}")
     cams = gt.orbit_trajectory(3, radius=5.0, target=(0, 0, 6.0))
 
     def exact_frame(i):
@@ -1447,6 +1475,9 @@ def phase_viewer(full, card: str) -> None:
               f"{mem_before} before it (the viewer's 5.8M model was not "
               f"freed first)")
         time.sleep(1.5)                # past the last chunk's fade-in
+        # the counters read while no frame is in flight, as in (a): a frame
+        # still encoding at the reset would count as served, unlaunched
+        _viewer_settle(state)
         frames0 = state.frames
         kernels.reset_launch_counts()
         _viewer_drive(base, 30)
@@ -1788,6 +1819,195 @@ def _sharded_report(recs: list, backend: str, world: int, card: str,
             f"input; sent / received: to and from the other ranks) "
             f"{json.dumps(rec['traffic'])}")
 
+# --- phase 12: the fast frame as captured CUDA graphs ------------------------
+
+GRAPH_FIELDS = ("image", "tile_t0", "tile_blocks", "tile_nblocks",
+                "tile_nbig", "payload", "tile_bigpay")
+
+
+def _hold_graphed(tag: str, graphed, eager) -> None:
+    """Every field of a graphed frame bit-equal to the eager frame's (f32
+    compared as bits: the cooked payload's rank row holds NaN patterns)."""
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    for f in GRAPH_FIELDS:
+        a, b = getattr(graphed, f), getattr(eager, f)
+        check(a.shape == b.shape and torch.equal(bits(a), bits(b)),
+              f"{tag}: {f} differs from the eager frame's")
+    for name, a, b in zip(graphed.stats._fields, graphed.stats, eager.stats):
+        check(torch.equal(a, b), f"{tag}: stats.{name} {a} against {b}")
+
+
+def _timed(fn):
+    """(result, host ms, CUDA-event ms, {stage: ms}) of one frame
+    ``fn(timer)``, synchronised."""
+    timer = gt.StageTimer(torch.device("cuda"))
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    a.record()
+    out = fn(timer)
+    b.record()
+    torch.cuda.synchronize()
+    host = (time.perf_counter() - t0) * 1e3
+    return out, host, a.elapsed_time(b), timer.times_ms()
+
+
+def _memory_base() -> tuple:
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+
+
+def _memory_since(base: tuple) -> dict:
+    """GiB allocated and reserved above ``base`` now, and the allocated
+    peak above it."""
+    torch.cuda.synchronize()
+    return {"allocated": (torch.cuda.memory_allocated() - base[0]) / 2**30,
+            "reserved": (torch.cuda.memory_reserved() - base[1]) / 2**30,
+            "peak": (torch.cuda.max_memory_allocated() - base[0]) / 2**30}
+
+
+def graph_config(tag: str, cloud, cfg, frames: int, card: str) -> None:
+    """One configuration: FastFrameGraph against render_frame_fast_staged
+    over ``frames`` orbit cameras (bit-equal frames, equal launches, a kept
+    frame untouched), both timed in turns, profiled, and their memory."""
+    cams = gt.orbit_trajectory(frames, radius=5.0, target=(0, 0, 6.0))
+    w, h = cfg.target_size
+    values = [pack_uniforms(c.view_matrix(), c.projection_matrix(w, h),
+                            c.camera_pos_ply(), 1.0, 1e9, 0.0) for c in cams]
+    unis = [gt.make_uniforms(c, cfg) for c in cams]
+
+    def eager(i, timer=None):
+        return gt.render_frame_fast_staged(cloud, unis[i], cfg, timer=timer)
+
+    base = _memory_base()
+    out = eager(0)
+    mem_eager = _memory_since(base)
+    del out
+    base = _memory_base()
+    graph = FastFrameGraph(cloud, cfg, values[0])
+    kept = graph.render(values[0])
+    mem_graph = _memory_since(base)
+    kept_image = kept.image.clone()
+    check(graph.launches and all(n == 1 for n in graph.launches.values()),
+          f"{tag}: the capture recorded {graph.launches}")
+    for i in range(frames):
+        kernels.reset_launch_counts()
+        g = graph.render(values[i])
+        torch.cuda.synchronize()
+        by_graph = kernels.launch_counts()
+        kernels.reset_launch_counts()
+        e = eager(i)
+        torch.cuda.synchronize()
+        check(by_graph == kernels.launch_counts(),
+              f"{tag} camera {i}: launches {by_graph} replayed against "
+              f"{kernels.launch_counts()} eager")
+        _hold_graphed(f"{tag} camera {i}", g, e)
+        check(int(g.stats.num_pairs) > 0, f"{tag}: no splat-tile pairs")
+    check(torch.equal(kept.image, kept_image),
+          f"{tag}: a kept frame's image changed under later replays")
+    runs = {"eager": [], "graph": []}
+    for i in range(frames):
+        order = ("eager", "graph") if i % 2 == 0 else ("graph", "eager")
+        for side in order:
+            fn = ((lambda t: eager(i, t)) if side == "eager"
+                  else (lambda t: graph.render(values[i], t)))
+            runs[side].append(_timed(fn)[1:])
+    med = {}
+    for side, rs in runs.items():
+        med[side] = {"host_ms": statistics.median(r[0] for r in rs),
+                     "event_ms": statistics.median(r[1] for r in rs),
+                     "stages_ms": {k: round(statistics.median(
+                         r[2][k] for r in rs), 3) for k in rs[0][2]}}
+    log(f"[{tag}] {card}, {cloud.num_splats} splats {w}x{h}, {frames} orbit "
+        f"cameras: graphed frames bit-equal to the eager frames ("
+        f"{', '.join(GRAPH_FIELDS)}, stats), launches a replay "
+        f"{json.dumps({k: v for k, v in graph.launches.items() if v})} as "
+        f"an eager frame's, a kept frame untouched; capture "
+        f"{graph.capture_seconds:.2f} s (warm-up frame and four graphs)")
+    for side in ("eager", "graph"):
+        m = med[side]
+        log(f"[{tag}] {side}: median frame {m['host_ms']:.3f} ms host clock "
+            f"(all {[round(r[0], 3) for r in runs[side]]}), "
+            f"{m['event_ms']:.3f} ms CUDA events, median stages "
+            f"{json.dumps(m['stages_ms'])}")
+    log(f"[{tag}] memory above the frame's inputs, GiB: eager "
+        f"{json.dumps({k: round(v, 3) for k, v in mem_eager.items()})}, "
+        f"graphed {json.dumps({k: round(v, 3) for k, v in mem_graph.items()})}"
+        f" (allocated: held between frames by the outputs; reserved: the "
+        f"graphs' pool and the cache; peak: during the frame or the "
+        f"capture)")
+    profile(f"{tag} eager", lambda i: eager(i % frames), 3)
+    profile(f"{tag} graph", lambda i: graph.render(values[i % frames]), 3)
+
+
+def phase_graphs(full, cloud, base, card: str, frames: int = 8) -> None:
+    """Phase 12: the fast frame as captured CUDA graphs (see the module
+    docstring)."""
+    for tag, cfg in (("12 graphs fast_defaults", base.fast_defaults()),
+                     ("12 graphs v4",
+                      base.replace(kernel="v4").fast_defaults()),
+                     ("12 graphs quality=fast",
+                      base.replace(quality="fast"))):
+        graph_config(tag, cloud, cfg, frames, card)
+    # the engine: one capture over the orbit and a heatmap toggle
+    r = gt.Rasterizer(full, texture_size=(1920, 1080), quality="fast")
+    r._now = lambda: 100.0
+    kept = None
+    for i, cam in enumerate(gt.orbit_trajectory(frames, radius=5.0,
+                                                target=(0, 0, 6.0))):
+        r.camera = cam
+        r.update_camera_matrices()
+        r.should_enable_heatmap = i == frames // 2
+        out = r.rasterize(sync=True)
+        eager = gt.render_frame_fast_staged(r._render_cloud(), r._uniforms(),
+                                            r.config)
+        _hold_graphed(f"12 graphs Rasterizer camera {i}", out, eager)
+        if kept is None:
+            kept, kept_image = out, out.image.clone()
+    check(torch.equal(kept.image, kept_image),
+          "12 graphs Rasterizer: a kept frame's image changed")
+    captures = r.graph_captures
+    r.texture_size = (1280, 720)
+    r.rasterize(sync=True)
+    check(captures == 1 and r.graph_captures == 2,
+          f"12 graphs Rasterizer: {captures} captures over {frames} cameras "
+          f"and a heatmap toggle, {r.graph_captures} after a resize")
+    del r, out, eager, kept
+    # a streamed model: frames race the load, then the loaded model's
+    # frame against the eager frame of its own fast view
+    blob = write_ply(io.BytesIO(), *synthetic_arrays(
+        200_000, seed=11, extent=4.0, scale_range=(0.004, 0.03),
+        surfaces=True))
+    r = gt.Rasterizer(blob, texture_size=(1920, 1080), stream=True,
+                      chunks=16, quality="fast")
+    racing = 0
+    while r.loader.is_loading:
+        r.rasterize(sync=True)
+        racing += 1
+    r.loader.join()
+    check(r.loader.error is None, f"12 graphs streamed: {r.loader.error}")
+    r._now = lambda: 100.0
+    out = r.rasterize(sync=True)
+    view = gt.fast_cloud_view(r.cloud)
+    eager = gt.render_frame_fast_staged(view, r._uniforms(), r.config)
+    _hold_graphed("12 graphs streamed", out, eager)
+    check(torch.equal(r._render_cloud().sh, view.sh),
+          "12 graphs streamed: the fast view's SH is stale")
+    log(f"[12 graphs] {card}: Rasterizer(quality=\"fast\") over {frames} "
+        f"orbit cameras and a heatmap toggle: {captures} capture, frames "
+        f"bit-equal to the eager frames, a kept frame untouched; a resize "
+        f"captured once more. A streamed 200,000-splat model (16 chunks, "
+        f"{racing} frames racing the load, {r.graph_captures} capture): its "
+        f"frame after the load bit-equal to the eager frame of its own fast "
+        f"view")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; nothing was measured")
@@ -1829,6 +2049,7 @@ def main() -> int:
     BUILD.mkdir(parents=True, exist_ok=True)
     phase_viewer(full, card)
     phase_sharded(cloud, base, capacity, card)
+    phase_graphs(full, cloud, base, card)
     for r in rec:
         r["launches"] = launches[r["name"]]
     log(card)

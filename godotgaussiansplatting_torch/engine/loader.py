@@ -43,6 +43,8 @@ class StreamingLoader:
       cancel()           the should_terminate flag (ply_file.gd:35,70)
       on_loaded          completion callback (the ``loaded`` signal)
       cloud              the live, partially filled SplatCloud
+      writes             chunks written so far: a reader holding write_lock
+                         sees the cloud change only when it moves
       seconds            once loaded: the swizzle, order and upload times
       error              the worker's traceback, if it raised
 
@@ -64,6 +66,7 @@ class StreamingLoader:
         self._lock = threading.Lock()
         self.write_lock = threading.RLock()
         self.num_splats_loaded = 0
+        self.writes = 0            # chunks written (under write_lock)
         self._pending: list = []   # (event, pinned buffers) of chunk copies
         self.seconds: dict = {}
         self.error: Optional[str] = None   # the worker's traceback
@@ -154,6 +157,7 @@ class StreamingLoader:
                     np.ascontiguousarray(opac[lo:hi]),
                     np.ascontiguousarray(sh[lo:hi]),
                     np.full((hi - lo,), now, np.float32)))
+                self.writes += 1
             with self._lock:
                 self.num_splats_loaded += hi - lo
         for done, _ in self._pending:

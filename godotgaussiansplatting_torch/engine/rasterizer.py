@@ -9,9 +9,13 @@ default) and ``"fast"`` (ops/fast_pipeline.py). Its work runs on the card
 (``device="cuda"``) unless the caller asks for the CPU, where the plain
 versions of the kernels run; without a card the default raises.
 
-torch runs eagerly and the kernels are built once per checkout at first use
-(``kernels``), so there is no counterpart of the JAX package's persistent
-XLA compile cache.
+The fast quality on the card replays the frame as captured CUDA graphs
+(``ops.fast_pipeline.FastFrameGraph``, the counterpart of the JAX package's
+stage jits): one capture per config, splat count and model, reused across
+camera, heatmap, model scale and time, which are uniforms. On the CPU the
+same frame runs eagerly. The exact quality and picking run eagerly. The
+kernels are built once per checkout at first use (``kernels``), so there is
+no counterpart of the JAX package's persistent XLA compile cache.
 """
 
 from __future__ import annotations
@@ -28,11 +32,13 @@ from ..config import RasterizerConfig
 from ..models import ply as plyio
 from ..models.camera import Camera
 from ..models.splats import (SplatCloud, fast_cloud_view, from_soa,
-                             mortonize)
-from ..ops.fast_pipeline import (pick_splat_position_fast,
+                             mortonize, refresh_fast_view)
+from ..ops.fast_pipeline import (FastFrameGraph, graph_key,
+                                 pick_splat_position_fast,
                                  render_frame_fast_staged)
-from ..ops.pipeline import (FrameOutput, FrameUniforms, pick_splat_position,
-                            render_frame, render_frame_staged)
+from ..ops.pipeline import (FrameOutput, FrameUniforms, pack_uniforms,
+                            pick_splat_position, render_frame,
+                            render_frame_staged, uniforms_from_buffer)
 from ..utils.image import hwc
 from ..utils.telemetry import (StageTimings, device_memory_stats,
                                format_bytes, make_stage_timer)
@@ -110,6 +116,10 @@ class Rasterizer:
         self.last_frame = None
         self._fast_cloud = None
         self._fast_cloud_src = None
+        self._fast_cloud_writes = 0
+        # the fast frame's CUDA graphs (one set at a time) and their captures
+        self.fast_graph: Optional[FastFrameGraph] = None
+        self.graph_captures = 0
         self._cached_view: Optional[np.ndarray] = None
         self._cached_proj: Optional[np.ndarray] = None
 
@@ -162,19 +172,19 @@ class Rasterizer:
         return dataclasses.replace(self.camera,
                                    basis_override=self.basis_override)
 
-    def _uniforms(self) -> FrameUniforms:
+    def _uniform_values(self) -> np.ndarray:
+        """This frame's packed (UNIFORM_WIDTH,) f32 uniform vector."""
         if self._cached_view is None:
             self.update_camera_matrices()
         cam = self._camera_with_override()
+        return pack_uniforms(self._cached_view, self._cached_proj,
+                             cam.camera_pos_ply(), self.model_scale,
+                             self._now(),
+                             1.0 if self.should_enable_heatmap else 0.0)
 
-        def t(a):
-            return torch.as_tensor(a, dtype=torch.float32, device=self.device)
-
-        return FrameUniforms(
-            view=t(self._cached_view), proj=t(self._cached_proj),
-            camera_pos=t(cam.camera_pos_ply()), model_scale=t(self.model_scale),
-            time=t(self._now()),
-            heatmap_factor=t(1.0 if self.should_enable_heatmap else 0.0))
+    def _uniforms(self) -> FrameUniforms:
+        return uniforms_from_buffer(torch.as_tensor(self._uniform_values(),
+                                                    device=self.device))
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -198,9 +208,7 @@ class Rasterizer:
             if self.loader is not None:
                 self.cloud = self.loader.cloud
             if self.quality == "fast":
-                out = render_frame_fast_staged(self._render_cloud(),
-                                               self._uniforms(), self.config,
-                                               timer=timer)
+                out = self._fast_frame(timer)
             elif sync:
                 out = render_frame_staged(self.cloud, self._uniforms(),
                                           self.config,
@@ -221,15 +229,38 @@ class Rasterizer:
         self.last_frame = out
         return out
 
+    def _fast_frame(self, timer):
+        """The fast frame: replayed CUDA graphs on the card (captured anew
+        when ``graph_key`` moves), the eager staged frame on the CPU."""
+        cloud = self._render_cloud()
+        cfg = self.config
+        if self.device.type != "cuda":
+            return render_frame_fast_staged(cloud, self._uniforms(), cfg,
+                                            timer=timer)
+        values = self._uniform_values()
+        if (self.fast_graph is None
+                or self.fast_graph.key != graph_key(cloud, cfg)):
+            self.fast_graph = None       # the old pool goes first
+            self.fast_graph = FastFrameGraph(cloud, cfg, values)
+            self.graph_captures += 1
+        return self.fast_graph.render(values, timer)
+
     def _render_cloud(self) -> SplatCloud:
         """The fast path's view of the model (bf16 SH, splat-minor for the
         fused projection kernel); ``self.cloud`` keeps full precision for
-        picking, state save and export."""
+        picking, state save and export. A streamed cloud is written in
+        place, so its view's SH is refreshed in place whenever the loader
+        wrote a chunk since the last frame (the caller holds
+        ``write_lock``)."""
         c = self.cloud
+        writes = self.loader.writes if self.loader is not None else 0
         if self._fast_cloud_src is not c:
             self._fast_cloud = fast_cloud_view(
                 c, planar_sh=self.config.projection_kernel)
             self._fast_cloud_src = c
+        elif writes != self._fast_cloud_writes:
+            refresh_fast_view(self._fast_cloud, c)
+        self._fast_cloud_writes = writes
         return self._fast_cloud
 
     def _check_overflow(self, out):

@@ -9,16 +9,21 @@ several sources at once. Nothing is compiled when this module is imported, and a
 
 Every wrapper that launches a kernel calls :func:`count_launch` right after
 the launch, so a run can show that its main path went through the kernels.
+A CUDA graph's capture records those calls instead of counting them
+(:func:`recording_launches`), and each replay counts what its capture
+recorded (:func:`count_launches`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -64,6 +69,7 @@ COUNTERS = ("projection", "render_v3", "render_v3_cooked", "render_v4",
 
 _libs: dict = {}
 _launches = {name: 0 for name in COUNTERS}
+_capture = threading.local()   # .launches: the dict a capture records into
 build_seconds: dict = {}
 
 
@@ -138,7 +144,30 @@ def stream_ptr(device: torch.device) -> int:
 
 
 def count_launch(name: str) -> None:
-    _launches[name] += 1
+    recording = getattr(_capture, "launches", None)
+    if recording is not None:
+        recording[name] = recording.get(name, 0) + 1
+    else:
+        _launches[name] += 1
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Inside the block, this thread's ``count_launch`` calls go into the
+    yielded dict and leave the counters alone: a CUDA graph capture records
+    launches and makes none. Each replay adds them (``count_launches``)."""
+    prev = getattr(_capture, "launches", None)
+    _capture.launches = {}
+    try:
+        yield _capture.launches
+    finally:
+        _capture.launches = prev
+
+
+def count_launches(counts: dict) -> None:
+    """Add {name: launches} to the counters (a graph replay's launches)."""
+    for name, n in counts.items():
+        _launches[name] += n
 
 
 def launch_counts() -> dict:

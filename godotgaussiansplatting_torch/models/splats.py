@@ -154,6 +154,17 @@ def fast_cloud_view(cloud: SplatCloud, planar_sh: bool = True) -> SplatCloud:
     return dataclasses.replace(cloud, sh=sh)
 
 
+def refresh_fast_view(view: SplatCloud, cloud: SplatCloud) -> None:
+    """Write ``cloud``'s SH into ``view``, the fast view made from it, in
+    place, in the view's layout: its SH buffer keeps its address (which a
+    captured frame reads), and chunks streamed into the cloud reach the
+    bf16 copy. The view's other fields are the cloud's own tensors."""
+    if view.sh.ndim == 2:
+        view.sh.view(16, 3, -1).copy_(cloud.sh.permute(1, 2, 0))
+    else:
+        view.sh.copy_(cloud.sh)
+
+
 def synthetic_scene(num_splats: int, seed: int = 0, extent: float = 4.0,
                     scale_range: tuple = (0.005, 0.05), sh_degree: int = 3,
                     surfaces: bool = False, device="cuda") -> SplatCloud:

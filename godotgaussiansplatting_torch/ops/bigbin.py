@@ -98,10 +98,12 @@ def bin_bigs(bigs, cfg: RasterizerConfig, obig: int = 128,
     hit_t = to_tiles(hit)
     tp = bigs.table[sel_t.reshape(-1)]
     tp = tp.reshape(TG, OB, PAYLOAD_WIDTH).transpose(1, 2)   # (TG, PW, OB)
-    dead = torch.tensor(
-        [GATE_OFF] + [0.0] * 8
-        + [_CULL_FAR, _CULL_FAR, 0.0, DEPTH_INVALID, 0.0, 0.0, 0.0],
-        dtype=torch.float32, device=dev)
+    # a dead lane's row, made by fills (no copy from host memory, which a
+    # CUDA graph cannot capture)
+    dead = torch.zeros(PAYLOAD_WIDTH, dtype=torch.float32, device=dev)
+    dead[0].fill_(GATE_OFF)
+    dead[9:11].fill_(_CULL_FAR)
+    dead[12].fill_(DEPTH_INVALID)
     tp = torch.where(hit_t[:, None, :], tp, dead[None, :, None]).contiguous()
 
     d_i = torch.clamp(tp[:, 12, :], 0.0, 65535.0).to(torch.int64) >> 9

@@ -236,6 +236,16 @@ def _select_big_lanes(bkey: torch.Tensor, big_cap: int):
     return tk_idx, tk_ok
 
 
+def _taken(tk_idx: torch.Tensor, tk_ok: torch.Tensor, P: int) -> torch.Tensor:
+    """(P,) bool: the splats that ``_select_big_lanes`` took. A position is
+    taken when any of its entries is ok; the pad entries all point at 0
+    and are not ok. A scatter over every entry, with no boolean index:
+    that would size its result from the data (a host read on the card,
+    which a CUDA graph cannot capture)."""
+    hits = torch.zeros(P, dtype=torch.int32, device=tk_idx.device)
+    return hits.index_add_(0, tk_idx, tk_ok.to(torch.int32)) > 0
+
+
 def _tile_rect(ix, iy, rx, ry, gx, gy, ts):
     """Tile rect [x0, y0, x1, y1) of centres +- half-widths (int32)."""
     x0 = torch.clamp((ix - rx) / ts, 0.0, float(gx)).to(torch.int32)
@@ -432,8 +442,7 @@ def build_block_frame2_words(words, cfg: RasterizerConfig,
         big_cap = default_big_cap(P)
     big_cap = max(big_cap, S)
     tk_idx, tk_ok = _select_big_lanes(words.bkey, big_cap)
-    taken = torch.zeros(P, dtype=torch.bool, device=dev)
-    taken[tk_idx[tk_ok]] = True
+    taken = _taken(tk_idx, tk_ok, P)
 
     key_flat = words.key.reshape(P)
     dep_tk = torch.where(tk_ok, u32(key_flat[tk_idx]) & 0xFFFF, U32_MAX)
@@ -519,8 +528,7 @@ def build_block_frame2(prj, cfg: RasterizerConfig,
     bkey = torch.where(is_big.reshape(R, CW),
                        (depth_sb.reshape(R, CW) << 10) | colv, U32_MAX)
     tk_idx, tk_ok = _select_big_lanes(i32(bkey), big_cap)
-    taken = torch.zeros(P, dtype=torch.bool, device=dev)
-    taken[tk_idx[tk_ok]] = True
+    taken = _taken(tk_idx, tk_ok, P)
 
     payload_words = (
         ipos_sb[..., 0].contiguous().view(torch.int32),

@@ -13,6 +13,7 @@ from __future__ import annotations
 import contextlib
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..config import RasterizerConfig
@@ -33,24 +34,43 @@ class FrameUniforms(NamedTuple):
     heatmap_factor: torch.Tensor  # () f32 0/1
 
 
+# The packed uniform vector: view (16, row-major), proj (16), camera_pos (3),
+# model_scale, time, heatmap_factor.
+UNIFORM_WIDTH = 38
+
+
+def pack_uniforms(view, proj, camera_pos, model_scale, time,
+                  heatmap) -> np.ndarray:
+    """A frame's uniforms as one (UNIFORM_WIDTH,) f32 host vector, the
+    layout ``uniforms_from_buffer`` reads."""
+    out = np.empty(UNIFORM_WIDTH, np.float32)
+    out[0:16] = np.asarray(view, np.float32).reshape(16)
+    out[16:32] = np.asarray(proj, np.float32).reshape(16)
+    out[32:35] = np.asarray(camera_pos, np.float32).reshape(3)
+    out[35:38] = (model_scale, time, heatmap)
+    return out
+
+
+def uniforms_from_buffer(buf: torch.Tensor) -> FrameUniforms:
+    """FrameUniforms as views into one (UNIFORM_WIDTH,) f32 tensor, so that
+    one copy uploads a frame's uniforms."""
+    return FrameUniforms(view=buf[0:16].view(4, 4),
+                         proj=buf[16:32].view(4, 4), camera_pos=buf[32:35],
+                         model_scale=buf[35], time=buf[36],
+                         heatmap_factor=buf[37])
+
+
 def make_uniforms(camera, cfg: RasterizerConfig, model_scale: float = 1.0,
                   time: float = 1e9, heatmap: float = 0.0,
                   device="cuda") -> FrameUniforms:
     """Uniforms from a models.camera.Camera, on ``device`` (the card unless
     the caller asks for another; without a card the default raises)."""
     w, h = cfg.target_size
-
-    def t(a):
-        return torch.as_tensor(a, dtype=torch.float32, device=device)
-
-    return FrameUniforms(
-        view=t(camera.view_matrix()),
-        proj=t(camera.projection_matrix(w, h)),
-        camera_pos=t(camera.camera_pos_ply()),
-        model_scale=t(model_scale),
-        time=t(time),
-        heatmap_factor=t(heatmap),
-    )
+    values = pack_uniforms(camera.view_matrix(),
+                           camera.projection_matrix(w, h),
+                           camera.camera_pos_ply(), model_scale, time,
+                           heatmap)
+    return uniforms_from_buffer(torch.as_tensor(values, device=device))
 
 
 class FrameStats(NamedTuple):

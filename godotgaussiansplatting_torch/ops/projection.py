@@ -39,6 +39,15 @@ class ProjectedSplats(NamedTuple):
     pos: torch.Tensor         # (P, 3) f32 model-scaled PLY-frame position
 
 
+def device_pair(a: float, b: float, device) -> torch.Tensor:
+    """(2,) f32 [a, b] made on ``device`` by fills, with no copy from host
+    memory (a CUDA graph cannot capture one; a Python scalar assigned by
+    index is such a copy too)."""
+    out = torch.full((2,), float(a), dtype=torch.float32, device=device)
+    out[1].fill_(float(b))
+    return out
+
+
 def ease_out_cubic(x: torch.Tensor) -> torch.Tensor:
     """gsplat_projection.glsl:87-90."""
     a = 1.0 - x
@@ -55,7 +64,7 @@ def project_splats(means, cov3d, opacity, sh, upload_time, view, proj,
     dev = means.device
     w, h = cfg.target_size
     gx, gy = cfg.tile_dims
-    dims = torch.tensor([w, h], dtype=f32, device=dev)
+    dims = device_pair(w, h, dev)
     if sh.ndim == 2:
         sh = sh.reshape(16, 3, -1).permute(2, 0, 1)
 
@@ -124,7 +133,7 @@ def project_splats(means, cov3d, opacity, sh, upload_time, view, proj,
     radius = (torch.pow(torch.clamp(splat_opacity, min=0.0), 0.2) * 2.5
               * torch.sqrt(torch.maximum(lam1, lam2)))
     ts = float(cfg.tile_size)
-    grid = torch.tensor([gx, gy], dtype=f32, device=dev)
+    grid = device_pair(gx, gy, dev)
     lo = torch.clamp((image_pos - radius[:, None]) / ts,
                      torch.zeros_like(grid), grid).to(torch.int32)
     hi = torch.clamp(torch.ceil((image_pos + radius[:, None]) / ts),

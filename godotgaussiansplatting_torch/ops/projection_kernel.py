@@ -40,6 +40,7 @@ from .blocks import BIG_RADIUS
 from .blocks2 import (SUPERBLOCK, U32_MAX, _big_chunk_width, _pack_f16,
                       _pack_rgb9e5, _spread8, adaptive_cell_shift,
                       extents_from_conic, i32)
+from .projection import device_pair
 from .sh import SH_C0, SH_C1, SH_C2, SH_C3
 
 
@@ -72,7 +73,7 @@ def frame_uniform_vector(view, proj, camera_pos, model_scale, time,
     w, h = cfg.target_size
     f32 = torch.float32
     dev = view.device
-    dims = torch.tensor([w, h], dtype=f32, device=dev)
+    dims = device_pair(w, h, dev)
     tan_fov_inv = torch.stack([proj[0, 0], proj[1, 1]])
     focal = dims * 0.5 * tan_fov_inv
     return torch.cat([

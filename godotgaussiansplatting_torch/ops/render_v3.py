@@ -96,7 +96,7 @@ def pack_tile_rows_v3(tile_blocks, tile_nblocks, tile_nbig, tile_minmax,
     hdr[:, 0] = tile_nblocks.to(i32)
     hdr[:, 1] = tile_candidates.to(i32)
     hdr[:, 2] = hm_bits
-    hdr[:, 3] = int(pixel_offset_y)
+    hdr[:, 3].fill_(int(pixel_offset_y))   # a fill, not a host copy
 
     def sect(a):
         out = torch.zeros((T, 256), dtype=i32, device=dev)

@@ -137,6 +137,45 @@ def test_block_frame_from_projection_matches_jax(projected, cluster,
                                        atol=1e-5, err_msg=f"row {row}")
 
 
+def test_block_frame_with_padded_big_lanes_matches_jax(projected):
+    """A big-lane capacity above the candidates: the pad entries of
+    ``_select_big_lanes`` all point at splat 0 and are not ok, so tk_idx
+    holds duplicates and only some entries are ok. The taken splats (a
+    scatter over every entry, with no boolean index) and the frame stay
+    bit-equal to the JAX package's."""
+    pj, pt = projected
+    kw = dict(width=384, height=320, quality="fast")
+    cfg_j, cfg_t = gj.RasterizerConfig(**kw), gt.RasterizerConfig(**kw)
+    fj, bj = blocks_j.build_block_frame2(pj, cfg_j, num_splats=12000,
+                                         words_payload=True, big_cap=4096)
+    ft, bt = blocks_t.build_block_frame2(pt, cfg_t, num_splats=12000,
+                                         words_payload=True, big_cap=4096)
+    n_ok = int(bt.valid.sum())
+    assert 1000 < n_ok < 4096 - 100, "the capacity must leave pad entries"
+    assert not bool(pt.valid[0]), "splat 0 must not be a big lane here"
+    _assert_frames_equal(fj, bj, ft, bt)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_taken_splats_are_those_with_an_ok_entry(seed):
+    """``_taken`` (the scatter) equals the boolean-index formula it
+    replaced, on entries with duplicates whose ok flags disagree: a splat
+    is taken when any of its entries is ok. (The JAX package's
+    ``.at[tk_idx].set(tk_ok)`` lets the last duplicate win on XLA's CPU,
+    so there a big splat 0 followed by pad entries is not taken.)"""
+    rng = np.random.default_rng(seed)
+    P = 512
+    tk_idx = torch.from_numpy(rng.integers(0, 64, 300)).to(torch.int64)
+    tk_idx[-41:] = 0                  # splat 0 taken, then 40 pads
+    tk_ok = torch.from_numpy(rng.random(300) < 0.5)
+    tk_ok[-41] = True
+    tk_ok[-40:] = False
+    old = torch.zeros(P, dtype=torch.bool)
+    old[tk_idx[tk_ok]] = True
+    new = blocks_t._taken(tk_idx, tk_ok, P)
+    assert torch.equal(new, old) and bool(new[0])
+
+
 def test_block_frame_cooked_meta_equal(words):
     """The cooked 16-row payload keeps the same block meta as the words."""
     wj, wt = words

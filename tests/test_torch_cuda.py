@@ -508,3 +508,47 @@ def test_sfu_probe_sass_issues_each_bodys_work(cuda):
     counts = sfu_probe.sass_counts()
     for body in sfu_probe.BODIES:
         sfu_probe.check_sass(body, counts[body.id])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("config", ["fast_defaults", "v4", "readable"])
+def test_fast_frame_graph_equals_the_eager_frame(cuda, config):
+    """Rasterizer(quality="fast") replays its captured graphs: each frame
+    bit-equal to the eager staged frame of the same view and uniforms, one
+    capture over camera and heatmap changes (another after a resize), the
+    eager frame's launches a replay, and a kept frame left as it was."""
+    base = gt.RasterizerConfig(width=320, height=224)
+    cfg = {"fast_defaults": base.fast_defaults(),
+           "v4": base.replace(kernel="v4").fast_defaults(),
+           "readable": base.replace(quality="fast")}[config]
+    r = gt.Rasterizer(gt.mortonize(gt.synthetic_scene(
+        40_000, seed=4, scale_range=(0.005, 0.12), surfaces=True)),
+        texture_size=(320, 224), config=cfg)
+    r._now = lambda: 100.0
+    kept = None
+    for i, cam in enumerate(gt.orbit_trajectory(3, radius=5.0,
+                                                target=(0, 0, 6.0))):
+        r.camera = cam
+        r.update_camera_matrices()
+        r.should_enable_heatmap = i == 2
+        kernels.reset_launch_counts()
+        out = r.rasterize(sync=True)
+        graphed = kernels.launch_counts()
+        kernels.reset_launch_counts()
+        ref = gt.render_frame_fast_staged(r._render_cloud(), r._uniforms(),
+                                          r.config)
+        torch.cuda.synchronize()
+        if i > 0:
+            assert graphed == kernels.launch_counts()
+        for f in ("image", "tile_t0", "tile_blocks", "tile_nblocks",
+                  "tile_nbig"):
+            assert torch.equal(getattr(out, f), getattr(ref, f)), f
+        for a, b in zip(out.stats, ref.stats):
+            assert torch.equal(a, b)
+        if kept is None:
+            kept, kept_image = out, out.image.clone()
+    assert torch.equal(kept.image, kept_image)
+    assert r.graph_captures == 1
+    r.texture_size = (256, 160)
+    r.rasterize(sync=True)
+    assert r.graph_captures == 2
