@@ -11,7 +11,10 @@ nvcc per source, all started together), then:
 2. projection kernel against its plain-torch version on a 1M-splat surface
    scene at 1920x1080 (fast_defaults()): key, bkey and cnt bit-equal,
    pc1/pc2/rgb9 within one unit in the last place per packed field, ix/iy
-   within 1e-3 px;
+   within 1e-3 px; and the readable projection's kernel
+   (projection_readable) on the same scene with f32 and with bf16
+   (P, 16, 3) SH: every ProjectedSplats field bit-equal to its plain
+   version (f32 compared as bits), timed beside its bound;
 3. the v3 render kernel on the word payload against its plain-torch
    version at 512x512 on 200K splats (scales up to 0.12, so tiles carry
    resident big lanes), heatmap 0 and 1: RGB PSNR >= 50 dB, t_final within
@@ -38,7 +41,9 @@ nvcc per source, all started together), then:
    .fast_defaults() (projection and v4 kernels), for
    RasterizerConfig(quality="fast") (readable projection, cooked v3) and
    for RasterizerConfig(quality="fast", kernel="v4") (readable projection,
-   v4 at tile 16); then, once every configuration is timed, torch.profiler
+   v4 at tile 16; both read a (P, 16, 3) bf16 view and launch
+   projection_readable); then, once every configuration is timed,
+   torch.profiler
    over three more frames of each: the device's busy share, its top
    kernels, and its matrix products (gemm) by kernel, with launches and
    device ms per frame. The v4 frame of fast_defaults() must show no gemm:
@@ -58,7 +63,13 @@ nvcc per source, all started together), then:
    composites the tiles in batches) on the 1080p exact frame's inputs at
    the tile capacity phase 8 settled on, at phase 7's gates, both timed,
    with its walk (see phase 7) and the ms per G evaluations and FP32-issue
-   share they imply;
+   share they imply; and the exact frame's Projection and Sort kernels on
+   its 1080p inputs: projection_readable (f32 SH, the exact frame's; bf16
+   logged) and emit_exact (the emission into the static 10N buffer, its
+   fill included, on the arguments the frame's emission passed it), each
+   bit-equal to its plain version and timed beside its bound, emit_exact
+   also at a buffer of half the pairs (it drops pairs), and the stable
+   sort of the buffer with 32-bit keys against 64-bit ones;
 7. the exact composite kernel (render_exact) against its plain version on
    phase 3's cloud at 512x512, tile 16, heatmap 0 and 1, on a tile-32 case
    and with tile capacities of 1000 and 300 (not multiples of the kernel's
@@ -74,13 +85,16 @@ nvcc per source, all started together), then:
    Rasterizer(cloud, texture_size=(1920, 1080)) (quality "exact", the
    default) and Rasterizer(..., quality="fast"), 8 orbit cameras each with
    rasterize(sync=True) after one warm-up frame: finite images, rendered
-   splats > 0, render_exact launched by every exact frame and projection
-   and render_v3 by every fast frame, a centre pick that is a splat mean on
-   both, the exact frames' num_overflow and final tile_capacity; the median
-   frame, the median Projection / Sort / Boundaries / Render (or Blocks /
-   Binning) stage times of debug_info() and the peak device memory; the
+   splats > 0, projection_readable, emit_exact and render_exact launched
+   by every exact frame and projection and render_v3 by every fast frame,
+   a centre pick that is a splat mean on both, the exact frames'
+   num_overflow and final tile_capacity; the median frame, the median
+   Projection / Sort / Boundaries / Render (or Blocks / Binning) stage
+   times of debug_info() and the peak device memory; the
    fast frames are replays of one capture (ops/fast_pipeline.py
    FastFrameGraph: its capture time and the launches a replay counts are
+   logged), the exact frames replays of ops/pipeline.py ExactFrameGraph
+   (captured again at each tile-capacity regrowth; the captures are
    logged); then torch.profiler over 3 exact frames, and the PSNR of the
    fast frame against the exact one at the reset camera (printed, not
    gated);
@@ -129,7 +143,9 @@ nvcc per source, all started together), then:
    the orbit (n_view cameras a frame) after a warm-up frame, the launch
    counters (and the mesh's traffic) set to 0 just before each frame and
    read just after it: projection and render_v3 once a fast frame,
-   render_exact once an exact one, on every rank of the mesh. Rank 0 holds every view to its
+   projection_readable and render_exact once and emit_exact at least once
+   an exact one (its shard read through a (P, 16, 3) view), on every rank
+   of the mesh. Rank 0 holds every view to its
    camera's single-device frame: fast >= 50 dB at world 1 and >= 40 dB
    past it; exact within 2e-3 at world 1 and past it >= 70 dB with max
    |d| <= 0.035 (a slab may emit a wide splat's pairs in another group,
@@ -141,7 +157,7 @@ nvcc per source, all started together), then:
    moved in a frame (Mesh.traffic: the exchange's blocks, the big lanes,
    the projected splats, the image) and its peak device memory. A rank that raises
    fails the phase;
-12. the fast frame as captured CUDA graphs (FastFrameGraph), run last: on
+12. the fast frame as captured CUDA graphs (FastFrameGraph): on
    phase 4's scene at 1920x1080 over 8 orbit cameras, for fast_defaults(),
    RasterizerConfig(kernel="v4").fast_defaults() and
    RasterizerConfig(quality="fast"), each graphed frame bit-equal to the
@@ -156,21 +172,38 @@ nvcc per source, all started together), then:
    change, frames bit-equal to the eager frames of its view; and a 200,000
    splat .ply streamed in 16 chunks while frames render, whose frame after
    the load is bit-equal to the eager frame of the loaded cloud's own
-   fast view.
+   fast view;
+13. the exact frame as captured CUDA graphs (ExactFrameGraph), run last:
+   on phase 4's scene (full precision, f32 SH) at 1920x1080 over the 8
+   orbit cameras, boundary quirk on, at the tile capacity phase 8 settled
+   on: each graphed frame bit-equal to the eager render_frame_staged frame
+   (image, sorted_values, tile_start, tile_end, tile_t0, splat_pos, stats;
+   f32 compared as bits), the capture's launches one projection_readable,
+   one emit_exact a group and one render_exact, a replay's launches equal
+   to an eager frame's, a kept frame's image unchanged by later replays;
+   both timed in turns (host clock, CUDA events, stages), their memory
+   between frames and at peak, torch.profiler's busy share over 3 frames
+   of each. Then Rasterizer() (exact) at that capacity: one capture over
+   the 8 cameras and a heatmap toggle, frames bit-equal to the eager
+   frames; then its capacity set below the densest tile: captured there,
+   grown and captured once more, the regrown frame bit-equal to the eager
+   frame at the new capacity.
 
 The launch counters are set to 0 just before each full-frame path and read
 just after it; the `launches` of a kernel come from the path that runs it
-(render_exact's from phase 8's exact frames, sfu_probe's from phase 9's
-timed runs). The other numbers of the kernels line come from phase 6, the
-main paths' inputs, and phase 9 for sfu_probe (the render kernels' chain,
-__expf / __logf / __expf). `bound_ms` is the larger of the bytes the
-kernel must move over 3.35 TB/s and its operations over 67 TFLOP/s (f32)
-and, for the render kernels and the probe, the special-function (MUFU)
+(projection_readable's, emit_exact's and render_exact's from phase 8's
+exact frames, sfu_probe's from phase 9's timed runs). The other numbers
+of the kernels line come from phase 6, the main paths' inputs, and phase
+9 for sfu_probe (the render kernels' chain, __expf / __logf / __expf).
+`bound_ms` is the larger of the bytes the kernel must move over 3.35
+TB/s and its operations over 67 TFLOP/s (f32) and, for the render
+kernels and the probe, the special-function (MUFU)
 instructions the function needs over the MUFU rate (`sfu_ms`: the
 alpha's exp a (pixel, lane); `bound_ms_f32` keeps the larger of the first
 two, `bound_term` names the largest; `formulation_sfu_ms` reads the MUFU
 instructions of the render kernels' log-domain blend beside it; the
-projection's `sfu_ms` is null), counted from this run's inputs (see `proj_bound`,
+projections' and the emission's `sfu_ms` are null), counted from this
+run's inputs (see `proj_bound`, `readable_vs_plain`, `emit_vs_plain`,
 `render_bound` and `exact_bound`: the render kernels read the payload
 rows of a tile's live big lanes, its first nbig, and evaluate each
 (pixel, live big lane) themselves; the exact kernel reads the id and
@@ -203,18 +236,23 @@ import torch
 import godotgaussiansplatting_torch as gt
 from godotgaussiansplatting_torch import kernels, native
 from godotgaussiansplatting_torch import sfu_probe as sp
+from godotgaussiansplatting_torch.ops import projection as prj_mod
 from godotgaussiansplatting_torch.ops import projection_kernel as pk
 from godotgaussiansplatting_torch.ops import render_exact as rx
 from godotgaussiansplatting_torch.ops import render_v3 as rv
 from godotgaussiansplatting_torch.ops import render_v4 as r4
+from godotgaussiansplatting_torch.ops import sort as so
 from godotgaussiansplatting_torch.ops.bigbin import bin_bigs
 from godotgaussiansplatting_torch.ops.binning2 import bin_blocks2
 from godotgaussiansplatting_torch.ops.fast_pipeline import FastFrameGraph
-from godotgaussiansplatting_torch.ops.pipeline import pack_uniforms
+from godotgaussiansplatting_torch.ops.pipeline import (ExactFrameGraph,
+                                                       pack_uniforms,
+                                                       render_frame_staged)
 from godotgaussiansplatting_torch.ops.blocks2 import (
     _bits16, adaptive_cell_shift, build_block_frame2, build_block_frame2_words,
     u32)
 from godotgaussiansplatting_torch.ops.projection import project_splats
+from godotgaussiansplatting_torch.config import INVALID_KEY
 from godotgaussiansplatting_torch.ops.sort import (emit_and_sort,
                                                    tile_boundaries)
 from godotgaussiansplatting_torch.models.ply import (PlyFile,
@@ -237,6 +275,9 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
     "render_v3_cooked": (CSRC + "render_v3.cu", TPU + "render_pallas3.py:380"),
     "render_v4": (CSRC + "render_v4.cu", TPU + "render_pallas4.py:66"),
     # XLA there, no Pallas kernel
+    "projection_readable": (CSRC + "projection_readable.cu",
+                            TPU + "projection.py:57"),
+    "emit_exact": (CSRC + "emit_exact.cu", TPU + "sort.py:43"),
     "render_exact": (CSRC + "render_exact.cu", TPU + "render.py:79"),
     "sfu_probe": (CSRC + "sfu_probe.cu", "benchmarks/vpu_probe.py:34"),
 }
@@ -252,6 +293,20 @@ SFU = {"per_s": None, "from": None}
 # SH colour (~200 of them) and the packing, each transcendental counted as
 # one operation.
 PROJ_OPS_PER_SPLAT = 400
+# Operations per splat of the readable projection (csrc/projection_readable
+# .cu): the transforms (45), fade-in (12), covariance and eigen radius (70),
+# rect and depth key (20), view direction (10) and degree-3 SH colour
+# (3 x 45), the conic (3), each transcendental one.
+READABLE_OPS_PER_SPLAT = 300
+# Per emitted pair of the exact emission: the slot's row and column (a
+# divide, a product and a difference), the tile id (two products, two sums)
+# and the key (shift, or, xor): integer operations at the f32 rate.
+EMIT_OPS_PER_PAIR = 10
+# Bytes read per splat by the base emission: valid 1, rect 16, capped
+# count 4, offset 8, depth16 4; a dense row reads its id, count and offset
+# (16) and its splat's rect and depth16 (20).
+EMIT_BYTES_PER_SPLAT = 33
+EMIT_BYTES_PER_ROW = 36
 # Operations per (pixel, chain lane that passes the tile's coverage gate)
 # of the render: the six-term power (10), the clamp, exp and log1p (3), the
 # prefix add, the weight's exp and product (3) and the three colour sums
@@ -314,6 +369,23 @@ BOUND_COUNTS = {
                    "pow issue a few dozen MUFU instructions a splat, against "
                    "about 170 bytes, so that term stays far below the bytes "
                    "term"),
+    "projection_readable": (
+        "bytes: the splat arrays (f32 (P, 16, 3) SH: the exact frame's) and "
+        "the uniforms read once, every ProjectedSplats field written once "
+        f"(77 B a splat); operations: {READABLE_OPS_PER_SPLAT} per splat, "
+        "each transcendental one; special functions: not counted (sfu_ms "
+        "null): a few divides, square roots and a pow a splat against 313 "
+        "bytes"),
+    "emit_exact": (
+        "the emission into the static sort buffer, its fill included (two "
+        "torch fills, then the base and dense launches): bytes: the k_max "
+        "key and value slots written once (8 B a slot), "
+        f"{EMIT_BYTES_PER_SPLAT} B read per splat and {EMIT_BYTES_PER_ROW}"
+        " per dense row; operations: "
+        f"{EMIT_OPS_PER_PAIR} integer operations per emitted pair at the "
+        "f32 rate; special functions: none (sfu_ms null); ms and plain_ms "
+        "time the fill and the kernels or their plain versions on the "
+        "frame's recorded arguments"),
     "render_v3": _RENDER_COUNTS,
     "render_v3_cooked": _RENDER_COUNTS,
     "render_v4": _RENDER_COUNTS,
@@ -517,17 +589,127 @@ def projection_vs_plain(tag: str, cloud, cfg, plain_reps: int):
     return ix_err, ms, plain_ms, bnd
 
 
-def phase_projection(n: int, width: int, height: int) -> float:
-    cloud = gt.fast_cloud_view(gt.mortonize(gt.synthetic_scene(
-        n, seed=1, surfaces=True)))
-    cfg = gt.RasterizerConfig(width=width, height=height).fast_defaults()
-    return projection_vs_plain("2 projection", cloud, cfg, 3)[0]
+def sh_rows(cloud):
+    """``cloud`` with (P, 16, 3) SH, the layout the readable projection's
+    kernel takes: a planar fast view laid out again, any other cloud as it
+    is."""
+    if cloud.sh.ndim == 2:
+        return gt.fast_cloud_view(cloud, planar_sh=False)
+    return cloud
+
+
+def readable_vs_plain(tag: str, cloud, cfg, plain_reps: int):
+    """The readable projection's kernel against its plain version on one
+    camera: every field bit-equal (f32 as bits). Returns (max |d| over the
+    f32 fields, kernel ms, plain ms, bound)."""
+    uni = gt.make_uniforms(gt.Camera.reset_pose(), cfg, device=cloud.device)
+    args = (cloud.means, cloud.cov3d, cloud.opacity, cloud.sh,
+            cloud.upload_time, uni.view, uni.proj, uni.camera_pos,
+            uni.model_scale, uni.time, cfg)
+    k = prj_mod._project_splats_cuda(*args)
+    r = prj_mod.project_splats_reference(*args)
+    torch.cuda.synchronize()
+
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    bad = {f: int((bits(getattr(k, f)) != bits(getattr(r, f))).sum())
+           for f in prj_mod.ProjectedSplats._fields}
+    err = max(float((getattr(k, f) - getattr(r, f)).abs().max())
+              for f in ("image_pos", "conic", "color", "radius", "pos"))
+    ms = time_ms(lambda: prj_mod._project_splats_cuda(*args), 20)
+    plain_ms = time_ms(lambda: prj_mod.project_splats_reference(*args),
+                       plain_reps)
+    P = cloud.means.shape[0]
+    bnd = bound(nbytes(*args[:5]) + 37 * 4 + nbytes(*k),
+                P * READABLE_OPS_PER_SPLAT, None)
+    w, h = cfg.target_size
+    log(f"[{tag}] {P} splats, {cloud.sh.dtype} (P, 16, 3) SH, {w}x{h}: "
+        f"valid {int(k.valid.sum())}, entries not bit-equal to the plain "
+        f"version {json.dumps(bad)}, max |d| {err:.3g}; kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, {bound_text(bnd)}")
+    check(not any(bad.values()), f"{tag}: not bit-equal: {bad}")
+    return err, ms, plain_ms, bnd
+
+
+def emit_vs_plain(tag: str, prj, cfg, capacity: int | None = None,
+                  plain_reps: int = 2):
+    """The emission kernels against their plain versions on a frame's
+    projected splats: the static buffer's keys and values below the drop
+    slot, num_pairs and num_overflow bit-equal. Timed on the arguments the
+    frame's emission passed them (recorded), each run with the buffer's
+    fill. Returns (0.0, kernel ms, plain ms, bound, num_pairs, k_max)."""
+    calls = []
+
+    def recorder(kind, fn):
+        def call(*a):
+            calls.append((kind, a[2:]))
+            fn(*a)
+        return call
+
+    inputs = (prj.valid, prj.rect, prj.num_tiles, prj.depth16)
+    kk, kv, kn, ko = so.emit_pairs(*inputs, cfg, capacity,
+                                   base=recorder("base", so.emit_base),
+                                   dense=recorder("dense", so.emit_dense))
+    rk, rv_, rn, ro = so.emit_pairs(*inputs, cfg, capacity,
+                                    base=so.emit_base_reference,
+                                    dense=so.emit_dense_reference)
+    torch.cuda.synchronize()
+    bad = {"keys": int((kk[:-1] != rk[:-1]).sum()),
+           "values": int((kv[:-1] != rv_[:-1]).sum())}
+    counts = [int(kn), int(rn), int(ko), int(ro)]
+    del rk, rv_
+    k_max = kk.shape[0] - 1
+    live = int((kk[:-1] != INVALID_KEY - so.SIGN).sum())
+    fns = {True: {"base": so.emit_base, "dense": so.emit_dense},
+           False: {"base": so.emit_base_reference,
+                   "dense": so.emit_dense_reference}}
+
+    def run(kernel: bool):
+        keys = torch.full_like(kk, INVALID_KEY - so.SIGN)
+        vals = torch.zeros_like(kv)
+        for kind, a in calls:
+            fns[kernel][kind](keys, vals, *a)
+
+    ms = time_ms(lambda: run(True), 10)
+    plain_ms = time_ms(lambda: run(False), plain_reps)
+    rows = sum(a[0].shape[0] for kind, a in calls if kind == "dense")
+    P = prj.valid.shape[0]
+    bnd = bound(k_max * 8 + P * EMIT_BYTES_PER_SPLAT
+                + rows * EMIT_BYTES_PER_ROW, live * EMIT_OPS_PER_PAIR, None)
+    groups = [a[0].shape[0] if kind == "dense" else P for kind, a in calls]
+    log(f"[{tag}] {P} splats, k_max {k_max}: {counts[0]} pairs emitted "
+        f"({live} in the buffer), overflow {counts[2]}, groups (rows) "
+        f"{groups}; entries not bit-equal to the plain version "
+        f"{json.dumps(bad)}, counts kernel / plain {counts}; fill and "
+        f"emission: kernel {ms:.4f} ms ({len(calls)} launches), plain "
+        f"{plain_ms:.4f} ms, {bound_text(bnd)}")
+    check(not any(bad.values()) and counts[0] == counts[1]
+          and counts[2] == counts[3], f"{tag}: differs from the plain "
+          f"version: {bad}, {counts}")
+    return 0.0, ms, plain_ms, bnd, counts[0], k_max
+
+
+def phase_projection(n: int, width: int, height: int) -> dict:
+    """Phase 2: the fused projection kernel and the readable projection's
+    (f32 and bf16 SH) against their plain versions. Returns the largest
+    error of each."""
+    full = gt.mortonize(gt.synthetic_scene(n, seed=1, surfaces=True))
+    base = gt.RasterizerConfig(width=width, height=height)
+    worst = {"projection": projection_vs_plain(
+        "2 projection", gt.fast_cloud_view(full), base.fast_defaults(), 3)[0]}
+    worst["projection_readable"] = max(
+        readable_vs_plain(f"2 projection_readable {tag}", cloud, base, 3)[0]
+        for tag, cloud in (("f32", full), ("bf16", gt.fast_cloud_view(
+            full, planar_sh=False))))
+    return worst
 
 
 def _frame_inputs(cloud, cfg, heatmap: float, words: bool):
     """The render kernels' inputs for one camera: through the fused
     projection (cfg.projection_kernel) or the readable projection and
     screen clustering, on the word or the cooked payload."""
+    cloud = gt.fast_cloud_view(cloud, planar_sh=cfg.projection_kernel)
     dev = cloud.device
     uni = gt.make_uniforms(gt.Camera.reset_pose(), cfg, device=dev,
                            heatmap=heatmap)
@@ -764,6 +946,7 @@ def phase_render_v4(cloud, sizes) -> float:
 def exact_inputs(cloud, cfg, heatmap: float):
     """The exact composite's inputs for the reset camera: the readable
     projection, emit_and_sort and tile_boundaries."""
+    cloud = sh_rows(cloud)
     uni = gt.make_uniforms(gt.Camera.reset_pose(), cfg, device=cloud.device,
                            heatmap=heatmap)
     prj = project_splats(cloud.means, cloud.cov3d, cloud.opacity, cloud.sh,
@@ -914,6 +1097,7 @@ def frame_cloud(n: int):
 def phase_frame(tag: str, cloud, cfg, frames: int, expect) -> dict:
     """Drive render_frame_fast_staged over an orbit: the launch counters
     are set to 0 just before the timed frames and read just after."""
+    cloud = gt.fast_cloud_view(cloud, planar_sh=cfg.projection_kernel)
     dev = cloud.means.device
     width, height = cfg.target_size
     cams = gt.orbit_trajectory(frames, radius=5.0, target=(0, 0, 6.0))
@@ -1006,6 +1190,7 @@ def profile_frames(tag: str, cloud, cfg, frames: int = 3) -> None:
     """The profile of ``frames`` orbit frames of render_frame_fast. A v4
     frame must run no gemm: its render kernel takes no prepass_big_la
     maps."""
+    cloud = gt.fast_cloud_view(cloud, planar_sh=cfg.projection_kernel)
     cams = gt.orbit_trajectory(frames, radius=5.0, target=(0, 0, 6.0))
     unis = [gt.make_uniforms(c, cfg) for c in cams]
     gemms = profile(tag, lambda i: gt.render_frame_fast(cloud, unis[i], cfg),
@@ -1062,11 +1247,14 @@ def engine_frames(tag: str, r, cloud, frames: int, expect) -> dict:
     return launches
 
 
+EXACT_PATH = ("projection_readable", "emit_exact", "render_exact")
+
+
 def phase_engine(cloud, frames: int) -> tuple:
     """Phase 8: the engine end to end at 1920x1080 on both qualities; then
     torch.profiler over 3 exact frames and the fast frame's PSNR against
-    the exact one at the reset camera. Returns (render_exact's launches,
-    the exact Rasterizer's final tile capacity)."""
+    the exact one at the reset camera. Returns (the exact frames'
+    launches, the exact Rasterizer's final tile capacity)."""
     t0 = time.perf_counter()
     exact = gt.Rasterizer(cloud, texture_size=(1920, 1080))
     fast = gt.Rasterizer(cloud, texture_size=(1920, 1080), quality="fast")
@@ -1075,7 +1263,12 @@ def phase_engine(cloud, frames: int) -> tuple:
     check(exact.quality == "exact" and fast.quality == "fast",
           "8: unexpected qualities")
     launches = engine_frames("8 engine exact", exact, cloud, frames,
-                             ("render_exact",))
+                             EXACT_PATH)
+    log(f"[8 engine exact] frames replayed from {exact.graph_captures} "
+        f"capture(s) (a tile-capacity regrowth recaptures; the last of "
+        f"{exact.exact_graph.capture_seconds:.2f} s: warm-up frame and four "
+        f"graphs), launches a replay "
+        f"{json.dumps(exact.exact_graph.launches)}")
     engine_frames("8 engine fast", fast, cloud, frames,
                   ("projection", "render_v3"))
     check(fast.graph_captures == 1,
@@ -1101,7 +1294,7 @@ def phase_engine(cloud, frames: int) -> tuple:
             r.image())).permute(2, 0, 1))
     log(f"[8 engine] fast against exact at the reset camera, 1920x1080: "
         f"PSNR {psnr(images[1], images[0]):.2f} dB (not gated)")
-    return launches["render_exact"], exact.tile_capacity
+    return launches, exact.tile_capacity
 
 
 def _processed(tiles, cfg):
@@ -1241,6 +1434,41 @@ def exact_1080p(cloud, base, capacity: int, worst: float) -> dict:
         f"(one call, 256 tiles a batch), {bound_text(bnd)}, lockstep "
         f"bound {bnd['lockstep_bound_ms']:.4f} ms; {walk}")
     return record("render_exact", max(worst, err), ms, plain_ms, bnd)
+
+
+def exact_stages_1080p(full, base, worst: dict) -> list:
+    """Phase 6, the exact frame's Projection and Sort kernels on the 1080p
+    exact frame's inputs (reset camera): the readable projection (f32 SH,
+    the exact frame's; bf16 logged) and the emission, each held bit-equal
+    to its plain version and timed beside its bound; the emission also at
+    a sort buffer of half the pairs (it drops pairs); and the stable sort
+    of the 10N buffer with 32-bit keys against 64-bit ones. Returns the
+    two kernels' records."""
+    e, ms, plain_ms, bnd = readable_vs_plain(
+        "6 projection_readable 1080p f32", full, base, 2)
+    rec = [record("projection_readable",
+                  max(worst["projection_readable"], e), ms, plain_ms, bnd)]
+    readable_vs_plain("6 projection_readable 1080p bf16",
+                      gt.fast_cloud_view(full, planar_sh=False), base, 2)
+    uni = gt.make_uniforms(gt.Camera.reset_pose(), base)
+    prj = project_splats(full.means, full.cov3d, full.opacity, full.sh,
+                         full.upload_time, uni.view, uni.proj,
+                         uni.camera_pos, uni.model_scale, uni.time, base)
+    e, ms, plain_ms, bnd, n, k_max = emit_vs_plain("6 emit_exact 1080p", prj,
+                                                   base)
+    rec.append(record("emit_exact", e, ms, plain_ms, bnd))
+    check(n // 2 < min(n, k_max), "6 emit_exact: no pair to drop")
+    emit_vs_plain(f"6 emit_exact 1080p capacity {n // 2}", prj, base,
+                  capacity=n // 2, plain_reps=1)
+    keys = so.emit_pairs(prj.valid, prj.rect, prj.num_tiles, prj.depth16,
+                         base)[0][:-1]
+    t32 = time_ms(lambda: torch.sort(keys, stable=True), 5)
+    wide = keys.to(torch.int64) + so.SIGN
+    t64 = time_ms(lambda: torch.sort(wide, stable=True), 5)
+    log(f"[6 sort 1080p] stable torch.sort of the {keys.numel()}-slot "
+        f"buffer: int32 keys (sign-flipped u32) {t32:.4f} ms, the same keys "
+        f"as int64 {t64:.4f} ms")
+    return rec
 
 
 def phase_sfu_probe() -> tuple:
@@ -1628,7 +1856,11 @@ def _sharded_path(mesh, shard, P: int, base, path: str,
     fn = (sharded.render_frame_fast_sharded if fast
           else sharded.render_frame_sharded)
     kw = {} if fast else {"tile_capacity": tile_capacity}
-    expect = ("projection", "render_v3") if fast else ("render_exact",)
+    expect = ("projection", "render_v3") if fast else (
+        "projection_readable", "render_exact")
+    if not fast and shard is not None:
+        # the readable projection's kernel takes (P, 16, 3) SH
+        shard = dataclasses.replace(shard, local=sh_rows(shard.local))
     n_view = mesh.shape["view"]
     cams = gt.orbit_trajectory(SHARDED_CAMERAS, radius=5.0,
                                target=(0, 0, 6.0))
@@ -1658,6 +1890,8 @@ def _sharded_path(mesh, shard, P: int, base, path: str,
         for name in expect:
             check(counts[name] == 1, f"11 rank {rank}: {name} launched "
                   f"{counts[name]} times in frame {f}")
+        check(fast or counts["emit_exact"] >= 1,
+              f"11 rank {rank}: emit_exact not launched in frame {f}")
         img, pairs, over = out
         check(bool(torch.isfinite(img).all()), "11: non-finite image")
         if rank == 0:
@@ -1726,19 +1960,20 @@ def phase_sharded(cloud, base, tile_capacity: int, card: str) -> None:
         {"num_splats": padded.num_splats}))
     cams = gt.orbit_trajectory(SHARDED_CAMERAS, radius=5.0,
                                target=(0, 0, 6.0))
+    rows = sh_rows(padded)
     for path in SHARDED_PATHS:
         cfg = _sharded_cfg(base, path)
         for i, cam in enumerate(cams):
             uni = gt.make_uniforms(cam, cfg)
             out = (gt.render_frame_fast(padded, uni, cfg)
                    if path == "fast" else
-                   gt.render_frame(padded, uni, cfg,
+                   gt.render_frame(rows, uni, cfg,
                                    tile_capacity=tile_capacity))
             np.save(SHARDED / f"ref_{path}_{i}.npy", out.image.cpu().numpy())
             (SHARDED / f"ref_{path}_{i}.json").write_text(json.dumps({
                 "pairs": int(out.stats.num_pairs),
                 "overflow": int(out.stats.num_overflow)}))
-    del padded
+    del padded, rows
     log(f"[11 sharded] {card}: {cloud.num_splats} splats padded to "
         f"capacity {P} ({P // SHARDED_MULTIPLE} x {SHARDED_MULTIPLE}), "
         f"written to {SHARDED} with the single-device frames of "
@@ -1769,7 +2004,8 @@ def _sharded_report(recs: list, backend: str, world: int, card: str,
     fast = recs[0]["path"] == "fast"
     tag = f"11 sharded {backend} ({n_view}, {n_tile}) {recs[0]['path']}"
     frames = SHARDED_CAMERAS // n_view
-    expect = ("projection", "render_v3") if fast else ("render_exact",)
+    expect = ("projection", "render_v3") if fast else (
+        "projection_readable", "render_exact")
     members = [r for r in recs if r["member"]]
     for rec in members:
         for name in expect:
@@ -1825,13 +2061,13 @@ GRAPH_FIELDS = ("image", "tile_t0", "tile_blocks", "tile_nblocks",
                 "tile_nbig", "payload", "tile_bigpay")
 
 
-def _hold_graphed(tag: str, graphed, eager) -> None:
+def _hold_graphed(tag: str, graphed, eager, fields=GRAPH_FIELDS) -> None:
     """Every field of a graphed frame bit-equal to the eager frame's (f32
     compared as bits: the cooked payload's rank row holds NaN patterns)."""
     def bits(t):
         return t.view(torch.int32) if t.dtype == torch.float32 else t
 
-    for f in GRAPH_FIELDS:
+    for f in fields:
         a, b = getattr(graphed, f), getattr(eager, f)
         check(a.shape == b.shape and torch.equal(bits(a), bits(b)),
               f"{tag}: {f} differs from the eager frame's")
@@ -1872,29 +2108,36 @@ def _memory_since(base: tuple) -> dict:
             "peak": (torch.cuda.max_memory_allocated() - base[0]) / 2**30}
 
 
-def graph_config(tag: str, cloud, cfg, frames: int, card: str) -> None:
-    """One configuration: FastFrameGraph against render_frame_fast_staged
-    over ``frames`` orbit cameras (bit-equal frames, equal launches, a kept
-    frame untouched), both timed in turns, profiled, and their memory."""
+def _orbit(cfg, frames: int) -> tuple:
+    """(packed uniform vectors, FrameUniforms on the card) of ``frames``
+    orbit cameras."""
     cams = gt.orbit_trajectory(frames, radius=5.0, target=(0, 0, 6.0))
     w, h = cfg.target_size
     values = [pack_uniforms(c.view_matrix(), c.projection_matrix(w, h),
                             c.camera_pos_ply(), 1.0, 1e9, 0.0) for c in cams]
-    unis = [gt.make_uniforms(c, cfg) for c in cams]
+    return values, [gt.make_uniforms(c, cfg) for c in cams]
 
-    def eager(i, timer=None):
-        return gt.render_frame_fast_staged(cloud, unis[i], cfg, timer=timer)
 
+def graph_against_eager(tag: str, card: str, what: str, eager, make_graph,
+                        values, fields, frames: int, launches_ok) -> None:
+    """A graphed frame (``make_graph()``, replayed by ``render(values[i],
+    timer)``) against its eager frame (``eager(i, timer)``) over
+    ``frames`` orbit cameras: every field of ``fields`` and the stats
+    bit-equal, the launches the capture recorded accepted by
+    ``launches_ok`` and those a replay counts equal to an eager frame's, a
+    kept frame untouched by later replays; both timed in turns (host
+    clock, CUDA events, stages), their memory, and torch.profiler over 3
+    frames of each."""
     base = _memory_base()
     out = eager(0)
     mem_eager = _memory_since(base)
     del out
     base = _memory_base()
-    graph = FastFrameGraph(cloud, cfg, values[0])
+    graph = make_graph()
     kept = graph.render(values[0])
     mem_graph = _memory_since(base)
     kept_image = kept.image.clone()
-    check(graph.launches and all(n == 1 for n in graph.launches.values()),
+    check(bool(graph.launches) and launches_ok(graph.launches),
           f"{tag}: the capture recorded {graph.launches}")
     for i in range(frames):
         kernels.reset_launch_counts()
@@ -1907,7 +2150,7 @@ def graph_config(tag: str, cloud, cfg, frames: int, card: str) -> None:
         check(by_graph == kernels.launch_counts(),
               f"{tag} camera {i}: launches {by_graph} replayed against "
               f"{kernels.launch_counts()} eager")
-        _hold_graphed(f"{tag} camera {i}", g, e)
+        _hold_graphed(f"{tag} camera {i}", g, e, fields)
         check(int(g.stats.num_pairs) > 0, f"{tag}: no splat-tile pairs")
     check(torch.equal(kept.image, kept_image),
           f"{tag}: a kept frame's image changed under later replays")
@@ -1924,9 +2167,9 @@ def graph_config(tag: str, cloud, cfg, frames: int, card: str) -> None:
                      "event_ms": statistics.median(r[1] for r in rs),
                      "stages_ms": {k: round(statistics.median(
                          r[2][k] for r in rs), 3) for k in rs[0][2]}}
-    log(f"[{tag}] {card}, {cloud.num_splats} splats {w}x{h}, {frames} orbit "
-        f"cameras: graphed frames bit-equal to the eager frames ("
-        f"{', '.join(GRAPH_FIELDS)}, stats), launches a replay "
+    log(f"[{tag}] {card}, {what}, {frames} orbit cameras: graphed frames "
+        f"bit-equal to the eager frames ({', '.join(fields)}, stats), "
+        f"launches a replay "
         f"{json.dumps({k: v for k, v in graph.launches.items() if v})} as "
         f"an eager frame's, a kept frame untouched; capture "
         f"{graph.capture_seconds:.2f} s (warm-up frame and four graphs)")
@@ -1944,6 +2187,22 @@ def graph_config(tag: str, cloud, cfg, frames: int, card: str) -> None:
         f"capture)")
     profile(f"{tag} eager", lambda i: eager(i % frames), 3)
     profile(f"{tag} graph", lambda i: graph.render(values[i % frames]), 3)
+
+
+def graph_config(tag: str, cloud, cfg, frames: int, card: str) -> None:
+    """One configuration: FastFrameGraph against render_frame_fast_staged
+    (graph_against_eager)."""
+    cloud = gt.fast_cloud_view(cloud, planar_sh=cfg.projection_kernel)
+    values, unis = _orbit(cfg, frames)
+    w, h = cfg.target_size
+
+    def eager(i, timer=None):
+        return gt.render_frame_fast_staged(cloud, unis[i], cfg, timer=timer)
+
+    graph_against_eager(tag, card, f"{cloud.num_splats} splats {w}x{h}",
+                        eager, lambda: FastFrameGraph(cloud, cfg, values[0]),
+                        values, GRAPH_FIELDS, frames,
+                        lambda n: all(v == 1 for v in n.values()))
 
 
 def phase_graphs(full, cloud, base, card: str, frames: int = 8) -> None:
@@ -2008,13 +2267,84 @@ def phase_graphs(full, cloud, base, card: str, frames: int = 8) -> None:
         f"view")
 
 
+# --- phase 13: the exact frame as captured CUDA graphs -----------------------
+
+EXACT_GRAPH_FIELDS = ("image", "sorted_values", "tile_start", "tile_end",
+                      "tile_t0", "splat_pos")
+
+
+def phase_exact_graphs(full, base, capacity: int, card: str,
+                       frames: int = 8) -> None:
+    """Phase 13: the exact frame as captured CUDA graphs (see the module
+    docstring)."""
+    cfg = base
+    check(cfg.reference_boundary_quirk, "13: the boundary quirk is off")
+    values, unis = _orbit(cfg, frames)
+    w, h = cfg.target_size
+    groups = (1 + sum(wt > cfg.max_tiles_per_splat for wt, _ in
+                      cfg.exact_tiers) + bool(cfg.giant_splat_capacity))
+
+    def eager(i, timer=None):
+        return render_frame_staged(full, unis[i], cfg, tile_capacity=capacity,
+                                   timer=timer)
+
+    graph_against_eager(
+        "13 exact graphs", card, f"{full.num_splats} splats {w}x{h}, tile "
+        f"capacity {capacity}, boundary quirk on", eager,
+        lambda: ExactFrameGraph(full, cfg, values[0], capacity), values,
+        EXACT_GRAPH_FIELDS, frames,
+        lambda n: n == {"projection_readable": 1, "emit_exact": groups,
+                        "render_exact": 1})
+    # the engine: one capture over the orbit and a heatmap toggle, at the
+    # capacity phase 8 settled on; then a forced regrowth
+    r = gt.Rasterizer(full, texture_size=(w, h), tile_capacity=capacity)
+    r._now = lambda: 100.0
+    kept = None
+    for i, cam in enumerate(gt.orbit_trajectory(frames, radius=5.0,
+                                                target=(0, 0, 6.0))):
+        r.camera = cam
+        r.update_camera_matrices()
+        r.should_enable_heatmap = i == frames // 2
+        out = r.rasterize(sync=True)
+        ref = render_frame_staged(r.cloud, r._uniforms(), r.config,
+                                  tile_capacity=r.tile_capacity)
+        _hold_graphed(f"13 exact graphs Rasterizer camera {i}", out, ref,
+                      EXACT_GRAPH_FIELDS)
+        if kept is None:
+            kept, kept_image = out, out.image.clone()
+    check(torch.equal(kept.image, kept_image),
+          "13 exact graphs Rasterizer: a kept frame's image changed")
+    captures = r.graph_captures
+    check(captures == 1 and r.tile_capacity == capacity,
+          f"13 exact graphs Rasterizer: {captures} captures over {frames} "
+          f"cameras and a heatmap toggle, tile capacity {r.tile_capacity}")
+    densest = int(out.stats.max_tile_count)
+    r.tile_capacity = densest // 2
+    out = r.rasterize(sync=True)
+    grown = r.tile_capacity
+    check(r.graph_captures == captures + 2 and grown >= densest,
+          f"13 exact graphs Rasterizer: {r.graph_captures} captures after "
+          f"a regrowth from {densest // 2} to {grown} (densest {densest})")
+    ref = render_frame_staged(r.cloud, r._uniforms(), r.config,
+                              tile_capacity=grown)
+    _hold_graphed("13 exact graphs Rasterizer regrown", out, ref,
+                  EXACT_GRAPH_FIELDS)
+    log(f"[13 exact graphs] {card}: Rasterizer() (exact) over {frames} "
+        f"orbit cameras and a heatmap toggle at tile capacity {capacity}: "
+        f"{captures} capture, frames bit-equal to the eager frames, a kept "
+        f"frame untouched; tile capacity {densest // 2} below the densest "
+        f"tile ({densest}): captured there, grown to {grown} and captured "
+        f"again ({r.graph_captures} captures), the regrown frame bit-equal "
+        f"to the eager frame at {grown}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; nothing was measured")
     torch.backends.cuda.matmul.allow_tf32 = False
     card = phase_device()
     probe, probe_launches = phase_sfu_probe()   # sets SFU before any bound
-    worst = {"projection": phase_projection(1_000_000, 1920, 1080)}
+    worst = phase_projection(1_000_000, 1920, 1080)
     cloud = render_cloud(200_000)
     worst["render_v3"] = phase_render(cloud, 512)
     worst["render_v3_cooked"] = phase_render_cooked(cloud, 512)
@@ -2031,9 +2361,10 @@ def main() -> int:
               ("5 frame v4", base.replace(kernel="v4").fast_defaults(),
                ("projection", "render_v4")),
               ("5 frame quality=fast", base.replace(quality="fast"),
-               ("render_v3_cooked",)),
+               ("projection_readable", "render_v3_cooked")),
               ("5 frame quality=fast v4",
-               base.replace(quality="fast", kernel="v4"), ("render_v4",)))
+               base.replace(quality="fast", kernel="v4"),
+               ("projection_readable", "render_v4")))
     for tag, cfg, expect in frames:
         counts = phase_frame(tag, cloud, cfg, 8, expect)
         for name in expect:
@@ -2041,8 +2372,11 @@ def main() -> int:
     # profiled after every timed frame, so no timed frame follows a trace
     for tag, cfg, _ in frames:
         profile_frames(tag, cloud, cfg)
-    launches["render_exact"], capacity = phase_engine(full, 8)
+    exact_launches, capacity = phase_engine(full, 8)
+    for name in EXACT_PATH:
+        launches[name] = exact_launches[name]
     rec = phase_kernels_1080p(cloud, base, worst)
+    rec += exact_stages_1080p(full, base, worst)
     rec.append(exact_1080p(full, base, capacity, worst["render_exact"]))
     rec.append(probe)
     launches["sfu_probe"] = probe_launches
@@ -2050,6 +2384,7 @@ def main() -> int:
     phase_viewer(full, card)
     phase_sharded(cloud, base, capacity, card)
     phase_graphs(full, cloud, base, card)
+    phase_exact_graphs(full, base, capacity, card)
     for r in rec:
         r["launches"] = launches[r["name"]]
     log(card)

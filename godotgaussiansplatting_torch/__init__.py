@@ -6,8 +6,11 @@ the exact four-stage frame (projection, sort, boundaries, per-tile
 composite) and the fast frame (fused projection, brick blocks, tile binning
 and the batch-exact v3 or v4 composite) — through the same ``Rasterizer``
 engine, with hand-written CUDA kernels for Hopper (``csrc/``) built at first
-use. Each module names the JAX module it answers to. torch runs eagerly:
-``render_frame`` stands where the JAX package has ``render_frame_jit``.
+use. Each module names the JAX module it answers to. ``render_frame`` and
+``render_frame_fast`` run eagerly; where the JAX package compiles a frame
+(``render_frame_jit``, ``render_frame_fast_jit``), the port replays it as
+captured CUDA graphs (``ops.pipeline.ExactFrameGraph``,
+``ops.fast_pipeline.FastFrameGraph``), as the engine does on the card.
 """
 
 from .config import RasterizerConfig, SORT_BUFFER_FACTOR, TILE_SIZE

@@ -96,7 +96,9 @@ def import_other(root: Path):
 
 def frame_inputs(cloud, cfg):
     """(rows, payload, bigpay, cfg, U, max_batches) of the reset camera
-    through the configuration's projection and payload."""
+    through the configuration's projection and payload (the readable
+    projection's kernel takes (P, 16, 3) SH)."""
+    cloud = gt.fast_cloud_view(cloud, planar_sh=cfg.projection_kernel)
     uni = gt.make_uniforms(gt.Camera.reset_pose(), cfg)
     args = (cloud.means, cloud.cov3d, cloud.opacity, cloud.sh,
             cloud.upload_time, uni.view, uni.proj, uni.camera_pos,

@@ -9,13 +9,15 @@ default) and ``"fast"`` (ops/fast_pipeline.py). Its work runs on the card
 (``device="cuda"``) unless the caller asks for the CPU, where the plain
 versions of the kernels run; without a card the default raises.
 
-The fast quality on the card replays the frame as captured CUDA graphs
-(``ops.fast_pipeline.FastFrameGraph``, the counterpart of the JAX package's
-stage jits): one capture per config, splat count and model, reused across
-camera, heatmap, model scale and time, which are uniforms. On the CPU the
-same frame runs eagerly. The exact quality and picking run eagerly. The
-kernels are built once per checkout at first use (``kernels``), so there is
-no counterpart of the JAX package's persistent XLA compile cache.
+Both qualities on the card replay the frame as captured CUDA graphs
+(``ops.pipeline.ExactFrameGraph`` and ``ops.fast_pipeline.FastFrameGraph``,
+the counterparts of the JAX package's ``render_frame_jit``,
+``render_frame_fast_jit`` and their stage jits): one capture per config,
+splat count and model (and, for the exact quality, tile capacity), reused
+across camera, heatmap, model scale and time, which are uniforms. On the
+CPU the same frames run eagerly. Picking runs eagerly. The kernels are
+built once per checkout at first use (``kernels``), so there is no
+counterpart of the JAX package's persistent XLA compile cache.
 """
 
 from __future__ import annotations
@@ -33,11 +35,10 @@ from ..models import ply as plyio
 from ..models.camera import Camera
 from ..models.splats import (SplatCloud, fast_cloud_view, from_soa,
                              mortonize, refresh_fast_view)
-from ..ops.fast_pipeline import (FastFrameGraph, graph_key,
-                                 pick_splat_position_fast,
+from ..ops.fast_pipeline import (FastFrameGraph, pick_splat_position_fast,
                                  render_frame_fast_staged)
-from ..ops.pipeline import (FrameOutput, FrameUniforms, pack_uniforms,
-                            pick_splat_position, render_frame,
+from ..ops.pipeline import (ExactFrameGraph, FrameUniforms, exact_graph_key,
+                            graph_key, pack_uniforms, pick_splat_position,
                             render_frame_staged, uniforms_from_buffer)
 from ..utils.image import hwc
 from ..utils.telemetry import (StageTimings, device_memory_stats,
@@ -117,8 +118,9 @@ class Rasterizer:
         self._fast_cloud = None
         self._fast_cloud_src = None
         self._fast_cloud_writes = 0
-        # the fast frame's CUDA graphs (one set at a time) and their captures
+        # the frame's CUDA graphs (one set at a time) and their captures
         self.fast_graph: Optional[FastFrameGraph] = None
+        self.exact_graph: Optional[ExactFrameGraph] = None
         self.graph_captures = 0
         self._cached_view: Optional[np.ndarray] = None
         self._cached_proj: Optional[np.ndarray] = None
@@ -209,14 +211,8 @@ class Rasterizer:
                 self.cloud = self.loader.cloud
             if self.quality == "fast":
                 out = self._fast_frame(timer)
-            elif sync:
-                out = render_frame_staged(self.cloud, self._uniforms(),
-                                          self.config,
-                                          tile_capacity=self.tile_capacity,
-                                          timer=timer)
             else:
-                out = render_frame(self.cloud, self._uniforms(), self.config,
-                                   tile_capacity=self.tile_capacity)
+                out = self._exact_frame(timer)
         if sync:
             self._sync()
             frame_ms = (time.perf_counter() - t0) * 1e3
@@ -228,6 +224,26 @@ class Rasterizer:
                 out = regrown  # the triggering frame itself is re-rendered
         self.last_frame = out
         return out
+
+    def _exact_frame(self, timer):
+        """The exact frame: replayed CUDA graphs on the card (captured anew
+        when ``exact_graph_key`` moves: config, splat count, model or tile
+        capacity), the eager staged frame on the CPU. A streamed model is
+        written into the cloud's tensors in place, so the graphs read each
+        chunk the loader has written."""
+        cfg = self.config
+        if self.device.type != "cuda":
+            return render_frame_staged(self.cloud, self._uniforms(), cfg,
+                                       tile_capacity=self.tile_capacity,
+                                       timer=timer)
+        values = self._uniform_values()
+        if (self.exact_graph is None or self.exact_graph.key
+                != exact_graph_key(self.cloud, cfg, self.tile_capacity)):
+            self.exact_graph = None      # the old pool goes first
+            self.exact_graph = ExactFrameGraph(self.cloud, cfg, values,
+                                               self.tile_capacity)
+            self.graph_captures += 1
+        return self.exact_graph.render(values, timer)
 
     def _fast_frame(self, timer):
         """The fast frame: replayed CUDA graphs on the card (captured anew
@@ -266,9 +282,10 @@ class Rasterizer:
     def _check_overflow(self, out):
         """The exact path truncates a tile's list at its capacity; grow the
         capacity to the next power of two covering the densest tile and
-        re-render, or warn without auto_capacity (the reference's
-        '(buffer overflow!)' flag, main.gd:98-100). Returns the re-rendered
-        frame, or None."""
+        re-render (on the card a new capacity is a new capture; the count
+        is read after the frame's replay), or warn without auto_capacity
+        (the reference's '(buffer overflow!)' flag, main.gd:98-100).
+        Returns the re-rendered frame, or None."""
         if self.quality != "exact":
             return None
         max_tile = int(out.stats.max_tile_count)

@@ -38,10 +38,18 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C signatures: every launcher returns cudaGetLastError() as an int.
 SIGNATURES = {
     "projection": {
         "gs_project_words": [_P] * 14 + [_I] * 8 + [_F] * 3 + [_P],
+    },
+    "projection_readable": {
+        "gs_project_readable": [_P] * 19 + [_I] * 7 + [_F] * 2 + [_P],
+    },
+    "emit_exact": {
+        "gs_emit_base": [_P] * 7 + [_I] * 2 + [_L, _P],
+        "gs_emit_dense": [_P] * 8 + [_I] * 3 + [_L, _P],
     },
     "render_v3": {
         "gs_render_v3": [_P] * 5 + [_I] * 8 + [_P],
@@ -63,9 +71,11 @@ SIGNATURES = {
     },
 }
 # One launch counter per kernel a wrapper launches (the v3 library holds
-# two: the word and the cooked payload; sfu_probe counts every body).
-COUNTERS = ("projection", "render_v3", "render_v3_cooked", "render_v4",
-            "render_exact", "sfu_probe")
+# two: the word and the cooked payload; sfu_probe counts every body;
+# emit_exact counts its base and each dense group's launch).
+COUNTERS = ("projection", "projection_readable", "render_v3",
+            "render_v3_cooked", "render_v4", "render_exact", "emit_exact",
+            "sfu_probe")
 
 _libs: dict = {}
 _launches = {name: 0 for name in COUNTERS}

@@ -147,10 +147,14 @@ def mortonize(cloud: SplatCloud) -> SplatCloud:
 def fast_cloud_view(cloud: SplatCloud, planar_sh: bool = True) -> SplatCloud:
     """Render view for the fast path: SH cast once to bf16 and, for the
     projection kernel, stored splat-minor as (48, P) so the kernel's reads
-    are coalesced over splats. The original cloud keeps full precision."""
+    are coalesced over splats; with ``planar_sh`` False, (P, 16, 3), the
+    layout of the readable projection's kernel (a planar view given is
+    laid out so again). The original cloud keeps full precision."""
     sh = cloud.sh.to(torch.bfloat16)
     if planar_sh and sh.ndim == 3:
         sh = sh.permute(1, 2, 0).reshape(48, sh.shape[0]).contiguous()
+    elif not planar_sh and sh.ndim == 2:
+        sh = sh.reshape(16, 3, -1).permute(2, 0, 1).contiguous()
     return dataclasses.replace(cloud, sh=sh)
 
 

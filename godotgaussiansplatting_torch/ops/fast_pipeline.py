@@ -24,20 +24,18 @@ plain-torch version.
 from __future__ import annotations
 
 import contextlib
-import time
 from typing import NamedTuple
 
 import torch
 
-from .. import kernels
 from ..config import RasterizerConfig
 from ..models.splats import SplatCloud
 from .bigbin import GROUP, TileBigs, bin_bigs
 from .binning2 import TileBins2, bin_blocks2
 from .blocks2 import (BLOCK_SIZE, DEPTH_INVALID, _unpack_bf16_pair,
                       build_block_frame2, build_block_frame2_words, u32)
-from .pipeline import (UNIFORM_WIDTH, FrameStats, FrameUniforms,
-                       uniforms_from_buffer)
+from .pipeline import (FrameStats, FrameUniforms, StageGraphs, graph_key,
+                       run_stages)
 from .projection import ProjectedSplats, project_splats
 from .projection_kernel import project_words
 from .render_v3 import assemble_image_v3, render_tiles_v3
@@ -173,131 +171,41 @@ def render_frame_fast_staged(cloud: SplatCloud, uniforms: FrameUniforms,
     run eagerly, each timed by ``timer`` when one is passed. Raises
     ValueError for ``kernel="v4"`` with the word payload, as the JAX
     package does."""
-    stages = _frame_stages(cloud, uniforms, cfg, supertile_cap, tile_cap,
-                           early_exit, lowp, obig, batch_u)
-    stage = timer.stage if timer is not None else (
-        lambda name: contextlib.nullcontext())
-    out = None
-    for name, fn in stages:
-        with stage(name):
-            out = fn(out)
-    return out
+    return run_stages(_frame_stages(cloud, uniforms, cfg, supertile_cap,
+                                    tile_cap, early_exit, lowp, obig,
+                                    batch_u), timer)
 
 
-def graph_key(cloud: SplatCloud, cfg: RasterizerConfig) -> tuple:
-    """What a captured fast frame (``FastFrameGraph``) depends on besides
-    its uniforms: the config, the splat count and the cloud's tensors
-    (address, shape, dtype). A frame whose key differs needs a new capture;
-    the camera, heatmap, model scale and time are uniforms and do not
-    enter it."""
-    tensors = (cloud.means, cloud.cov3d, cloud.opacity, cloud.sh,
-               cloud.upload_time)
-    return (cfg, cloud.num_splats,
-            tuple((t.data_ptr(), tuple(t.shape), t.dtype, t.device)
-                  for t in tensors))
-
-
-class FastFrameGraph:
+class FastFrameGraph(StageGraphs):
     """The fast frame as four captured CUDA graphs, one a stage (Projection,
-    Blocks, Binning, Render), replayed back to back on the current stream
-    with no host work between them: the port's counterpart of the JAX
-    package's ``render_frame_fast_jit`` and its four stage jits
-    (``_stage_project``, ``_stage_blocks``, ``_stage_bin``,
+    Blocks, Binning, Render; see ``pipeline.StageGraphs``): the port's
+    counterpart of the JAX package's ``render_frame_fast_jit`` and its four
+    stage jits (``_stage_project``, ``_stage_blocks``, ``_stage_bin``,
     ``_stage_render``), compiled once per static configuration. The frame
-    is ``render_frame_fast_staged``'s, bit for bit.
-
-    Capture (in ``__init__``): one eager warm-up frame on a side stream,
-    which builds the kernels, under ``torch.cuda.set_sync_debug_mode
-    ("error")``, so that a host read on the path raises there; then the
-    four stages, each into its own graph, all in one memory pool, with
-    ``capture_error_mode="thread_local"`` (other threads may pin memory and
-    copy while a frame is captured). The caller holds whatever lock guards
-    the cloud's tensors (a streaming loader's ``write_lock``).
-
-    Inputs: the cloud's tensors, whose addresses the graphs keep (refresh a
-    streamed model's fast view in place: ``models.splats.
-    refresh_fast_view``), and one (UNIFORM_WIDTH,) f32 device buffer that
-    the frame's FrameUniforms are views into. ``render`` writes a frame's
-    uniform vector (``ops.pipeline.pack_uniforms``) with one copy from
-    pinned host memory, whose reuse waits on the event of the copy before.
-    ``key`` is the ``graph_key`` it was captured for.
+    is ``render_frame_fast_staged``'s, bit for bit. The graphs keep the
+    cloud's addresses: refresh a streamed model's fast view in place
+    (``models.splats.refresh_fast_view``). ``key`` is the ``graph_key`` it
+    was captured for.
 
     Output: ``render`` copies ``image``, ``tile_t0`` and ``stats`` out of
     the graphs' buffers, so a frame a caller keeps is not overwritten by
     the next. The picking fields (``payload``, ``tile_blocks``,
     ``tile_nblocks``, ``tile_bigpay``, ``tile_nbig``) are the graphs'
     buffers: valid until the next ``render`` of this graph.
-
-    Launch counts: a capture records its kernels' launches
-    (``kernels.recording_launches``) in ``launches``, and each ``render``
-    adds them to the counters. A failed capture or replay raises; nothing
-    falls back to the eager frame.
     """
 
     def __init__(self, cloud: SplatCloud, cfg: RasterizerConfig,
                  uniform_values):
-        dev = cloud.means.device
-        if dev.type != "cuda":
-            raise ValueError("FastFrameGraph captures CUDA work only")
         self.key = graph_key(cloud, cfg)
         self.cloud = cloud
-        self._host = torch.empty(UNIFORM_WIDTH, dtype=torch.float32,
-                                 pin_memory=True)
-        self._dev = torch.empty(UNIFORM_WIDTH, dtype=torch.float32,
-                                device=dev)
-        self._uploaded = torch.cuda.Event()
-        stages = _frame_stages(cloud, uniforms_from_buffer(self._dev), cfg)
-        self._upload(uniform_values)
-        t0 = time.perf_counter()
-        self._capture(stages, dev)
-        self.capture_seconds = time.perf_counter() - t0
-
-    def _upload(self, values) -> None:
-        self._uploaded.synchronize()     # the last copy has left the buffer
-        self._host.numpy()[:] = values
-        self._dev.copy_(self._host, non_blocking=True)
-        self._uploaded.record()
-
-    def _capture(self, stages, dev) -> None:
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            mode = torch.cuda.get_sync_debug_mode()
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                out = None
-                for _, fn in stages:
-                    out = fn(out)
-            finally:
-                torch.cuda.set_sync_debug_mode(mode)
-            del out
-        torch.cuda.current_stream(dev).wait_stream(side)
-        pool = torch.cuda.graph_pool_handle()
-        self._graphs, self.launches = [], {}
-        out = None
-        for name, fn in stages:
-            g = torch.cuda.CUDAGraph()
-            with kernels.recording_launches() as recorded, torch.cuda.graph(
-                    g, pool=pool, stream=side,
-                    capture_error_mode="thread_local"):
-                out = fn(out)
-            for kernel, n in recorded.items():
-                self.launches[kernel] = self.launches.get(kernel, 0) + n
-            self._graphs.append((name, g))
-        self._out: FastFrameOutput = out
+        super().__init__(lambda uniforms: _frame_stages(cloud, uniforms, cfg),
+                         cloud.means.device, uniform_values)
 
     def render(self, uniform_values,
                timer: StageTimer | None = None) -> FastFrameOutput:
         """Replay the frame for one (UNIFORM_WIDTH,) f32 uniform vector,
         each stage timed by ``timer`` when one is passed."""
-        self._upload(uniform_values)
-        stage = timer.stage if timer is not None else (
-            lambda name: contextlib.nullcontext())
-        for name, g in self._graphs:
-            with stage(name):
-                g.replay()
-        kernels.count_launches(self.launches)
-        out = self._out
+        out = self.replay(uniform_values, timer)
         return out._replace(
             image=out.image.clone(), tile_t0=out.tile_t0.clone(),
             stats=FrameStats(*(s.clone() for s in out.stats)))

@@ -1,21 +1,31 @@
 """The exact four-stage frame: projection -> sort -> boundaries -> render,
-with its per-frame uniforms, statistics and picking.
+with its per-frame uniforms, statistics and picking, and the captured CUDA
+graphs of a staged frame.
 
 Counterpart of ``godotgaussiansplatting_tpu/ops/pipeline.py``. Stage 1 is
-the readable projection (ops/projection.py), stages 2-3 ops/sort.py and
-stage 4 ops/render_exact.py, whose CUDA tensors go to the kernel
-csrc/render_exact.cu. torch runs eagerly, so there is no jit-compiled
-variant: ``render_frame`` is the whole frame.
+the readable projection (ops/projection.py, the kernel
+csrc/projection_readable.cu on the card), stages 2-3 ops/sort.py (the
+emission kernel csrc/emit_exact.cu, torch's sort and search) and stage 4
+ops/render_exact.py (the kernel csrc/render_exact.cu). Every stage keeps
+its shapes static and reads nothing back to the host, as the JAX
+package's single device-resident program does. ``render_frame`` runs the
+four stages eagerly; ``ExactFrameGraph`` captures them as CUDA graphs and
+replays them (the engine's exact frame on the card): the counterpart of
+``render_frame_jit`` and the four ``_stage_*_x`` jits. ``StageGraphs`` is
+the capture and replay both graphed frames share (``FastFrameGraph`` in
+ops/fast_pipeline.py is the other).
 """
 
 from __future__ import annotations
 
 import contextlib
+import time
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from .. import kernels
 from ..config import RasterizerConfig
 from .projection import project_splats
 from .render_exact import render_tiles
@@ -90,42 +100,208 @@ class FrameOutput(NamedTuple):
     splat_pos: torch.Tensor      # (P, 3) model-scaled positions
 
 
+def _exact_stages(cloud, uniforms: FrameUniforms, cfg: RasterizerConfig,
+                  tile_capacity: int) -> tuple:
+    """The exact frame's four stages as (name, function) pairs, in order:
+    each function takes the one before's result (the first takes None) and
+    the last returns the FrameOutput."""
+    def project(_):
+        return project_splats(
+            cloud.means, cloud.cov3d, cloud.opacity, cloud.sh,
+            cloud.upload_time, uniforms.view, uniforms.proj,
+            uniforms.camera_pos, uniforms.model_scale, uniforms.time, cfg)
+
+    def sort(prj):
+        return prj, emit_and_sort(prj.valid, prj.rect, prj.num_tiles,
+                                  prj.depth16, cfg)
+
+    def boundaries(sorted_):
+        prj, pairs = sorted_
+        return prj, pairs, tile_boundaries(pairs.keys, pairs.num_pairs, cfg)
+
+    def render(bounded):
+        prj, pairs, (start, end) = bounded
+        out = render_tiles(pairs.values, start, end, prj.image_pos,
+                           prj.conic, prj.color, uniforms.heatmap_factor,
+                           cfg, tile_capacity=tile_capacity)
+        stats = FrameStats(num_pairs=pairs.num_pairs,
+                           num_overflow=pairs.num_overflow,
+                           max_tile_count=out.tile_counts.max())
+        return FrameOutput(image=out.image, stats=stats,
+                           sorted_values=pairs.values, tile_start=start,
+                           tile_end=end, tile_t0=out.tile_t0,
+                           splat_pos=prj.pos)
+
+    return (("Projection", project), ("Sort", sort),
+            ("Boundaries", boundaries), ("Render", render))
+
+
+def run_stages(stages, timer=None):
+    """Run (name, function) stages in order, each timed by ``timer``
+    (``timer.stage(name)``, e.g. ``StageTimer``) when one is passed."""
+    stage = timer.stage if timer is not None else (
+        lambda name: contextlib.nullcontext())
+    out = None
+    for name, fn in stages:
+        with stage(name):
+            out = fn(out)
+    return out
+
+
 def render_frame_staged(cloud, uniforms: FrameUniforms,
                         cfg: RasterizerConfig, tile_capacity: int = 2048,
                         timer=None) -> FrameOutput:
     """One exact frame in the reference's four stages (Projection, Sort,
-    Boundaries, Render; gaussian_splatting_rasterizer.gd:135-160), each
-    timed by ``timer`` (``timer.stage(name)``, e.g. ``StageTimer``) when
-    one is passed."""
-    stage = timer.stage if timer is not None else (
-        lambda name: contextlib.nullcontext())
-    with stage("Projection"):
-        prj = project_splats(
-            cloud.means, cloud.cov3d, cloud.opacity, cloud.sh,
-            cloud.upload_time, uniforms.view, uniforms.proj,
-            uniforms.camera_pos, uniforms.model_scale, uniforms.time, cfg)
-    with stage("Sort"):
-        pairs = emit_and_sort(prj.valid, prj.rect, prj.num_tiles,
-                              prj.depth16, cfg)
-    with stage("Boundaries"):
-        start, end = tile_boundaries(pairs.keys, pairs.num_pairs, cfg)
-    with stage("Render"):
-        out = render_tiles(pairs.values, start, end, prj.image_pos,
-                           prj.conic, prj.color, uniforms.heatmap_factor,
-                           cfg, tile_capacity=tile_capacity)
-    stats = FrameStats(num_pairs=pairs.num_pairs,
-                       num_overflow=pairs.num_overflow,
-                       max_tile_count=out.tile_counts.max())
-    return FrameOutput(image=out.image, stats=stats,
-                       sorted_values=pairs.values, tile_start=start,
-                       tile_end=end, tile_t0=out.tile_t0, splat_pos=prj.pos)
+    Boundaries, Render; gaussian_splatting_rasterizer.gd:135-160), run
+    eagerly, each timed by ``timer`` when one is passed."""
+    return run_stages(_exact_stages(cloud, uniforms, cfg, tile_capacity),
+                      timer)
 
 
 def render_frame(cloud, uniforms: FrameUniforms, cfg: RasterizerConfig,
                  tile_capacity: int = 2048) -> FrameOutput:
-    """One exact frame (the JAX package's ``render_frame`` and
-    ``render_frame_jit``)."""
+    """One exact frame (the JAX package's ``render_frame``; run it as
+    ``ExactFrameGraph`` for ``render_frame_jit``)."""
     return render_frame_staged(cloud, uniforms, cfg, tile_capacity)
+
+
+def graph_key(cloud, cfg: RasterizerConfig) -> tuple:
+    """What a captured frame depends on besides its uniforms: the config,
+    the splat count and the cloud's tensors (address, shape, dtype). A
+    frame whose key differs needs a new capture; the camera, heatmap,
+    model scale and time are uniforms and do not enter it."""
+    tensors = (cloud.means, cloud.cov3d, cloud.opacity, cloud.sh,
+               cloud.upload_time)
+    return (cfg, cloud.num_splats,
+            tuple((t.data_ptr(), tuple(t.shape), t.dtype, t.device)
+                  for t in tensors))
+
+
+def exact_graph_key(cloud, cfg: RasterizerConfig, tile_capacity: int) -> tuple:
+    """``graph_key`` and the tile capacity, which sizes the exact
+    composite: what an ``ExactFrameGraph`` is captured for."""
+    return graph_key(cloud, cfg) + (int(tile_capacity),)
+
+
+class StageGraphs:
+    """A staged frame as captured CUDA graphs, one a stage, replayed back
+    to back on the current stream with no host work between them.
+
+    Capture (in ``__init__``): one eager warm-up frame on a side stream,
+    which builds the kernels, under ``torch.cuda.set_sync_debug_mode
+    ("error")``, so that a host read on the path raises there; then the
+    stages, each into its own graph, all in one memory pool, with
+    ``capture_error_mode="thread_local"`` (other threads may pin memory and
+    copy while a frame is captured). The caller holds whatever lock guards
+    the cloud's tensors (a streaming loader's ``write_lock``).
+
+    Inputs: whatever the stages read (a cloud's tensors, whose addresses
+    the graphs keep), and one (UNIFORM_WIDTH,) f32 device buffer that the
+    frame's FrameUniforms are views into: ``make_stages(uniforms)`` returns
+    the stages on those views. ``replay`` writes a frame's uniform vector
+    (``pack_uniforms``) with one copy from pinned host memory, whose reuse
+    waits on the event of the copy before, and returns the last stage's
+    output: the graphs' own buffers, valid until the next replay.
+
+    Launch counts: a capture records its kernels' launches
+    (``kernels.recording_launches``) in ``launches``, and each replay adds
+    them to the counters. A failed capture or replay raises; nothing falls
+    back to the eager frame.
+    """
+
+    def __init__(self, make_stages, device: torch.device, uniform_values):
+        if device.type != "cuda":
+            raise ValueError(f"{type(self).__name__} captures CUDA work only")
+        self._host = torch.empty(UNIFORM_WIDTH, dtype=torch.float32,
+                                 pin_memory=True)
+        self._dev = torch.empty(UNIFORM_WIDTH, dtype=torch.float32,
+                                device=device)
+        self._uploaded = torch.cuda.Event()
+        stages = make_stages(uniforms_from_buffer(self._dev))
+        self._upload(uniform_values)
+        t0 = time.perf_counter()
+        self._capture(stages, device)
+        self.capture_seconds = time.perf_counter() - t0
+
+    def _upload(self, values) -> None:
+        self._uploaded.synchronize()     # the last copy has left the buffer
+        self._host.numpy()[:] = values
+        self._dev.copy_(self._host, non_blocking=True)
+        self._uploaded.record()
+
+    def _capture(self, stages, dev) -> None:
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = run_stages(stages)
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+            del out
+        torch.cuda.current_stream(dev).wait_stream(side)
+        pool = torch.cuda.graph_pool_handle()
+        self._graphs, self.launches = [], {}
+        out = None
+        for name, fn in stages:
+            g = torch.cuda.CUDAGraph()
+            with kernels.recording_launches() as recorded, torch.cuda.graph(
+                    g, pool=pool, stream=side,
+                    capture_error_mode="thread_local"):
+                out = fn(out)
+            for kernel, n in recorded.items():
+                self.launches[kernel] = self.launches.get(kernel, 0) + n
+            self._graphs.append((name, g))
+        self._out = out
+
+    def replay(self, uniform_values, timer=None):
+        """Replay the frame for one (UNIFORM_WIDTH,) f32 uniform vector,
+        each stage timed by ``timer`` when one is passed; returns the
+        graphs' output buffers."""
+        self._upload(uniform_values)
+        stage = timer.stage if timer is not None else (
+            lambda name: contextlib.nullcontext())
+        for name, g in self._graphs:
+            with stage(name):
+                g.replay()
+        kernels.count_launches(self.launches)
+        return self._out
+
+
+class ExactFrameGraph(StageGraphs):
+    """The exact frame as four captured CUDA graphs (Projection, Sort,
+    Boundaries, Render; see ``StageGraphs``): the port's counterpart of the
+    JAX package's ``render_frame_jit`` and its four stage jits
+    (``_stage_project_x``, ``_stage_sort_x``, ``_stage_bounds_x``,
+    ``_stage_render_x``), compiled once per static configuration. The
+    frame is ``render_frame_staged``'s, bit for bit. ``key`` is the
+    ``exact_graph_key`` it was captured for: a new tile capacity needs a
+    new capture.
+
+    Output: ``render`` copies ``image``, ``tile_t0`` and ``stats`` out of
+    the graphs' buffers, so a frame a caller keeps is not overwritten by
+    the next. The picking fields (``sorted_values``, ``tile_start``,
+    ``tile_end``, ``splat_pos``) are the graphs' buffers: valid until the
+    next ``render`` of this graph.
+    """
+
+    def __init__(self, cloud, cfg: RasterizerConfig, uniform_values,
+                 tile_capacity: int = 2048):
+        self.key = exact_graph_key(cloud, cfg, tile_capacity)
+        self.cloud = cloud
+        super().__init__(
+            lambda uniforms: _exact_stages(cloud, uniforms, cfg,
+                                           tile_capacity),
+            cloud.means.device, uniform_values)
+
+    def render(self, uniform_values, timer=None) -> FrameOutput:
+        """Replay the frame for one (UNIFORM_WIDTH,) f32 uniform vector,
+        each stage timed by ``timer`` when one is passed."""
+        out = self.replay(uniform_values, timer)
+        return out._replace(
+            image=out.image.clone(), tile_t0=out.tile_t0.clone(),
+            stats=FrameStats(*(s.clone() for s in out.stats)))
 
 
 def render_multiview(cloud, uniforms_batched: FrameUniforms,

@@ -3,25 +3,30 @@ the per-tile [start, end) ranges.
 
 Counterpart of ``godotgaussiansplatting_tpu/ops/sort.py``, bit for bit:
 the same keys, values, ``num_pairs``, ``num_overflow``, ``start`` and
-``end``. Keys are u32 ``tile << 16 | depth16`` up to ``INVALID_KEY``; torch
-has no ``>>``, ``<`` or ``searchsorted`` on u32, so they are carried as
-int64 holding the u32 value. Pairs are emitted in the JAX package's three
-groups and order: the base ``(P, max_tiles_per_splat)`` slot matrix, each
-``exact_tiers`` tier's compacted dense matrix, then the giants'
-``(giant_splat_capacity, num_tiles)`` matrix. Each pair is dropped or kept
-by its emission position against the ``k_max`` buffer before the sort
-(never by slicing the sorted buffer), and the sort is stable, so equal
-(tile, depth16) keys keep emission order.
+``end``. Keys are u32 ``tile << 16 | depth16`` up to ``INVALID_KEY``,
+returned as int64 holding the u32 value (torch has no ``>>``, ``<`` or
+``searchsorted`` on u32).
 
-Only the live pairs are emitted, in emission order: each splat's live base
-slots are a prefix of its row of the slot matrix, so they are expanded from
-per-splat counts, and the dense groups are masked. At most ``k_max`` pairs
-are sorted (the base matrix alone is P * 32 slots, 186M at the 5.8M scene)
-and the tail is padded with ``INVALID_KEY`` and 0. Invalid keys sort last
-and the live pairs' stable order is their emission order, so the buffer
-equals a sort of the whole slot matrices, dead slots carrying
-``INVALID_KEY``: that is what the JAX package sorts, and
-``tests/test_torch_sort.py`` holds the two bit-equal.
+The emission follows the JAX package's design, with no host read: the
+static ``k_max`` key and value buffers are filled with ``INVALID_KEY`` and
+0, and every live pair is written at its emission position, positions
+``>= k_max`` dropped:
+
+  * the base group: splat i's slot t at ``offsets[i] + t`` for
+    ``t < min(num_tiles[i], max_tiles_per_splat)``, the t-th tile of its
+    rect in row-major order, ``offsets`` the exclusive prefix of the capped
+    counts (culled splats' counts reserve their positions, as in JAX);
+  * each ``exact_tiers`` tier's compacted dense rows at
+    ``total + total_extra + off_c + t``;
+  * the giants' dense rows after the tiers.
+
+That is the order JAX's stable sort of its whole slot matrices gives
+(dead slots carry ``INVALID_KEY`` and sort last), so one stable sort of the
+buffer equals it. ``emit_base`` and ``emit_dense`` send CUDA tensors to
+the kernels of csrc/emit_exact.cu and CPU tensors to their plain versions,
+which scatter the same matrices into a buffer whose last slot takes the
+dropped pairs. The keys are sorted as int32 ``key ^ 0x80000000`` (the u32
+order as a signed one: 32-bit radix passes).
 
 ``num_pairs`` is the emitted total, not clamped to ``k_max``, as in the
 JAX package (ROADMAP queue 3 #3).
@@ -33,7 +38,10 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from .. import kernels
 from ..config import INVALID_KEY, RasterizerConfig
+
+SIGN = 1 << 31     # u32 key - SIGN = the key ^ 0x80000000 as an int32
 
 
 class SortedPairs(NamedTuple):
@@ -43,25 +51,203 @@ class SortedPairs(NamedTuple):
     num_overflow: torch.Tensor  # () i32 pairs dropped by the per-splat caps
 
 
-def _keys(tile: torch.Tensor, depth16: torch.Tensor) -> torch.Tensor:
-    """u32 ``tile << 16 | depth16`` as int64 (the JAX package's uint32 shift
-    and or, wrapped to 32 bits)."""
-    return ((tile.to(torch.int64) << 16)
-            | (depth16.to(torch.int64) & 0xFFFFFFFF)) & 0xFFFFFFFF
+def _flipped_keys(tile: torch.Tensor, depth16: torch.Tensor) -> torch.Tensor:
+    """int32 ``(tile << 16 | depth16) ^ 0x80000000``: the JAX package's u32
+    shift and or, wrapped to 32 bits, in the sort's signed order."""
+    k = (((tile.to(torch.int64) << 16)
+          | (depth16.to(torch.int64) & 0xFFFFFFFF)) & 0xFFFFFFFF)
+    return (k - SIGN).to(torch.int32)
 
 
-def _compact(taken: torch.Tensor, rank: torch.Tensor, cap: int):
-    """Splat ids of the taken splats at their rank, and the slot's live flag:
-    the JAX package's ``zeros(cap).at[dest].set(ids, mode="drop")`` with
-    ``dest = where(taken, rank, cap)``, built from the ``dest < cap`` mask."""
-    dest = torch.where(taken, rank, torch.full_like(rank, cap))
-    keep = dest < cap
-    idx = torch.zeros((cap,), dtype=torch.int32, device=taken.device)
-    alive = torch.zeros((cap,), dtype=torch.bool, device=taken.device)
-    d = dest[keep].to(torch.int64)
-    idx[d] = torch.nonzero(keep)[:, 0].to(torch.int32)
-    alive[d] = True
-    return idx, alive
+def _compact(rank: torch.Tensor, cap: int):
+    """Splat ids of a group's taken splats at their rank, and the slot's
+    live flag: the JAX package's ``zeros(cap).at[dest].set(ids,
+    mode="drop")`` with ``dest = where(taken, rank, cap)``. The taken
+    splats are the first ``cap`` eligible ones and ``rank`` (the inclusive
+    count of eligible splats, less one) steps up by one at each, so slot c
+    holds the first splat whose rank is c: one binary search a slot.
+    Scattering every splat instead, the untaken ones onto one drop slot,
+    made the Sort stage of a 1080p frame of 5.8M splats 6.03 ms on an
+    H100 against 4.81 (chip_smoke.py phase 8)."""
+    slots = torch.arange(cap, dtype=torch.int32, device=rank.device)
+    first = torch.searchsorted(rank, slots, out_int32=True)
+    alive = slots <= (rank[-1] if rank.numel() else -1)
+    return torch.where(alive, first, 0), alive
+
+
+def emit_base_reference(keys, vals, valid, rect, nt, offsets, depth16,
+                        gx: int, max_t: int) -> None:
+    """Plain version of the base emission: the (P, max_t) slot matrix,
+    each live slot scattered to its position in ``keys`` / ``vals``
+    ((k_max + 1,) int32; the last slot takes the dropped ones)."""
+    dev = rect.device
+    k_max = keys.shape[0] - 1
+    P = rect.shape[0]
+    tt = torch.arange(max_t, dtype=torch.int64, device=dev)[None, :]
+    pos = offsets[:, None] + tt
+    live = valid[:, None] & (tt < nt[:, None]) & (pos < k_max)
+    w = torch.clamp(rect[:, 2] - rect[:, 0], min=1).to(torch.int64)[:, None]
+    ty = tt // w
+    tx = tt - ty * w
+    tile = (rect[:, 1] * gx + rect[:, 0]).to(torch.int64)[:, None] \
+        + ty * gx + tx
+    dest = torch.where(live, pos, k_max).reshape(-1)
+    ids = torch.arange(P, dtype=torch.int32, device=dev)[:, None]
+    keys.scatter_(0, dest, _flipped_keys(tile, depth16[:, None]).reshape(-1))
+    vals.scatter_(0, dest, ids.expand(-1, max_t).reshape(-1))
+
+
+def emit_dense_reference(keys, vals, idx, nt_c, off_c, pos0, rect, depth16,
+                         width: int, gx: int) -> None:
+    """Plain version of one dense group: the (C, width) matrix of the
+    compacted splats ``idx`` over their full row-major rects, slot t of row
+    c at ``pos0 + off_c[c] + t`` for ``t < nt_c[c]``."""
+    dev = rect.device
+    k_max = keys.shape[0] - 1
+    idx64 = idx.to(torch.int64)
+    rect_c = rect[idx64]
+    tt = torch.arange(width, dtype=torch.int64, device=dev)[None, :]
+    pos = pos0 + off_c[:, None] + tt
+    live = (tt < nt_c[:, None]) & (pos < k_max)
+    w = torch.clamp(rect_c[:, 2] - rect_c[:, 0], min=1).to(torch.int64)
+    ty = tt // w[:, None]
+    tx = tt - ty * w[:, None]
+    tile = (rect_c[:, 1] * gx + rect_c[:, 0]).to(torch.int64)[:, None] \
+        + ty * gx + tx
+    dest = torch.where(live, pos, k_max).reshape(-1)
+    keys.scatter_(0, dest,
+                  _flipped_keys(tile, depth16[idx64][:, None]).reshape(-1))
+    vals.scatter_(0, dest, idx[:, None].expand(-1, width).reshape(-1))
+
+
+def _check_emit(what: str, keys, vals, *tensors) -> None:
+    if keys.dtype != torch.int32 or vals.dtype != torch.int32 \
+            or keys.shape != vals.shape or keys.ndim != 1:
+        raise ValueError(f"{what}: keys and values must be (k_max + 1,) "
+                         "int32")
+    kernels.require_cuda(what, keys, vals, *tensors)
+
+
+def emit_base(keys, vals, valid, rect, nt, offsets, depth16, gx: int,
+              max_t: int) -> None:
+    """The base emission into ``keys`` / ``vals`` ((k_max + 1,) int32,
+    filled by the caller): CUDA tensors go to the kernel (csrc/
+    emit_exact.cu, ``gs_emit_base``), CPU tensors to
+    ``emit_base_reference``. ``valid`` (P,) bool, ``rect`` (P, 4) i32,
+    ``nt`` (P,) i32 capped counts, ``offsets`` (P,) int64 and ``depth16``
+    (P,) i32."""
+    if keys.device.type == "cpu":
+        emit_base_reference(keys, vals, valid, rect, nt, offsets, depth16,
+                            gx, max_t)
+        return
+    P = rect.shape[0]
+    if (valid.dtype != torch.bool or rect.shape != (P, 4)
+            or rect.dtype != torch.int32 or nt.dtype != torch.int32
+            or offsets.dtype != torch.int64 or depth16.dtype != torch.int32
+            or not (valid.shape == nt.shape == offsets.shape
+                    == depth16.shape == (P,))):
+        raise ValueError("emit_base: unexpected input shapes/dtypes")
+    _check_emit("emit_base", keys, vals, valid, rect, nt, offsets, depth16)
+    dev = keys.device
+    err = kernels.library("emit_exact").gs_emit_base(
+        valid.data_ptr(), rect.data_ptr(), nt.data_ptr(), offsets.data_ptr(),
+        depth16.data_ptr(), keys.data_ptr(), vals.data_ptr(), P, gx,
+        keys.shape[0] - 1, kernels.stream_ptr(dev))
+    kernels.check(err, "emit_exact base launch")
+    kernels.count_launch("emit_exact")
+
+
+def emit_dense(keys, vals, idx, nt_c, off_c, pos0, rect, depth16,
+               width: int, gx: int) -> None:
+    """One dense group into ``keys`` / ``vals``: CUDA tensors go to the
+    kernel (``gs_emit_dense``), CPU tensors to ``emit_dense_reference``.
+    ``idx`` (C,) i32 splat ids, ``nt_c`` (C,) i32 counts (0 for a dead
+    row), ``off_c`` (C,) int64 exclusive prefix of ``nt_c``, ``pos0`` ()
+    int64 the group's first position."""
+    if keys.device.type == "cpu":
+        emit_dense_reference(keys, vals, idx, nt_c, off_c, pos0, rect,
+                             depth16, width, gx)
+        return
+    C = idx.shape[0]
+    if (idx.dtype != torch.int32 or nt_c.dtype != torch.int32
+            or off_c.dtype != torch.int64 or pos0.dtype != torch.int64
+            or pos0.numel() != 1 or rect.dtype != torch.int32
+            or rect.ndim != 2 or rect.shape[1] != 4
+            or depth16.dtype != torch.int32
+            or not (nt_c.shape == off_c.shape == (C,))):
+        raise ValueError("emit_dense: unexpected input shapes/dtypes")
+    _check_emit("emit_dense", keys, vals, idx, nt_c, off_c, pos0, rect,
+                depth16)
+    dev = keys.device
+    err = kernels.library("emit_exact").gs_emit_dense(
+        idx.data_ptr(), nt_c.data_ptr(), off_c.data_ptr(), pos0.data_ptr(),
+        rect.data_ptr(), depth16.data_ptr(), keys.data_ptr(),
+        vals.data_ptr(), C, width, gx, keys.shape[0] - 1,
+        kernels.stream_ptr(dev))
+    kernels.check(err, "emit_exact dense launch")
+    kernels.count_launch("emit_exact")
+
+
+def emit_pairs(proj_valid: torch.Tensor, rect: torch.Tensor,
+               num_tiles: torch.Tensor, depth16: torch.Tensor,
+               cfg: RasterizerConfig, capacity: int | None = None,
+               tiers=None, base=emit_base, dense=emit_dense) -> tuple:
+    """The emission into the static buffer (see the module docstring):
+    (keys, values, num_pairs, num_overflow), keys and values (k_max + 1,)
+    int32 (flipped keys; the last slot is the drop slot, whatever it
+    holds), the counts () int64. ``base`` and ``dense`` write the groups
+    (``emit_base`` and ``emit_dense``; a comparison passes their plain
+    versions)."""
+    dev = rect.device
+    P = rect.shape[0]
+    gx, _ = cfg.tile_dims
+    k_max = capacity if capacity is not None else cfg.sort_buffer_factor * P
+    max_t = cfg.max_tiles_per_splat
+    if tiers is None:
+        tiers = getattr(cfg, "exact_tiers", ()) or ()
+    tiers = tuple((int(w), int(c)) for (w, c) in tiers if w > max_t)
+    rect = rect.to(torch.int32).contiguous()
+    num_tiles = num_tiles.to(torch.int32)
+    depth16 = depth16.to(torch.int32).contiguous()
+    proj_valid = proj_valid.contiguous()
+
+    def rank_of(mask):
+        return torch.cumsum(mask, 0, dtype=torch.int32) - 1
+
+    nt_capped = torch.clamp(num_tiles, max=max_t)
+    groups = []
+    prev_w = max_t
+    for (w_t, cap_t) in tiers:
+        elig = proj_valid & (num_tiles > prev_w) & (num_tiles <= w_t)
+        trank = rank_of(elig)
+        taken = elig & (trank < cap_t)
+        nt_capped = torch.where(taken, 0, nt_capped)
+        groups.append((w_t, cap_t, trank))
+        prev_w = w_t
+    gcap = cfg.giant_splat_capacity
+    if gcap:
+        is_giant = proj_valid & (num_tiles > prev_w)
+        grank = rank_of(is_giant)
+        g_taken = is_giant & (grank < gcap)
+        nt_capped = torch.where(g_taken, 0, nt_capped)
+        groups.append((cfg.num_tiles, gcap, grank))
+    cum = torch.cumsum(nt_capped, 0, dtype=torch.int64)
+    offsets = cum - nt_capped                         # exclusive prefix
+    total = cum[-1] if P else torch.zeros((), dtype=torch.int64, device=dev)
+
+    keys = torch.full((k_max + 1,), INVALID_KEY - SIGN, dtype=torch.int32,
+                      device=dev)
+    vals = torch.zeros((k_max + 1,), dtype=torch.int32, device=dev)
+    base(keys, vals, proj_valid, rect, nt_capped, offsets, depth16, gx,
+         max_t)
+    for (width, cap, rank) in groups:
+        idx, alive = _compact(rank, cap)
+        nt_c = torch.where(alive, num_tiles[idx.to(torch.int64)], 0)
+        cum_c = torch.cumsum(nt_c, 0, dtype=torch.int64)
+        dense(keys, vals, idx, nt_c, cum_c - nt_c, total, rect, depth16,
+              width, gx)
+        total = total + nt_c.sum(dtype=torch.int64)
+    return keys, vals, total, num_tiles.sum(dtype=torch.int64) - total
 
 
 def emit_and_sort(proj_valid: torch.Tensor, rect: torch.Tensor,
@@ -75,105 +261,12 @@ def emit_and_sort(proj_valid: torch.Tensor, rect: torch.Tensor,
     ``tiers`` defaults to ``cfg.exact_tiers``: a splat wider than the base
     cap is compacted into the smallest tier that covers it and emitted
     densely; splats wider than the last tier go to the giant path."""
-    dev = rect.device
-    P = rect.shape[0]
-    gx, _ = cfg.tile_dims
-    k_max = capacity if capacity is not None else cfg.sort_buffer_factor * P
-    max_t = cfg.max_tiles_per_splat
-    if tiers is None:
-        tiers = getattr(cfg, "exact_tiers", ()) or ()
-    tiers = tuple((int(w), int(c)) for (w, c) in tiers if w > max_t)
-    rect = rect.to(torch.int32)
-    num_tiles = num_tiles.to(torch.int32)
-
-    def rank_of(mask):
-        return torch.cumsum(mask.to(torch.int32), 0, dtype=torch.int32) - 1
-
-    nt_capped = torch.clamp(num_tiles, max=max_t)
-    tier_taken = []
-    prev_w = max_t
-    for (w_t, cap_t) in tiers:
-        elig = proj_valid & (num_tiles > prev_w) & (num_tiles <= w_t)
-        trank = rank_of(elig)
-        taken = elig & (trank < cap_t)
-        nt_capped = torch.where(taken, 0, nt_capped)
-        tier_taken.append((w_t, cap_t, taken, trank))
-        prev_w = w_t
-    gcap = cfg.giant_splat_capacity
-    if gcap:
-        is_giant = proj_valid & (num_tiles > prev_w)
-        grank = rank_of(is_giant)
-        g_taken = is_giant & (grank < gcap)
-        nt_capped = torch.where(g_taken, 0, nt_capped)
-    cum = torch.cumsum(nt_capped, 0, dtype=torch.int64)
-    offsets = cum - nt_capped                         # exclusive prefix
-    total = cum[-1] if P else torch.zeros((), dtype=torch.int64, device=dev)
-
-    rect_w = torch.clamp(rect[:, 2] - rect[:, 0], min=1)
-    base_tile = rect[:, 1] * gx + rect[:, 0]          # top-left tile id
-
-    # slot t of splat i is the t-th tile of its rect in row-major order;
-    # its live slots are the prefix t < n_live of its row
-    n_live = torch.where(
-        proj_valid,
-        torch.clamp(torch.minimum(nt_capped.to(torch.int64),
-                                  k_max - offsets), min=0), 0)
-    first = torch.cumsum(n_live, 0) - n_live
-    L = int(n_live.sum()) if P else 0
-    sid = torch.repeat_interleave(
-        torch.arange(P, device=dev), n_live, output_size=L)
-    tt = (torch.arange(L, device=dev) - first[sid]).to(torch.int32)
-    w_s = rect_w[sid]
-    ty = tt // w_s
-    tx = tt - ty * w_s
-    key_parts = [_keys(base_tile[sid] + ty * gx + tx, depth16[sid])]
-    val_parts = [sid.to(torch.int32)]
-
-    def dense_emit(idx, alive, width, pos0):
-        """Compacted splat ids (C,) and their live flags -> the (C, width)
-        dense emission over each splat's full row-major rect, and its pair
-        count. pos0: the emission position of the group's first pair."""
-        idx64 = idx.to(torch.int64)
-        rect_c = rect[idx64]
-        nt_c = torch.where(alive, num_tiles[idx64], 0)
-        w_c = torch.clamp(rect_c[:, 2] - rect_c[:, 0], min=1)
-        base_c = rect_c[:, 1] * gx + rect_c[:, 0]
-        off_c = torch.cumsum(nt_c, 0, dtype=torch.int64) - nt_c
-        ttc = torch.arange(width, dtype=torch.int32, device=dev)[None, :]
-        tyc = ttc // w_c[:, None]
-        txc = ttc - tyc * w_c[:, None]
-        live_c = ((ttc < nt_c[:, None])
-                  & (pos0 + off_c[:, None] + ttc < k_max))
-        key_c = _keys(base_c[:, None] + tyc * gx + txc, depth16[idx64][:, None])
-        key_parts.append(key_c[live_c])
-        val_parts.append(idx[:, None].expand(-1, width)[live_c])
-        return nt_c.to(torch.int64).sum()
-
-    total_extra = torch.zeros((), dtype=torch.int64, device=dev)
-    for (w_t, cap_t, taken, trank) in tier_taken:
-        tidx, talive = _compact(taken, trank, cap_t)
-        total_extra = total_extra + dense_emit(tidx, talive, w_t,
-                                               total + total_extra)
-    if gcap:
-        gidx, galive = _compact(g_taken, grank, gcap)
-        total_extra = total_extra + dense_emit(gidx, galive, cfg.num_tiles,
-                                               total + total_extra)
-    total = total + total_extra
-    overflow = num_tiles.to(torch.int64).sum() - total
-
-    keys = torch.cat(key_parts)
-    vals = torch.cat(val_parts)
-    skeys, order = torch.sort(keys, stable=True)
-    svals = vals[order]
-    n = skeys.shape[0]
-    if n > k_max:
-        skeys, svals = skeys[:k_max], svals[:k_max]
-    elif n < k_max:
-        skeys = torch.cat([skeys, torch.full((k_max - n,), INVALID_KEY,
-                                             dtype=torch.int64, device=dev)])
-        svals = torch.cat([svals, torch.zeros((k_max - n,), dtype=torch.int32,
-                                              device=dev)])
-    return SortedPairs(keys=skeys, values=svals.to(torch.int32),
+    keys, vals, total, overflow = emit_pairs(proj_valid, rect, num_tiles,
+                                             depth16, cfg, capacity, tiers)
+    k_max = keys.shape[0] - 1
+    skeys, order = torch.sort(keys[:k_max], stable=True)
+    return SortedPairs(keys=skeys.to(torch.int64).add_(SIGN),
+                       values=vals[:k_max].gather(0, order),
                        num_pairs=total.to(torch.int32),
                        num_overflow=overflow.to(torch.int32))
 
@@ -181,9 +274,10 @@ def emit_and_sort(proj_valid: torch.Tensor, rect: torch.Tensor,
 def tile_boundaries(sorted_keys: torch.Tensor, num_pairs: torch.Tensor,
                     cfg: RasterizerConfig
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-tile ``[start, end)`` over the sorted pair buffer: two binary
-    searches per tile over the sorted tile ids (``INVALID_KEY >> 16 =
-    0xFFFF`` stays at or above the tile count).
+    """Per-tile ``[start, end)`` over the sorted pair buffer: one binary
+    search of the T + 1 tile bounds ``t << 16`` in the sorted keys (tile
+    t's pairs are the keys in ``[t << 16, (t + 1) << 16)``; ``INVALID_KEY
+    >> 16 = 0xFFFF`` stays at or above the tile count).
 
     With ``cfg.reference_boundary_quirk`` the reference's quirk is kept
     (gsplat_boundaries.glsl:36-49): the last run in the buffer gets no end,
@@ -195,14 +289,15 @@ def tile_boundaries(sorted_keys: torch.Tensor, num_pairs: torch.Tensor,
     T = cfg.num_tiles
     dev = sorted_keys.device
     K = sorted_keys.shape[0]
-    tids = sorted_keys >> 16
-    queries = torch.arange(T, dtype=torch.int64, device=dev)
-    start = torch.searchsorted(tids, queries, side="left")
-    end = torch.searchsorted(tids, queries, side="right")
+    bounds = torch.searchsorted(
+        sorted_keys, torch.arange(T + 1, dtype=torch.int64, device=dev) << 16)
+    start, end = bounds[:-1], bounds[1:]
     if cfg.reference_boundary_quirk:
+        queries = torch.arange(T, dtype=torch.int64, device=dev)
         n = num_pairs.to(torch.int64)
         has_pairs = n > 0
-        last = tids[torch.clamp(n - 1, 0, K - 1)]
+        last = sorted_keys.index_select(
+            0, torch.clamp(n - 1, 0, K - 1).reshape(1)).reshape(()) >> 16
         last_tid = torch.where(has_pairs, last, -1)
         is_grid_last = last_tid == (T - 1)
         patched_end = torch.where(is_grid_last & (n > 1), n - 1, 0)

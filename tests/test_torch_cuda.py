@@ -17,6 +17,7 @@ import torch
 
 import godotgaussiansplatting_torch as gt
 from godotgaussiansplatting_torch import kernels, sfu_probe, split_render
+from godotgaussiansplatting_torch.ops import projection as prj_mod
 from godotgaussiansplatting_torch.ops import projection_kernel as pk
 from godotgaussiansplatting_torch.ops import render_v3 as rv
 from godotgaussiansplatting_torch.ops import render_exact as rx
@@ -27,6 +28,8 @@ from godotgaussiansplatting_torch.ops.binning2 import bin_blocks2
 from godotgaussiansplatting_torch.ops.blocks2 import (
     adaptive_cell_shift, build_block_frame2, build_block_frame2_words)
 from godotgaussiansplatting_torch.models.ply import load_splats
+from godotgaussiansplatting_torch.ops.pipeline import (
+    ExactFrameGraph, pack_uniforms, render_frame_staged, uniforms_from_buffer)
 from godotgaussiansplatting_torch.ops.projection import project_splats
 
 from _torch_parity import exact_tile_lists, model_blob
@@ -67,9 +70,10 @@ def test_cpu_frame_launches_no_kernel():
         gt.Camera.reset_pose(), exact, device="cpu"), exact)
     assert out.image.device.type == "cpu"
     assert kernels.launch_counts() == {name: 0 for name in kernels.COUNTERS}
-    assert set(kernels.COUNTERS) == {"projection", "render_v3",
-                                     "render_v3_cooked", "render_v4",
-                                     "render_exact", "sfu_probe"}
+    assert set(kernels.COUNTERS) == {"projection", "projection_readable",
+                                     "render_v3", "render_v3_cooked",
+                                     "render_v4", "render_exact",
+                                     "emit_exact", "sfu_probe"}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -153,6 +157,8 @@ def _cfg(tile, batch_u, **kw):
 
 
 def _render_inputs(cloud, cfg, batch_u, words):
+    # the readable projection's kernel takes (P, 16, 3) SH
+    cloud = gt.fast_cloud_view(cloud, planar_sh=cfg.projection_kernel)
     uni = gt.make_uniforms(gt.Camera.reset_pose(), cfg, device=cloud.device,
                            heatmap=1.0)
     args = (cloud.means, cloud.cov3d, cloud.opacity, cloud.sh,
@@ -279,7 +285,8 @@ def test_render_v4_runs_its_quality_fast_defaults(cuda):
         16, 4, 4)
     cloud = _cloud(cuda)
     _hold_v4(_render_inputs(cloud, cfg, 4, False), 4, True)
-    out = gt.render_frame_fast(cloud, gt.make_uniforms(
+    out = gt.render_frame_fast(gt.fast_cloud_view(cloud, planar_sh=False),
+                               gt.make_uniforms(
         gt.Camera.reset_pose(), cfg, device=cuda), cfg)
     assert out.image.shape == (4, 224, 320)
     assert torch.isfinite(out.image).all()
@@ -412,12 +419,13 @@ def test_sharded_paths_at_world_one_on_the_card(cuda):
     try:
         mesh = sharded.make_mesh(1, 1)
         assert mesh.device.type == "cuda" and mesh.backend == "nccl"
-        cloud = _cloud(cuda)
-        shard = sharded.shard_cloud(cloud, mesh)
         base = gt.RasterizerConfig(width=256, height=256)
         for cfg, fast in ((base.fast_defaults(), True),
                           (base.replace(reference_boundary_quirk=False),
                            False)):
+            # the readable projection's kernel takes (P, 16, 3) SH
+            cloud = gt.fast_cloud_view(_cloud(cuda), planar_sh=fast)
+            shard = sharded.shard_cloud(cloud, mesh)
             uni = gt.make_uniforms(gt.Camera.reset_pose(), cfg)
             fn = (sharded.render_frame_fast_sharded if fast
                   else sharded.render_frame_sharded)
@@ -450,6 +458,7 @@ def test_rasterizer_exact_frame_on_the_card_equals_the_cpu(cuda):
     for device in ("cpu", None):
         kw = {} if device is None else {"device": device}
         r = gt.Rasterizer(cloud, texture_size=(320, 224), **kw)
+        r.rasterize(sync=True)   # on the card: the capture's warm-up frame
         kernels.reset_launch_counts()
         out = r.rasterize(sync=True)
         assert out.image.device.type == (device or "cuda")
@@ -552,3 +561,180 @@ def test_fast_frame_graph_equals_the_eager_frame(cuda, config):
     r.texture_size = (256, 160)
     r.rasterize(sync=True)
     assert r.graph_captures == 2
+
+
+# --- the exact frame on the card: readable projection, emission, graphs ----
+
+def _bits(t):
+    """f32 compared as bits (NaN patterns and signed zeros included)."""
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def test_exact_kernel_wrappers_refuse_what_they_do_not_take():
+    """The readable projection's kernel wrapper refuses CPU tensors and
+    any SH layout other than (P, 16, 3) f32 or bf16, with no fallback."""
+    cfg = gt.RasterizerConfig(width=64, height=64)
+    cloud = _exact_cloud("cpu", n=512)
+    uni = gt.make_uniforms(gt.Camera.reset_pose(), cfg, device="cpu")
+    tail = (uni.view, uni.proj, uni.camera_pos, uni.model_scale, uni.time,
+            cfg)
+    args = (cloud.means, cloud.cov3d, cloud.opacity, cloud.sh,
+            cloud.upload_time)
+    with pytest.raises(ValueError, match="CUDA"):
+        prj_mod._project_splats_cuda(*args, *tail)
+    planar = gt.fast_cloud_view(cloud)
+    with pytest.raises(ValueError, match="16, 3"):
+        prj_mod._project_splats_cuda(*args[:3], planar.sh, args[4], *tail)
+    rows = gt.fast_cloud_view(planar, planar_sh=False)
+    assert torch.equal(rows.sh, cloud.sh.to(torch.bfloat16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sh", ["f32", "bf16"])
+def test_projection_readable_kernel_matches_plain(cuda, sh):
+    """Every field of ProjectedSplats bit-equal to the plain version, fully
+    faded in and mid fade-in, with f32 and bf16 SH."""
+    cloud = _exact_cloud(cuda)
+    if sh == "bf16":
+        cloud = gt.fast_cloud_view(cloud, planar_sh=False)
+    cfg = gt.RasterizerConfig(width=640, height=480)
+    for t in (1e9, 0.6):
+        uni = gt.make_uniforms(gt.Camera.reset_pose(), cfg, time=t)
+        args = (cloud.means, cloud.cov3d, cloud.opacity, cloud.sh,
+                cloud.upload_time, uni.view, uni.proj, uni.camera_pos,
+                uni.model_scale, uni.time, cfg)
+        kernels.reset_launch_counts()
+        k = prj_mod.project_splats(*args)
+        assert kernels.launch_counts()["projection_readable"] == 1
+        r = prj_mod.project_splats_reference(*args)
+        for f in prj_mod.ProjectedSplats._fields:
+            assert torch.equal(_bits(getattr(k, f)),
+                               _bits(getattr(r, f))), (t, f)
+        assert int(k.valid.sum()) > cloud.num_splats // 4
+
+
+@pytest.mark.gpu
+def test_emit_exact_kernel_matches_plain(cuda):
+    """The emission kernels write the static buffer bit-equal to their
+    plain versions, with tiers and giants taken (the second tier and the
+    giant path past their capacities), for a buffer that holds every pair
+    and two that drop pairs (two thirds of them, and the last one); the
+    sorted pairs equal the CPU's."""
+    cfg = gt.RasterizerConfig(width=320, height=224, max_tiles_per_splat=2,
+                              exact_tiers=((4, 4096), (8, 256)),
+                              giant_splat_capacity=64)
+    cloud = _exact_cloud(cuda)
+    uni = gt.make_uniforms(gt.Camera.reset_pose(), cfg)
+    prj = project_splats(cloud.means, cloud.cov3d, cloud.opacity, cloud.sh,
+                         cloud.upload_time, uni.view, uni.proj,
+                         uni.camera_pos, uni.model_scale, uni.time, cfg)
+    inputs = (prj.valid, prj.rect, prj.num_tiles, prj.depth16)
+    nt = prj.num_tiles[prj.valid]
+    assert int(((nt > 4) & (nt <= 8)).sum()) > 256 and int((nt > 8).sum()) > 64
+    n = int(so.emit_and_sort(*inputs, cfg).num_pairs)
+    for capacity in (None, n // 3, n - 1):
+        kernels.reset_launch_counts()
+        kk, kv, kn, ko = so.emit_pairs(*inputs, cfg, capacity)
+        # the base group, two tiers and the giants
+        assert kernels.launch_counts()["emit_exact"] == 4
+        rk, rv_, rn, ro = so.emit_pairs(
+            *inputs, cfg, capacity, base=so.emit_base_reference,
+            dense=so.emit_dense_reference)
+        assert torch.equal(kk[:-1], rk[:-1]) and torch.equal(kv[:-1], rv_[:-1])
+        assert int(kn) == int(rn) == n and int(ko) == int(ro)
+        card = so.emit_and_sort(*inputs, cfg, capacity=capacity)
+        host = so.emit_and_sort(*(t.cpu() for t in inputs), cfg,
+                                capacity=capacity)
+        for a, b in zip(card, host):
+            assert torch.equal(a.cpu(), b)
+
+
+def _orbit_values(cfg, n):
+    w, h = cfg.target_size
+    return [pack_uniforms(c.view_matrix(), c.projection_matrix(w, h),
+                          c.camera_pos_ply(), 1.0, 1e9, float(i % 2))
+            for i, c in enumerate(gt.orbit_trajectory(
+                n, radius=5.0, target=(0, 0, 6.0)))]
+
+
+@pytest.mark.gpu
+def test_exact_frame_graph_equals_the_eager_frame(cuda):
+    """ExactFrameGraph bit-equal to the eager staged frame in every field
+    (f32 compared as bits), with the eager frame's launches a replay, and
+    a kept frame left as it was by later replays."""
+    cfg = gt.RasterizerConfig(width=320, height=224)
+    cloud = _exact_cloud(cuda)
+    values = _orbit_values(cfg, 4)
+    graph = ExactFrameGraph(cloud, cfg, values[0], tile_capacity=1024)
+    assert graph.launches == {"projection_readable": 1, "emit_exact": 4,
+                              "render_exact": 1}
+    kept = graph.render(values[0])
+    kept_image = kept.image.clone()
+    for v in values:
+        kernels.reset_launch_counts()
+        out = graph.render(v)
+        torch.cuda.synchronize()
+        replayed = kernels.launch_counts()
+        kernels.reset_launch_counts()
+        uni = uniforms_from_buffer(torch.as_tensor(v, device=cuda))
+        ref = render_frame_staged(cloud, uni, cfg, tile_capacity=1024)
+        torch.cuda.synchronize()
+        assert replayed == kernels.launch_counts()
+        for f in ("image", "sorted_values", "tile_start", "tile_end",
+                  "tile_t0", "splat_pos"):
+            assert torch.equal(_bits(getattr(out, f)),
+                               _bits(getattr(ref, f))), f
+        for a, b in zip(out.stats, ref.stats):
+            assert torch.equal(a, b)
+        assert int(out.stats.num_pairs) > 0
+    assert torch.equal(kept.image, kept_image)
+
+
+@pytest.mark.gpu
+def test_rasterizer_exact_graph_captures_once_and_after_a_regrowth(cuda):
+    """Rasterizer() (exact) replays one capture over several cameras and a
+    heatmap toggle, each frame bit-equal to the eager frame; a capacity
+    regrowth recaptures, and the regrown frame is the eager frame at the
+    new capacity."""
+    r = gt.Rasterizer(_exact_cloud(cuda), texture_size=(320, 224),
+                      tile_capacity=2048)
+    r._now = lambda: 100.0
+    for i, cam in enumerate(gt.orbit_trajectory(3, radius=5.0,
+                                                target=(0, 0, 6.0))):
+        r.camera = cam
+        r.update_camera_matrices()
+        r.should_enable_heatmap = i == 1
+        out = r.rasterize(sync=True)
+        ref = render_frame_staged(r.cloud, r._uniforms(), r.config,
+                                  tile_capacity=r.tile_capacity)
+        assert torch.equal(_bits(out.image), _bits(ref.image))
+        assert torch.equal(out.tile_t0, ref.tile_t0)
+    assert r.graph_captures == 1 and r.tile_capacity == 2048
+    densest = int(out.stats.max_tile_count)
+    r.tile_capacity = max(1, densest // 4)
+    out = r.rasterize(sync=True)             # overflows, grows, recaptures
+    assert r.tile_capacity >= densest and r.graph_captures == 3
+    ref = render_frame_staged(r.cloud, r._uniforms(), r.config,
+                              tile_capacity=r.tile_capacity)
+    assert torch.equal(_bits(out.image), _bits(ref.image))
+
+
+@pytest.mark.gpu
+def test_streamed_exact_model_renders_its_loaded_data(cuda):
+    """A streamed exact model on the card: frames replay one capture while
+    the loader writes its chunks in place, and the frame after the load is
+    bit-equal to the eager frame of the loaded cloud."""
+    r = gt.Rasterizer(model_blob(20_000, seed=3), texture_size=(320, 224),
+                      stream=True, chunks=16)
+    while r.loader.is_loading:
+        r.rasterize(sync=True)
+    r.loader.join()
+    assert r.loader.error is None
+    captures = r.graph_captures
+    r._now = lambda: 100.0
+    out = r.rasterize(sync=True)
+    assert r.graph_captures == captures >= 1, "recaptured after the load"
+    ref = render_frame_staged(r.cloud, r._uniforms(), r.config,
+                              tile_capacity=r.tile_capacity)
+    assert torch.equal(_bits(out.image), _bits(ref.image))
+    assert float(out.image[..., :3].sum()) > 0.0

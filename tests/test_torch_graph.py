@@ -1,7 +1,8 @@
-"""The engine's fast frame as captured CUDA graphs, checked on the CPU.
+"""The engine's fast and exact frames as captured CUDA graphs, checked on
+the CPU.
 
 The graphs themselves run only on the card (tests/test_torch_cuda.py and
-chip_smoke.py phase 12). Here:
+chip_smoke.py phases 12 and 13). Here:
 
   * a streamed fast-quality model's fast view follows the chunks written
     into the cloud in place, so the frame after the load is the frame of
@@ -10,8 +11,14 @@ chip_smoke.py phase 12). Here:
     Projection and Render finds no op that reads the host or sizes its
     result from the data (a CUDA graph can capture neither), in the three
     fast configurations;
-  * the recapture key moves with the config, the splat count and the model,
-    and not with the uniforms (camera, heatmap, model scale, time).
+  * the same census over the exact frame's Projection, Sort (with tiers
+    and giants taken, and a sort buffer that drops pairs) and Boundaries
+    (with the reference's quirk);
+  * the recapture key moves with the config, the splat count and the model
+    (and, for the exact frame, the tile capacity), and not with the
+    uniforms (camera, heatmap, model scale, time);
+  * a streamed exact model is written into the cloud's tensors in place,
+    so a captured exact frame reads what the loader wrote.
 """
 
 import dataclasses
@@ -34,7 +41,11 @@ from godotgaussiansplatting_torch.ops.blocks2 import (build_block_frame2,
                                                       build_block_frame2_words)
 from godotgaussiansplatting_torch.ops.fast_pipeline import (FastFrameGraph,
                                                             graph_key)
+from godotgaussiansplatting_torch.ops.pipeline import (ExactFrameGraph,
+                                                       exact_graph_key)
 from godotgaussiansplatting_torch.ops.projection import project_splats
+from godotgaussiansplatting_torch.ops.sort import (emit_and_sort,
+                                                   tile_boundaries)
 
 from _torch_parity import model_blob
 
@@ -224,3 +235,101 @@ def test_graph_refuses_the_cpu(scene):
     cfg = CONFIGS["fast_defaults"]
     with pytest.raises(ValueError, match="CUDA"):
         FastFrameGraph(scene, cfg, np.zeros(38, np.float32))
+
+
+# --- the exact frame ---------------------------------------------------------
+
+# max_tiles_per_splat 4 with two tiers and a giant path, so that every
+# emission group takes splats at 256x192 (16 x 12 tiles)
+EXACT = gt.RasterizerConfig(width=256, height=192, max_tiles_per_splat=4,
+                            exact_tiers=((8, 256), (20, 64)),
+                            giant_splat_capacity=8,
+                            reference_boundary_quirk=True)
+
+
+def test_exact_stages_hold_no_host_read():
+    """Projection, Sort and Boundaries of the exact frame read nothing back
+    to the host and size nothing from the data, with every emission group
+    taking splats and a sort buffer that drops pairs."""
+    cloud = gt.synthetic_scene(6000, seed=2, scale_range=(0.01, 0.25),
+                               device="cpu")
+    uni = gt.make_uniforms(gt.Camera.reset_pose(), EXACT, device="cpu")
+    args = (cloud.means, cloud.cov3d, cloud.opacity, cloud.sh,
+            cloud.upload_time, uni.view, uni.proj, uni.camera_pos,
+            uni.model_scale, uni.time, EXACT)
+    census = _Census()
+    with census:
+        prj = project_splats(*args)
+    emit = (prj.valid, prj.rect, prj.num_tiles, prj.depth16, EXACT)
+    nt = prj.num_tiles[prj.valid]
+    assert int((nt > 8).sum()) > 0 and int((nt > 20).sum()) > 0, \
+        "no splat reaches the second tier and the giant path"
+    full = emit_and_sort(*emit)
+    capacity = int(full.num_pairs) // 2
+    for cap in (None, capacity):
+        with census:
+            pairs = emit_and_sort(*emit, capacity=cap)
+            tile_boundaries(pairs.keys, pairs.num_pairs, EXACT)
+    assert int(pairs.num_pairs) > capacity == pairs.keys.shape[0]
+    assert {"scatter_", "sort", "searchsorted", "index_select"} <= census.ops
+    assert not census.bad, census.bad
+
+
+def test_exact_graph_key_moves_with_the_frame_and_not_the_uniforms():
+    cloud = gt.synthetic_scene(3000, seed=3, device="cpu")
+    r = gt.Rasterizer(cloud, texture_size=(96, 64), device="cpu")
+
+    def key():
+        return exact_graph_key(r.cloud, r.config, r.tile_capacity)
+
+    k0 = key()
+    r.camera = gt.Camera.reset_pose().with_yaw_pitch(30, -10)
+    r.update_camera_matrices()
+    r.should_enable_heatmap = True
+    r.model_scale = 1.5
+    r._t0 -= 5.0
+    assert key() == k0
+    moved = []
+    r.tile_capacity *= 2                                 # a regrowth
+    moved.append(key())
+    r.texture_size = (128, 64)
+    moved.append(key())
+    r._cfg = r._cfg.replace(giant_splat_capacity=64)
+    moved.append(key())
+    moved.append(exact_graph_key(dataclasses.replace(r.cloud,
+                                                     num_splats=2000),
+                                 r.config, r.tile_capacity))
+    r.cloud = gt.synthetic_scene(3000, seed=3, device="cpu")  # a new model
+    moved.append(key())
+    assert len({k0, *moved}) == 6
+
+
+def test_exact_graph_refuses_the_cpu():
+    cloud = gt.synthetic_scene(500, seed=3, device="cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        ExactFrameGraph(cloud, EXACT, np.zeros(38, np.float32))
+
+
+def test_streamed_exact_model_is_written_in_place(monkeypatch):
+    """The loader copies each chunk into slices of the cloud's tensors, so
+    the exact graph's key (the tensors' addresses) holds through the load
+    and a captured frame reads every chunk; the frame after the load is
+    the staged frame of a copy of the loaded cloud."""
+    r = gt.Rasterizer(model_blob(3000, seed=7), texture_size=(64, 48),
+                      stream=True, chunks=12, device="cpu")
+    key = exact_graph_key(r.cloud, r.config, r.tile_capacity)
+    ptrs = [t.data_ptr() for t in (r.cloud.means, r.cloud.sh)]
+    r.rasterize()
+    r.loader.join(timeout=60)
+    assert not r.loader.is_loading and r.num_splats_loaded == 3000
+    monkeypatch.setattr(gt.Rasterizer, "_now", lambda self: 100.0)
+    assert exact_graph_key(r.loader.cloud, r.config, r.tile_capacity) == key
+    assert [t.data_ptr() for t in (r.cloud.means, r.cloud.sh)] == ptrs
+    out = r.rasterize()
+    copy = dataclasses.replace(r.cloud, **{
+        f: getattr(r.cloud, f).clone()
+        for f in ("means", "cov3d", "opacity", "sh", "upload_time")})
+    ref = gt.render_frame(copy, r._uniforms(), r.config,
+                          tile_capacity=r.tile_capacity)
+    assert torch.equal(out.image, ref.image)
+    assert float(out.image[..., :3].sum()) > 0.0

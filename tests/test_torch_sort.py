@@ -195,3 +195,56 @@ def test_boundary_quirk_edges(shape, quirk):
         assert int(et[last]) == n - 1
     else:
         assert int(et[last] - st[last]) == 0
+
+
+def _group_totals(inputs, kw):
+    """(base group's pair total, [each tier's, the giants']) of an
+    emission: the JAX package's grouping, in numpy."""
+    valid, _, nt, _ = inputs
+    max_t = kw["max_tiles_per_splat"]
+    capped = np.minimum(nt, max_t).astype(np.int64)
+    dense, prev = [], max_t
+    groups = [(w, c, nt <= w) for w, c in kw["exact_tiers"]]
+    if kw["giant_splat_capacity"]:
+        groups.append((None, kw["giant_splat_capacity"], nt > -1))
+    for w, cap, fits in groups:
+        elig = valid & (nt > prev) & fits
+        taken = elig & (np.cumsum(elig) - 1 < cap)
+        capped[taken] = 0
+        dense.append(int(nt[taken].sum()))
+        prev = w
+    return int(capped[valid].sum()), dense
+
+
+@pytest.mark.parametrize("edge", ["all_culled", "below_base_total",
+                                  "inside_tier"])
+def test_static_emission_edges(edge):
+    """The static-buffer emission at its edges, bit-equal to JAX: a view
+    with every splat culled (no pair: the buffer stays INVALID_KEY and 0),
+    a sort buffer below the base group's total (the tiers and giants drop
+    whole) and one that cuts inside the first tier's dense rows."""
+    kw = dict(width=144, height=112, max_tiles_per_splat=4,
+              **CASES["tiers_and_giants"])
+    inputs = _inputs(4, 160, 9, 7)
+    capacity = None
+    if edge == "all_culled":
+        valid, rect, nt, depth16 = inputs
+        inputs = (np.zeros_like(valid), rect, np.zeros_like(nt), depth16)
+    base, dense = _group_totals(inputs, kw)
+    if edge != "all_culled":
+        assert base > 8 and dense[0] > 8, (base, dense)
+        capacity = (base // 2 if edge == "below_base_total"
+                    else base + dense[0] // 2)
+    for quirk in (True, False):
+        jax_side, port = _both(
+            inputs, dict(kw, reference_boundary_quirk=quirk),
+            capacity=capacity)
+        _assert_equal(jax_side, port)
+    pt = port[0]
+    if edge == "all_culled":
+        assert int(pt.num_pairs) == 0 and int(pt.num_overflow) == 0
+        assert bool((pt.keys == INVALID_KEY).all())
+        assert int(pt.values.abs().sum()) == 0
+    else:
+        assert int(pt.num_pairs) == base + sum(dense) > capacity
+        assert int((pt.keys != INVALID_KEY).sum()) == capacity
