@@ -69,7 +69,20 @@ nvcc per source, all started together), then:
    fill included, on the arguments the frame's emission passed it), each
    bit-equal to its plain version and timed beside its bound, emit_exact
    also at a buffer of half the pairs (it drops pairs), and the stable
-   sort of the buffer with 32-bit keys against 64-bit ones;
+   sort of the buffer with 32-bit keys against 64-bit ones; and the Blocks
+   stage's kernels (block_frame, words and cooked, and big_lanes): the
+   stage run through them and through their plain versions on the 1080p
+   frames' projections of fast_defaults() (static bricks, the taken mask
+   fused), its v4 (cooked), quality="fast" (screen, cooked) and
+   fast_defaults() with the screen clustering (words), and on a
+   16,384-splat scene at 384x320 with a big-lane capacity past its
+   candidates (4,096) and past its window (20,480: pad entries at splat
+   0), every BlockFrame2 and BigSet field and each kernel's output on the
+   arguments the stage passed it bit-equal (f32 as bits); big_lanes also
+   on rows holding 0 to CW live keys; each kernel timed beside its plain
+   version and its byte bound, big_lanes also beside torch.sort of the
+   u32 rows (its library_ms), and the global window sort with int32 keys
+   beside int64 ones;
 7. the exact composite kernel (render_exact) against its plain version on
    phase 3's cloud at 512x512, tile 16, heatmap 0 and 1, on a tile-32 case
    and with tile capacities of 1000 and 300 (not multiples of the kernel's
@@ -86,7 +99,10 @@ nvcc per source, all started together), then:
    default) and Rasterizer(..., quality="fast"), 8 orbit cameras each with
    rasterize(sync=True) after one warm-up frame: finite images, rendered
    splats > 0, projection_readable, emit_exact and render_exact launched
-   by every exact frame and projection and render_v3 by every fast frame,
+   by every exact frame and projection, block_frame, big_lanes and
+   render_v3 by every fast frame (after the same fast frames with the
+   Blocks stage's plain versions patched in, their Blocks timed before
+   its kernels),
    a centre pick that is a splat mean on both, the exact frames'
    num_overflow and final tile_capacity; the median frame, the median
    Projection / Sort / Boundaries / Render (or Blocks / Binning) stage
@@ -114,8 +130,8 @@ nvcc per source, all started together), then:
    fly, an orbit drag, wheel steps and centre picks, a /state change, a
    /frame and a /stats each tick). The launch counters are set to 0 once
    the loop has paused on idle, just before the traffic, and read once it
-   has paused again: projection and render_v3 must have launched once for
-   every frame served. The served frame (through /frame and read_png)
+   has paused again: projection, block_frame, big_lanes and render_v3
+   must have launched once for every frame served. The served frame (through /frame and read_png)
    must equal a direct rasterize + to_uint8 of the viewer's camera (or,
    should the direct render not repeat bit for bit, read >= 50 dB). Then
    a 1M-splat .ply (write_ply of synthetic_arrays, 62 properties) is
@@ -142,7 +158,8 @@ nvcc per source, all started together), then:
    .npy files into its shard_cloud on the card and renders each path over
    the orbit (n_view cameras a frame) after a warm-up frame, the launch
    counters (and the mesh's traffic) set to 0 just before each frame and
-   read just after it: projection and render_v3 once a fast frame,
+   read just after it: projection, block_frame, big_lanes and render_v3
+   once a fast frame,
    projection_readable and render_exact once and emit_exact at least once
    an exact one (its shard read through a (P, 16, 3) view), on every rank
    of the mesh. Rank 0 holds every view to its
@@ -160,14 +177,20 @@ nvcc per source, all started together), then:
 12. the fast frame as captured CUDA graphs (FastFrameGraph): on
    phase 4's scene at 1920x1080 over 8 orbit cameras, for fast_defaults(),
    RasterizerConfig(kernel="v4").fast_defaults() and
-   RasterizerConfig(quality="fast"), each graphed frame bit-equal to the
+   RasterizerConfig(quality="fast"), first with the Blocks stage's plain
+   versions patched in (eager and graphed frames timed in turns: the
+   frame as it ran before the stage's kernels), then each graphed frame
+   bit-equal to the
    eager render_frame_fast_staged frame (image, tile_t0, tile lists,
    payloads, tile_nbig, stats), the launches a replay counts equal to an
    eager frame's, and a kept frame's image unchanged by later replays; it
    logs the capture seconds, the eager and graphed frames' medians in
    turns (host clock, CUDA events, stages), the memory each holds between
    frames and at its peak, and torch.profiler's busy share over 3 frames
-   of each. Then Rasterizer(quality="fast") on the scene: one capture over
+   of each, and for fast_defaults() and its v4 torch.profiler over 3
+   eager Blocks stages alone, with the plain versions and with the
+   kernels (busy ms, kernels and aten ops by device ms a stage). Then
+   Rasterizer(quality="fast") on the scene: one capture over
    the 8 cameras and a heatmap toggle, one more after a texture_size
    change, frames bit-equal to the eager frames of its view; and a 200,000
    splat .ply streamed in 16 chunks while frames render, whose frame after
@@ -204,7 +227,8 @@ two, `bound_term` names the largest; `formulation_sfu_ms` reads the MUFU
 instructions of the render kernels' log-domain blend beside it; the
 projections' and the emission's `sfu_ms` are null), counted from this
 run's inputs (see `proj_bound`, `readable_vs_plain`, `emit_vs_plain`,
-`render_bound` and `exact_bound`: the render kernels read the payload
+`block_frame_record`, `big_lanes_record` (bytes only), `render_bound`
+and `exact_bound`: the render kernels read the payload
 rows of a tile's live big lanes, its first nbig, and evaluate each
 (pixel, live big lane) themselves; the exact kernel reads the id and
 splat data of each slot a tile loads, and its operations are counted per
@@ -218,6 +242,7 @@ name and power limit, the kernels' JSON record and {"ok": true, "device":
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import io
@@ -236,6 +261,7 @@ import torch
 import godotgaussiansplatting_torch as gt
 from godotgaussiansplatting_torch import kernels, native
 from godotgaussiansplatting_torch import sfu_probe as sp
+from godotgaussiansplatting_torch.ops import blocks2 as b2
 from godotgaussiansplatting_torch.ops import projection as prj_mod
 from godotgaussiansplatting_torch.ops import projection_kernel as pk
 from godotgaussiansplatting_torch.ops import render_exact as rx
@@ -244,7 +270,8 @@ from godotgaussiansplatting_torch.ops import render_v4 as r4
 from godotgaussiansplatting_torch.ops import sort as so
 from godotgaussiansplatting_torch.ops.bigbin import bin_bigs
 from godotgaussiansplatting_torch.ops.binning2 import bin_blocks2
-from godotgaussiansplatting_torch.ops.fast_pipeline import FastFrameGraph
+from godotgaussiansplatting_torch.ops.fast_pipeline import (FastFrameGraph,
+                                                            _frame_stages)
 from godotgaussiansplatting_torch.ops.pipeline import (ExactFrameGraph,
                                                        pack_uniforms,
                                                        render_frame_staged)
@@ -278,6 +305,9 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
     "projection_readable": (CSRC + "projection_readable.cu",
                             TPU + "projection.py:57"),
     "emit_exact": (CSRC + "emit_exact.cu", TPU + "sort.py:43"),
+    "block_frame": (CSRC + "block_frame.cu", TPU + "blocks2.py:470"),
+    "block_frame_cooked": (CSRC + "block_frame.cu", TPU + "blocks2.py:521"),
+    "big_lanes": (CSRC + "big_lanes.cu", TPU + "blocks2.py:239"),
     "render_exact": (CSRC + "render_exact.cu", TPU + "render.py:79"),
     "sfu_probe": (CSRC + "sfu_probe.cu", "benchmarks/vpu_probe.py:34"),
 }
@@ -361,6 +391,15 @@ _RENDER_COUNTS = ("bytes: tile rows, the 16 payload rows of each tile's live "
                   f"kernels' log-domain blend, {RENDER_FORM_MUFU_PER_LANE} "
                   f"per (pixel, chain lane) and {RENDER_FORM_MUFU_PER_BIG} "
                   "per (pixel, live big lane), over the same rate")
+_BLOCK_COUNTS = ("bytes: the seven int32 stage-1 words a lane read once (28 "
+                 "B), the taken mask (1 B a lane) where the static bricks "
+                 "pass it, and the payload (32 B a lane of words, 64 B "
+                 "cooked), rect, bitmap, depth range and count written "
+                 "once; operations: not counted (the extents' pow, log and "
+                 "square roots and the rect and bitmap math, some 60 a "
+                 "lane, stay far below the bytes term); special functions: "
+                 "not counted (sfu_ms null); ms: a CUDA graph of 20 "
+                 "launches replayed, over 20")
 BOUND_COUNTS = {
     "projection": ("bytes: the splat arrays read and the words written once; "
                    f"operations: {PROJ_OPS_PER_SPLAT} per splat, each "
@@ -386,6 +425,16 @@ BOUND_COUNTS = {
         "f32 rate; special functions: none (sfu_ms null); ms and plain_ms "
         "time the fill and the kernels or their plain versions on the "
         "frame's recorded arguments"),
+    "block_frame": _BLOCK_COUNTS,
+    "block_frame_cooked": _BLOCK_COUNTS,
+    "big_lanes": (
+        "bytes: the (R, CW) int32 chunk keys read once and the (R, KC) "
+        "window's pos_w and gk (int32) written once; operations: not "
+        "counted (a row's sort runs in shared memory; its compares, about "
+        "CW log2 CW a row, stay far below the bytes term); special "
+        "functions: none (sfu_ms null); ms: a CUDA graph of 20 launches "
+        "replayed, over 20; library_ms: torch.sort(u32(bkey), "
+        "dim=1).values[:, :KC] on the same keys"),
     "render_v3": _RENDER_COUNTS,
     "render_v3_cooked": _RENDER_COUNTS,
     "render_v4": _RENDER_COUNTS,
@@ -428,6 +477,29 @@ def time_ms(fn, reps: int) -> float:
         fn()
     b.record()
     torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def time_graphed_ms(fn, reps: int) -> float:
+    """Mean device ms per call of ``fn`` over ``reps`` calls captured in
+    one CUDA graph and replayed, after a warm-up call: no host launch cost
+    between the calls, which a kernel of a few tens of microseconds would
+    otherwise show. Its outputs come from the graph's pool."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    g.replay()
+    b.record()
+    torch.cuda.synchronize()
+    del g
     return a.elapsed_time(b) / reps
 
 
@@ -1186,6 +1258,48 @@ def profile(tag: str, run_frame, frames: int) -> dict:
     return gemms
 
 
+def profile_blocks(tag: str, cloud, cfg, frames: int = 3) -> None:
+    """torch.profiler over the Blocks stage alone, eager, on the projected
+    inputs of ``frames`` orbit cameras: the device's busy time a frame,
+    its kernels and the aten ops that launch them, each with launches and
+    device ms a frame."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+    cloud = gt.fast_cloud_view(cloud, planar_sh=cfg.projection_kernel)
+    cams = gt.orbit_trajectory(frames, radius=5.0, target=(0, 0, 6.0))
+    stages = [dict(_frame_stages(cloud, gt.make_uniforms(c, cfg), cfg))
+              for c in cams]
+    inputs = [s["Projection"](None) for s in stages]
+    stages[0]["Blocks"](inputs[0])                          # warm-up
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        for s, x in zip(stages, inputs):
+            s["Blocks"](x)
+        torch.cuda.synchronize()
+    kern: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            n, t = kern.get(e.name[:110], (0, 0.0))
+            kern[e.name[:110]] = (n + 1, t + e.time_range.elapsed_us())
+    busy = sum(t for _, t in kern.values())
+    ops = [(a.key, a.count, a.self_device_time_total)
+           for a in prof.key_averages() if a.key.startswith("aten::")
+           and a.self_device_time_total > 0]
+
+    def top(items, k):
+        return {n: [round(c / frames, 2), round(t / 1e3 / frames, 4)]
+                for n, c, t in sorted(items, key=lambda x: -x[2])[:k]}
+
+    log(f"[{tag} Blocks profile] {frames} eager Blocks stages: "
+        f"{busy / 1e3 / frames:.3f} device ms a stage in "
+        f"{sum(c for c, _ in kern.values()) / frames:.0f} kernel launches; "
+        f"top kernels [launches, device ms] a stage "
+        f"{json.dumps(top([(n, c, t) for n, (c, t) in kern.items()], 16))}")
+    log(f"[{tag} Blocks profile] aten ops by self device ms, [calls, ms] a "
+        f"stage {json.dumps(top(ops, 20))}")
+
+
 def profile_frames(tag: str, cloud, cfg, frames: int = 3) -> None:
     """The profile of ``frames`` orbit frames of render_frame_fast. A v4
     frame must run no gemm: its render kernel takes no prepass_big_la
@@ -1248,6 +1362,7 @@ def engine_frames(tag: str, r, cloud, frames: int, expect) -> dict:
 
 
 EXACT_PATH = ("projection_readable", "emit_exact", "render_exact")
+FAST_PATH = ("projection", "block_frame", "big_lanes", "render_v3")
 
 
 def phase_engine(cloud, frames: int) -> tuple:
@@ -1269,8 +1384,13 @@ def phase_engine(cloud, frames: int) -> tuple:
         f"{exact.exact_graph.capture_seconds:.2f} s: warm-up frame and four "
         f"graphs), launches a replay "
         f"{json.dumps(exact.exact_graph.launches)}")
-    engine_frames("8 engine fast", fast, cloud, frames,
-                  ("projection", "render_v3"))
+    with blocks_dispatch(plain=True):
+        plain = gt.Rasterizer(cloud, texture_size=(1920, 1080),
+                              quality="fast")
+        engine_frames("8 engine fast, plain Blocks", plain, cloud, frames,
+                      ("projection", "render_v3"))
+    del plain
+    engine_frames("8 engine fast", fast, cloud, frames, FAST_PATH)
     check(fast.graph_captures == 1,
           f"8 engine fast: {fast.graph_captures} graph captures over the "
           f"orbit (one expected: its frames are replays)")
@@ -1471,6 +1591,216 @@ def exact_stages_1080p(full, base, worst: dict) -> list:
     return rec
 
 
+# --- the Blocks stage's kernels ----------------------------------------------
+
+@contextlib.contextmanager
+def blocks_dispatch(plain: bool = False, calls: list | None = None):
+    """Inside the block, the Blocks stage's two dispatchers
+    (``blocks2._frame_from_stage1`` and ``blocks2.big_window``) are
+    replaced: with ``plain``, by their plain versions (the Blocks stage as
+    it ran before its kernels, timed beside them); with ``calls``, each
+    call's (kind, args, kwargs) is appended to it, kind "frame" or
+    "window". A graph captured inside the block keeps what it captured."""
+    saved = b2._frame_from_stage1, b2.big_window
+    use = ((b2.frame_from_stage1_reference, b2.big_window_reference) if plain
+           else saved)
+
+    def recorded(kind, fn):
+        def call(*a, **kw):
+            if calls is not None:
+                calls.append((kind, a, kw))
+            return fn(*a, **kw)
+        return call
+
+    b2._frame_from_stage1 = recorded("frame", use[0])
+    b2.big_window = recorded("window", use[1])
+    try:
+        yield
+    finally:
+        b2._frame_from_stage1, b2.big_window = saved
+
+
+def _differ(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Entries of ``a`` and ``b`` that differ (f32 compared as bits); -1
+    for other shapes or types."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return -1
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return int((a != b).sum())
+
+
+def blocks_vs_plain(tag: str, cloud, cfg) -> dict:
+    """The Blocks stage on the reset camera's projection, through its
+    kernels and through their plain versions: every BlockFrame2 and BigSet
+    field bit-equal (f32 as bits), and each kernel bit-equal to its plain
+    version on the arguments the stage passed it (recorded). Both stages
+    timed. Returns the recorded calls and the kernels' outputs."""
+    cloud = gt.fast_cloud_view(cloud, planar_sh=cfg.projection_kernel)
+    uni = gt.make_uniforms(gt.Camera.reset_pose(), cfg, device=cloud.device)
+    st = dict(_frame_stages(cloud, uni, cfg))
+    prj = st["Projection"](None)
+    calls: list = []
+    with blocks_dispatch(calls=calls):
+        bf_k, big_k = st["Blocks"](prj)
+    with blocks_dispatch(plain=True):
+        bf_r, big_r = st["Blocks"](prj)
+    torch.cuda.synchronize()
+    check(sorted(c[0] for c in calls) == ["frame", "window"],
+          f"{tag}: the stage called {[c[0] for c in calls]}")
+    found = {kind: (a, kw) for kind, a, kw in calls}
+    fa, fkw = found["frame"]
+    wa, _ = found["window"]
+    bad = {f"frame.{f}": _differ(getattr(bf_k, f), getattr(bf_r, f))
+           for f in b2.BlockFrame2._fields}
+    bad.update({f"bigs.{f}": _differ(getattr(big_k, f), getattr(big_r, f))
+                for f in b2.BigSet._fields})
+    fk = b2._frame_from_stage1_cuda(*fa, **fkw)
+    fr = b2.frame_from_stage1_reference(*fa, **fkw)
+    wk = b2._big_window_cuda(*wa)
+    wr = b2.big_window_reference(*wa)
+    torch.cuda.synchronize()
+    bad.update({f"block_frame.{f}": _differ(getattr(fk, f), getattr(fr, f))
+                for f in b2.BlockFrame2._fields})
+    bad.update({f"big_lanes.{f}": _differ(a, b)
+                for f, a, b in zip(("pos_w", "gk"), wk, wr)})
+    kern_ms = time_ms(lambda: st["Blocks"](prj), 5)
+    with blocks_dispatch(plain=True):
+        plain_ms = time_ms(lambda: st["Blocks"](prj), 3)
+    B = fa[1]
+    big_cap = big_k.valid.shape[0]
+    R, CW = wa[0].shape
+    if bad["block_frame.payload"]:
+        a, b = fk.payload, fr.payload
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        at = torch.nonzero(a != b)
+        rows = torch.bincount(at[:, 1], minlength=a.shape[1]).tolist()
+        first = [(tuple(ix), hex(int(a[tuple(ix)]) & 0xFFFFFFFF),
+                  hex(int(b[tuple(ix)]) & 0xFFFFFFFF),
+                  int(fk.num_valid[ix[0]])) for ix in at[:8].tolist()]
+        log(f"[{tag}] payload entries not bit-equal by row {rows}; first "
+            f"(brick, row, lane), kernel, plain, brick's count: {first}")
+    log(f"[{tag}] {cloud.num_splats} splats, tile {cfg.tile_size}, cluster "
+        f"{cfg.cluster}, {'words' if fkw['words'] else 'cooked'} payload, "
+        f"taken mask fused {fkw.get('taken') is not None}: {B} bricks "
+        f"({int(bf_k.num_valid.sum())} lanes valid, "
+        f"{int((bf_k.num_valid == 0).sum())} bricks empty), window "
+        f"({R}, {CW}) KC {wa[1]}, big lanes {int(big_k.valid.sum())} of "
+        f"{big_cap} (residual {int(big_k.residual)}); entries not bit-equal "
+        f"{json.dumps({k: v for k, v in bad.items() if v})}; the stage, "
+        f"eager: kernels {kern_ms:.4f} ms, plain versions {plain_ms:.4f} ms")
+    check(not any(bad.values()), f"{tag}: not bit-equal: {bad}")
+    return {"frame": (fa, fkw, fk), "window": (wa, wk), "big_k": big_k}
+
+
+def block_frame_record(name: str, run: dict) -> dict:
+    """The brick build on the arguments its stage passed it, timed beside
+    its plain version and its byte bound."""
+    fa, fkw, fk = run["frame"]
+    ms = time_graphed_ms(lambda: b2._frame_from_stage1_cuda(*fa, **fkw), 20)
+    plain_ms = time_ms(lambda: b2.frame_from_stage1_reference(*fa, **fkw), 3)
+    taken = fkw.get("taken")
+    n_bytes = (nbytes(*fa[0]) + (nbytes(taken) if taken is not None else 0)
+               + nbytes(*fk[:6]))
+    bnd = bound(n_bytes, 0, None)
+    log(f"[6 {name} 1080p] {fa[1]} bricks: kernel {ms:.4f} ms (graph "
+        f"replays of 20 launches), plain "
+        f"{plain_ms:.4f} ms, {n_bytes / 1e6:.1f} MB moved, {bound_text(bnd)}")
+    return record(name, 0.0, ms, plain_ms, bnd)
+
+
+def big_lanes_record(run: dict) -> dict:
+    """The big-lane window on its stage's chunk keys, timed beside its
+    plain version, the one torch call that computes it, and its byte
+    bound; and the global stable sort of the window with int32 keys
+    against the same keys as int64."""
+    (bkey, KC), wk = run["window"]
+    ms = time_graphed_ms(lambda: b2._big_window_cuda(bkey, KC), 20)
+    eager_ms = time_ms(lambda: b2._big_window_cuda(bkey, KC), 20)
+    plain_ms = time_ms(lambda: b2.big_window_reference(bkey, KC), 5)
+    lib_ms = time_ms(lambda: torch.sort(u32(bkey), dim=1).values[:, :KC], 5)
+    gk = wk[1].reshape(-1)
+    t32 = time_ms(lambda: torch.sort(gk, stable=True), 5)
+    wide = gk.to(torch.int64)
+    t64 = time_ms(lambda: torch.sort(wide, stable=True), 5)
+    bnd = bound(nbytes(bkey) + nbytes(*wk), 0, None)
+    R, CW = bkey.shape
+    log(f"[6 big_lanes 1080p] ({R}, {CW}) keys, KC {KC}: kernel {ms:.4f} "
+        f"ms (launched eagerly back to back: {eager_ms:.4f} ms), plain {plain_ms:.4f} ms, library (torch.sort of the u32 rows, "
+        f"first KC) {lib_ms:.4f} ms, {bound_text(bnd)}; the global stable "
+        f"sort of the {gk.numel()}-entry window: int32 keys {t32:.4f} ms, "
+        f"the same keys as int64 {t64:.4f} ms")
+    rec = record("big_lanes", 0.0, ms, plain_ms, bnd)
+    rec["library_ms"] = lib_ms
+    return rec
+
+
+def dense_window_keys(R: int, CW: int, seed: int) -> torch.Tensor:
+    """(R, CW) int32 chunk keys on the card whose rows hold from 0 to CW
+    big candidates (evenly spread), at random columns, with depths from a
+    narrow range (many equal depths)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    counts = torch.linspace(0, CW, R, device="cuda").round().to(torch.int64)
+    place = torch.argsort(torch.rand(R, CW, generator=g, device="cuda"),
+                          dim=1).argsort(dim=1)
+    depth = torch.randint(40000, 40040, (R, CW), generator=g, device="cuda")
+    col = torch.arange(CW, device="cuda")
+    keys = torch.where(place < counts[:, None], (depth << 10) | col,
+                       b2.U32_MAX)
+    return b2.i32(keys)
+
+
+def window_dense_vs_plain() -> None:
+    """big_lanes against its plain version on rows of every fill, from
+    none to all CW keys live (both of the kernel's ways: a count of the
+    keys below each, and the bitonic sort past 256 live keys)."""
+    for R, CW, seed in ((64, 1024, 5), (33, 512, 6), (9, 128, 7)):
+        bkey = dense_window_keys(R, CW, seed)
+        for KC in sorted({CW // 4, CW}):
+            k = b2._big_window_cuda(bkey, KC)
+            r = b2.big_window_reference(bkey, KC)
+            bad = [_differ(a, b) for a, b in zip(k, r)]
+            check(not any(bad), f"6 big_lanes dense ({R}, {CW}) KC {KC}: "
+                  f"pos_w, gk entries not bit-equal {bad}")
+    log("[6 big_lanes dense] rows of 0 to CW live keys, (64, 1024), "
+        "(33, 512), (9, 128) at KC CW/4 and CW: bit-equal to the plain "
+        "version")
+
+
+def phase_blocks(cloud, base) -> list:
+    """Phase 6, the Blocks stage's kernels: block_frame (words and cooked)
+    and big_lanes held bit-equal to their plain versions on the 1080p
+    frames' inputs of the four clusterings and payloads (fused projection
+    and static bricks with the taken mask fused, words and cooked; screen
+    clustering, words and cooked), and on a 16,384-splat scene at 384x320
+    whose big-lane capacity exceeds its candidates (4,096: entries past
+    the candidates point at splat 0, not ok) and its window (20,480: pad
+    entries); each kernel timed on the shipped (words) and v4 (cooked)
+    frame's arguments. Returns the three records."""
+    runs = {}
+    for tag, cfg in (
+            ("shipped", base.fast_defaults()),
+            ("v4", base.replace(kernel="v4").fast_defaults()),
+            ("quality=fast", base.replace(quality="fast")),
+            ("screen words", base.fast_defaults().replace(cluster="screen"))):
+        runs[tag] = blocks_vs_plain(f"6 blocks {tag} 1080p", cloud, cfg)
+    small = gt.mortonize(gt.synthetic_scene(16384, seed=9, extent=3.0,
+                                            scale_range=(0.01, 0.25)))
+    small_cfg = gt.RasterizerConfig(width=384, height=320)
+    for cfg, cap in ((small_cfg.fast_defaults(), 4096),
+                     (small_cfg.replace(quality="fast"), 20480)):
+        run = blocks_vs_plain(f"6 blocks padded big lanes, big_cap {cap}",
+                              small, cfg.replace(big_capacity=cap))
+        check(0 < int(run["big_k"].valid.sum()) < cap - 100,
+              f"6 blocks padded: {int(run['big_k'].valid.sum())} big lanes "
+              f"of {cap}: no entries past the candidates")
+    window_dense_vs_plain()
+    return [block_frame_record("block_frame", runs["shipped"]),
+            block_frame_record("block_frame_cooked", runs["v4"]),
+            big_lanes_record(runs["shipped"])]
+
+
 def phase_sfu_probe() -> tuple:
     """Phase 9: the rate probe (python3 -m ...sfu_probe) on the card. The
     launch counter is set to 0 just before the probe's timed runs of every
@@ -1635,7 +1965,7 @@ def phase_viewer(full, card: str) -> None:
         launches = kernels.launch_counts()
         rendered = state.frames - frames0
         check(rendered >= 5, f"10 viewer: only {rendered} frames served")
-        for name in ("projection", "render_v3"):
+        for name in FAST_PATH:
             check(launches[name] == rendered,
                   f"10 viewer: {name} launched {launches[name]} times for "
                   f"{rendered} frames")
@@ -1712,7 +2042,7 @@ def phase_viewer(full, card: str) -> None:
         _viewer_settle(state)
         launches = kernels.launch_counts()
         rendered = state.frames - frames0
-        for name in ("projection", "render_v3"):
+        for name in FAST_PATH:
             check(launches[name] == rendered and rendered > 0,
                   f"10 viewer /load: {name} launched {launches[name]} "
                   f"times for {rendered} frames")
@@ -1751,7 +2081,7 @@ def phase_viewer(full, card: str) -> None:
     kernels.reset_launch_counts()
     summary = render_orbit(state.r, str(out), num_frames=8)
     launches = kernels.launch_counts()
-    for name in ("projection", "render_v3"):
+    for name in FAST_PATH:
         check(launches[name] == 8, f"10 orbit: {name} launched "
               f"{launches[name]} times for 8 frames")
     pngs = [read_png(out / f"frame_{i:04d}.png") for i in range(8)]
@@ -1856,8 +2186,7 @@ def _sharded_path(mesh, shard, P: int, base, path: str,
     fn = (sharded.render_frame_fast_sharded if fast
           else sharded.render_frame_sharded)
     kw = {} if fast else {"tile_capacity": tile_capacity}
-    expect = ("projection", "render_v3") if fast else (
-        "projection_readable", "render_exact")
+    expect = FAST_PATH if fast else ("projection_readable", "render_exact")
     if not fast and shard is not None:
         # the readable projection's kernel takes (P, 16, 3) SH
         shard = dataclasses.replace(shard, local=sh_rows(shard.local))
@@ -2004,8 +2333,7 @@ def _sharded_report(recs: list, backend: str, world: int, card: str,
     fast = recs[0]["path"] == "fast"
     tag = f"11 sharded {backend} ({n_view}, {n_tile}) {recs[0]['path']}"
     frames = SHARDED_CAMERAS // n_view
-    expect = ("projection", "render_v3") if fast else (
-        "projection_readable", "render_exact")
+    expect = FAST_PATH if fast else ("projection_readable", "render_exact")
     members = [r for r in recs if r["member"]]
     for rec in members:
         for name in expect:
@@ -2118,6 +2446,28 @@ def _orbit(cfg, frames: int) -> tuple:
     return values, [gt.make_uniforms(c, cfg) for c in cams]
 
 
+def time_in_turns(tag: str, eager, graph, values, frames: int) -> None:
+    """The eager frame ``eager(i, timer)`` and the graphed frame
+    ``graph.render(values[i], timer)`` timed in turns over ``frames``
+    orbit cameras: each side's median frame (host clock, CUDA events) and
+    stages, logged."""
+    runs = {"eager": [], "graph": []}
+    for i in range(frames):
+        order = ("eager", "graph") if i % 2 == 0 else ("graph", "eager")
+        for side in order:
+            fn = ((lambda t: eager(i, t)) if side == "eager"
+                  else (lambda t: graph.render(values[i], t)))
+            runs[side].append(_timed(fn)[1:])
+    for side, rs in runs.items():
+        stages = {k: round(statistics.median(r[2][k] for r in rs), 3)
+                  for k in rs[0][2]}
+        log(f"[{tag}] {side}: median frame "
+            f"{statistics.median(r[0] for r in rs):.3f} ms host clock (all "
+            f"{[round(r[0], 3) for r in rs]}), "
+            f"{statistics.median(r[1] for r in rs):.3f} ms CUDA events, "
+            f"median stages {json.dumps(stages)}")
+
+
 def graph_against_eager(tag: str, card: str, what: str, eager, make_graph,
                         values, fields, frames: int, launches_ok) -> None:
     """A graphed frame (``make_graph()``, replayed by ``render(values[i],
@@ -2154,31 +2504,13 @@ def graph_against_eager(tag: str, card: str, what: str, eager, make_graph,
         check(int(g.stats.num_pairs) > 0, f"{tag}: no splat-tile pairs")
     check(torch.equal(kept.image, kept_image),
           f"{tag}: a kept frame's image changed under later replays")
-    runs = {"eager": [], "graph": []}
-    for i in range(frames):
-        order = ("eager", "graph") if i % 2 == 0 else ("graph", "eager")
-        for side in order:
-            fn = ((lambda t: eager(i, t)) if side == "eager"
-                  else (lambda t: graph.render(values[i], t)))
-            runs[side].append(_timed(fn)[1:])
-    med = {}
-    for side, rs in runs.items():
-        med[side] = {"host_ms": statistics.median(r[0] for r in rs),
-                     "event_ms": statistics.median(r[1] for r in rs),
-                     "stages_ms": {k: round(statistics.median(
-                         r[2][k] for r in rs), 3) for k in rs[0][2]}}
     log(f"[{tag}] {card}, {what}, {frames} orbit cameras: graphed frames "
         f"bit-equal to the eager frames ({', '.join(fields)}, stats), "
         f"launches a replay "
         f"{json.dumps({k: v for k, v in graph.launches.items() if v})} as "
         f"an eager frame's, a kept frame untouched; capture "
         f"{graph.capture_seconds:.2f} s (warm-up frame and four graphs)")
-    for side in ("eager", "graph"):
-        m = med[side]
-        log(f"[{tag}] {side}: median frame {m['host_ms']:.3f} ms host clock "
-            f"(all {[round(r[0], 3) for r in runs[side]]}), "
-            f"{m['event_ms']:.3f} ms CUDA events, median stages "
-            f"{json.dumps(m['stages_ms'])}")
+    time_in_turns(tag, eager, graph, values, frames)
     log(f"[{tag}] memory above the frame's inputs, GiB: eager "
         f"{json.dumps({k: round(v, 3) for k, v in mem_eager.items()})}, "
         f"graphed {json.dumps({k: round(v, 3) for k, v in mem_graph.items()})}"
@@ -2199,6 +2531,11 @@ def graph_config(tag: str, cloud, cfg, frames: int, card: str) -> None:
     def eager(i, timer=None):
         return gt.render_frame_fast_staged(cloud, unis[i], cfg, timer=timer)
 
+    # the frame as it ran before the Blocks stage's kernels, in this run
+    with blocks_dispatch(plain=True):
+        graph = FastFrameGraph(cloud, cfg, values[0])
+        time_in_turns(f"{tag}, plain Blocks", eager, graph, values, frames)
+    del graph
     graph_against_eager(tag, card, f"{cloud.num_splats} splats {w}x{h}",
                         eager, lambda: FastFrameGraph(cloud, cfg, values[0]),
                         values, GRAPH_FIELDS, frames,
@@ -2214,6 +2551,10 @@ def phase_graphs(full, cloud, base, card: str, frames: int = 8) -> None:
                      ("12 graphs quality=fast",
                       base.replace(quality="fast"))):
         graph_config(tag, cloud, cfg, frames, card)
+        if cfg.projection_kernel:
+            with blocks_dispatch(plain=True):
+                profile_blocks(f"{tag}, plain Blocks", cloud, cfg)
+            profile_blocks(tag, cloud, cfg)
     # the engine: one capture over the orbit and a heatmap toggle
     r = gt.Rasterizer(full, texture_size=(1920, 1080), quality="fast")
     r._now = lambda: 100.0
@@ -2357,14 +2698,17 @@ def main() -> int:
     base = gt.RasterizerConfig(width=1920, height=1080)
     launches = {}
     frames = (("4 frame fast_defaults", base.fast_defaults(),
-               ("projection", "render_v3")),
+               ("projection", "block_frame", "big_lanes", "render_v3")),
               ("5 frame v4", base.replace(kernel="v4").fast_defaults(),
-               ("projection", "render_v4")),
+               ("projection", "block_frame_cooked", "big_lanes",
+                "render_v4")),
               ("5 frame quality=fast", base.replace(quality="fast"),
-               ("projection_readable", "render_v3_cooked")),
+               ("projection_readable", "block_frame_cooked", "big_lanes",
+                "render_v3_cooked")),
               ("5 frame quality=fast v4",
                base.replace(quality="fast", kernel="v4"),
-               ("projection_readable", "render_v4")))
+               ("projection_readable", "block_frame_cooked", "big_lanes",
+                "render_v4")))
     for tag, cfg, expect in frames:
         counts = phase_frame(tag, cloud, cfg, 8, expect)
         for name in expect:
@@ -2376,6 +2720,7 @@ def main() -> int:
     for name in EXACT_PATH:
         launches[name] = exact_launches[name]
     rec = phase_kernels_1080p(cloud, base, worst)
+    rec += phase_blocks(cloud, base)
     rec += exact_stages_1080p(full, base, worst)
     rec.append(exact_1080p(full, base, capacity, worst["render_exact"]))
     rec.append(probe)

@@ -47,6 +47,12 @@ SIGNATURES = {
     "projection_readable": {
         "gs_project_readable": [_P] * 19 + [_I] * 7 + [_F] * 2 + [_P],
     },
+    "block_frame": {
+        "gs_block_frame": [_P] * 14 + [_I] * 5 + [_P],
+    },
+    "big_lanes": {
+        "gs_big_window": [_P] * 3 + [_I] * 3 + [_P],
+    },
     "emit_exact": {
         "gs_emit_base": [_P] * 7 + [_I] * 2 + [_L, _P],
         "gs_emit_dense": [_P] * 8 + [_I] * 3 + [_L, _P],
@@ -70,10 +76,12 @@ SIGNATURES = {
         "gs_sfu_probe": [_P] * 2 + [_I] * 6 + [_P],
     },
 }
-# One launch counter per kernel a wrapper launches (the v3 library holds
-# two: the word and the cooked payload; sfu_probe counts every body;
-# emit_exact counts its base and each dense group's launch).
-COUNTERS = ("projection", "projection_readable", "render_v3",
+# One launch counter per kernel a wrapper launches (the v3 and the
+# block_frame libraries hold two each: the word and the cooked payload;
+# sfu_probe counts every body; emit_exact counts its base and each dense
+# group's launch).
+COUNTERS = ("projection", "projection_readable", "block_frame",
+            "block_frame_cooked", "big_lanes", "render_v3",
             "render_v3_cooked", "render_v4", "render_exact", "emit_exact",
             "sfu_probe")
 

@@ -16,6 +16,13 @@ with their shared helpers.
     cooked 16-row power features, plus tile rect, an 8x4 coverage bitmap
     over the rect and its depth range.
 
+On the card the brick build (``_frame_from_stage1``: each brick's payload,
+rect, bitmap, depth range and count) and each chunk row's big-lane window
+(``big_window``) are hand-written kernels, csrc/block_frame.cu and
+csrc/big_lanes.cu, the counterparts of XLA's fusions of the JAX functions;
+CPU tensors take their plain versions, ``frame_from_stage1_reference`` and
+``big_window_reference``, which the kernels are held bit-equal to.
+
 Packed u32 words travel as int32 bit patterns (CPU torch lacks shifts and
 compares on uint32); they are widened with ``& 0xFFFFFFFF`` into int64
 before any shift, compare or sort.
@@ -42,6 +49,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import kernels
 from ..config import RasterizerConfig
 from .blocks import BIG_RADIUS, SUPERBLOCK
 
@@ -210,24 +218,62 @@ def _big_chunk_width(P: int, sb_size: int) -> int:
     return sb_size
 
 
-def _select_big_lanes(bkey: torch.Tensor, big_cap: int):
-    """(R, CW) int32 chunk keys ((depth16 << 10) | col, or U32_MAX) -> the
-    globally closest big_cap lanes: (tk_idx (big_cap,) int64 flat source
-    positions, tk_ok (big_cap,) bool). Candidates beyond a chunk's window or
-    the cap stay in their chains."""
+def big_window_reference(bkey: torch.Tensor, KC: int):
+    """Plain version of the big-lane window kernel (csrc/big_lanes.cu):
+    (R, CW) int32 chunk keys ((depth16 << 10) | col, or U32_MAX) -> each
+    row's KC smallest keys as (pos_w, gk), both (R, KC) int32: the flat
+    source position (0 for a dead key) and the 22-bit global key
+    ``key >> 10``."""
     R, CW = bkey.shape
-    KC = min(CW, max(CW // 4, 4 * big_cap // max(R, 1)))
-    bk_s = torch.sort(u32(bkey), dim=1).values
-    win = bk_s[:, :KC]
+    win = torch.sort(u32(bkey), dim=1).values[:, :KC]
     row0 = (torch.arange(R, dtype=torch.int64, device=bkey.device)
             * CW)[:, None]
     pos_w = torch.where(win != U32_MAX, row0 + (win & 0x3FF),
                         torch.zeros_like(win))
-    gk = (win >> 10).reshape(-1)
-    gks, order = torch.sort(gk, stable=True)
+    return pos_w.to(torch.int32), (win >> 10).to(torch.int32)
+
+
+def _big_window_cuda(bkey: torch.Tensor, KC: int):
+    """The kernel (csrc/big_lanes.cu): one CTA a chunk row."""
+    R, CW = bkey.shape
+    if bkey.dtype != torch.int32 or CW > 1024 or not 0 < KC <= CW:
+        raise ValueError(f"big_lanes: needs (R, CW <= 1024) int32 keys and "
+                         f"0 < KC <= CW, got {bkey.dtype} {tuple(bkey.shape)}"
+                         f" KC {KC}")
+    kernels.require_cuda("big_lanes", bkey)
+    pos_w = torch.empty((R, KC), dtype=torch.int32, device=bkey.device)
+    gk = torch.empty_like(pos_w)
+    err = kernels.library("big_lanes").gs_big_window(
+        bkey.data_ptr(), pos_w.data_ptr(), gk.data_ptr(), R, CW, KC,
+        kernels.stream_ptr(bkey.device))
+    kernels.check(err, "big_lanes kernel launch")
+    kernels.count_launch("big_lanes")
+    return pos_w, gk
+
+
+def big_window(bkey: torch.Tensor, KC: int):
+    """Each chunk row's big-lane window (``big_window_reference``). CUDA
+    tensors go to the kernel (csrc/big_lanes.cu), CPU tensors to the plain
+    version."""
+    if bkey.device.type == "cpu":
+        return big_window_reference(bkey, KC)
+    return _big_window_cuda(bkey, KC)
+
+
+def _select_big_lanes(bkey: torch.Tensor, big_cap: int):
+    """(R, CW) int32 chunk keys ((depth16 << 10) | col, or U32_MAX) -> the
+    globally closest big_cap lanes: (tk_idx (big_cap,) int64 flat source
+    positions, tk_ok (big_cap,) bool). Candidates beyond a chunk's window or
+    the cap stay in their chains. The window's global keys fit in 22 bits,
+    so the stable sort runs on int32 keys: the same permutation as on the
+    u32 keys, in 32-bit radix passes."""
+    R, CW = bkey.shape
+    KC = min(CW, max(CW // 4, 4 * big_cap // max(R, 1)))
+    pos_w, gk = big_window(bkey, KC)
+    gks, order = torch.sort(gk.reshape(-1), stable=True)
     gidx = pos_w.reshape(-1)[order]
     cap = min(big_cap, R * KC)
-    tk_idx = gidx[:cap]
+    tk_idx = gidx[:cap].to(torch.int64)
     tk_ok = gks[:cap] != (U32_MAX >> 10)
     if cap < big_cap:
         pad = big_cap - cap
@@ -303,23 +349,40 @@ def _or_reduce(bits: torch.Tensor, dim: int) -> torch.Tensor:
     return out
 
 
-def _frame_from_stage1(s1, B: int, S: int, cfg: RasterizerConfig,
-                       num_culled_pairs, words: bool = False) -> BlockFrame2:
-    """Stage-1 operand rows -> BlockFrame2.
+def _tree_sum(x: torch.Tensor) -> torch.Tensor:
+    """(B, 2^k) -> (B,): the sum along dim 1 in a fixed pairwise tree,
+    x[:, :n/2] + x[:, n/2:] down to one column (the block_frame kernel's
+    order; torch's own reduction order on the card is not defined)."""
+    while x.shape[1] > 1:
+        h = x.shape[1] // 2
+        x = x[:, :h] + x[:, h:]
+    return x[:, 0]
+
+
+def frame_from_stage1_reference(s1, B: int, S: int, cfg: RasterizerConfig,
+                                num_culled_pairs, words: bool = False,
+                                taken: torch.Tensor | None = None
+                                ) -> BlockFrame2:
+    """Stage-1 operand rows -> BlockFrame2: the plain version of the
+    block_frame kernel (csrc/block_frame.cu).
 
     s1: 7-tuple of int32 word tensors (key, ix bits, iy bits, f16(ca|cb),
     f16(cc|op), rgb9e5, source idx), any shape reshapeable to (B, S).
-    words=True keeps the (B, 8, S) word image as the payload (the render
-    kernel unpacks in-kernel); otherwise the 16-row f32 payload is cooked.
-    Block meta (rect, bitmap, depth range, num_valid) is the same either
-    way."""
+    ``taken``, a bool tensor of the same size or None: a taken lane's key
+    reads as -1 (invalid). words=True keeps the (B, 8, S) word image as the
+    payload (the render kernel unpacks in-kernel); otherwise the 16-row f32
+    payload is cooked. Block meta (rect, bitmap, depth range, num_valid) is
+    the same either way."""
     gx, gy = cfg.tile_dims
     ts = float(cfg.tile_size)
 
     def blk(x):
         return x.reshape(B, S)
 
-    key_b = u32(blk(s1[0]))
+    key_w = blk(s1[0])
+    if taken is not None:
+        key_w = torch.where(blk(taken), -1, key_w).to(torch.int32)
+    key_b = u32(key_w)
     depth_b = key_b & 0xFFFF
     ix = blk(s1[1]).view(torch.float32)
     iy = blk(s1[2]).view(torch.float32)
@@ -339,7 +402,7 @@ def _frame_from_stage1(s1, B: int, S: int, cfg: RasterizerConfig,
 
     if words:
         payload = torch.stack(
-            [blk(s1[0]), blk(s1[1]), blk(s1[2]), blk(s1[3]), blk(s1[4]),
+            [key_w, blk(s1[1]), blk(s1[2]), blk(s1[3]), blk(s1[4]),
              blk(s1[5]), blk(s1[6]),
              _pack_bf16_pair(rx_p, ry_p).view(torch.int32)], dim=1)
     else:
@@ -347,8 +410,10 @@ def _frame_from_stage1(s1, B: int, S: int, cfg: RasterizerConfig,
         nv_safe = torch.clamp(nv, min=1).float()
         ix_v = torch.where(valid, ix, zero)
         iy_v = torch.where(valid, iy, zero)
-        bcx = torch.clamp(torch.round(ix_v.sum(dim=1) / nv_safe), 0.0, 16383.0)
-        bcy = torch.clamp(torch.round(iy_v.sum(dim=1) / nv_safe), 0.0, 16383.0)
+        bcx = torch.clamp(torch.round(_tree_sum(ix_v) / nv_safe), 0.0,
+                          16383.0)
+        bcy = torch.clamp(torch.round(_tree_sum(iy_v) / nv_safe), 0.0,
+                          16383.0)
         ixr = ix - bcx[:, None]
         iyr = iy - bcy[:, None]
         ln_op = torch.clamp(torch.log(torch.clamp(op, min=1e-37)), max=-1e-3)
@@ -413,6 +478,63 @@ def _frame_from_stage1(s1, B: int, S: int, cfg: RasterizerConfig,
     )
 
 
+def _frame_from_stage1_cuda(s1, B: int, S: int, cfg: RasterizerConfig,
+                            num_culled_pairs, words: bool = False,
+                            taken: torch.Tensor | None = None
+                            ) -> BlockFrame2:
+    """The kernel (csrc/block_frame.cu): one CTA of 128 threads a brick."""
+    if S != BLOCK_SIZE:
+        raise ValueError(f"block_frame: bricks of {BLOCK_SIZE} lanes, got {S}")
+    flat = [x.reshape(-1) for x in s1]
+    for x in flat:
+        if x.dtype != torch.int32 or x.numel() != B * S:
+            raise ValueError(f"block_frame: expected {B * S} int32 words, "
+                             f"got {x.dtype} {x.numel()}")
+    extra = []
+    if taken is not None:
+        taken = taken.reshape(-1)
+        if taken.dtype != torch.bool or taken.numel() != B * S:
+            raise ValueError(f"block_frame: expected a {B * S} bool taken "
+                             f"mask, got {taken.dtype} {taken.numel()}")
+        extra = [taken]
+    kernels.require_cuda("block_frame", *flat, *extra)
+    dev = flat[0].device
+    gx, gy = cfg.tile_dims
+
+    def meta():
+        return torch.empty((B,), dtype=torch.int32, device=dev)
+
+    payload = (torch.empty((B, 8, S), dtype=torch.int32, device=dev) if words
+               else torch.empty((B, PAYLOAD_WIDTH, S), device=dev))
+    rect = torch.empty((B, 4), dtype=torch.int32, device=dev)
+    bitmap, min_depth, max_depth, nv = meta(), meta(), meta(), meta()
+    err = kernels.library("block_frame").gs_block_frame(
+        *(x.data_ptr() for x in flat),
+        taken.data_ptr() if taken is not None else None,
+        *(t.data_ptr() for t in (payload, rect, bitmap, min_depth,
+                                 max_depth, nv)),
+        B, int(not words), gx, gy, cfg.tile_size, kernels.stream_ptr(dev))
+    kernels.check(err, "block_frame kernel launch")
+    kernels.count_launch("block_frame" if words else "block_frame_cooked")
+    return BlockFrame2(
+        payload=payload, rect=rect, bitmap=bitmap, min_depth=min_depth,
+        max_depth=max_depth, num_valid=nv,
+        num_culled_pairs=torch.as_tensor(num_culled_pairs).to(torch.int32))
+
+
+def _frame_from_stage1(s1, B: int, S: int, cfg: RasterizerConfig,
+                       num_culled_pairs, words: bool = False,
+                       taken: torch.Tensor | None = None) -> BlockFrame2:
+    """Stage-1 operand rows -> BlockFrame2 (``frame_from_stage1_reference``).
+    CUDA tensors go to the kernel (csrc/block_frame.cu), CPU tensors to
+    the plain version."""
+    if s1[0].device.type == "cpu":
+        return frame_from_stage1_reference(s1, B, S, cfg, num_culled_pairs,
+                                           words, taken)
+    return _frame_from_stage1_cuda(s1, B, S, cfg, num_culled_pairs, words,
+                                   taken)
+
+
 def build_block_frame2_words(words, cfg: RasterizerConfig,
                              num_splats: int | None = None,
                              big_cap: int | None = None,
@@ -460,17 +582,19 @@ def build_block_frame2_words(words, cfg: RasterizerConfig,
     def srows(a):
         return a.reshape(SB, sb_size)
 
-    key = torch.where(srows(taken), -1, srows(words.key)).to(torch.int32)
     idx = torch.arange(P, dtype=torch.int32, device=dev)
-    ops = (key, srows(words.ix), srows(words.iy), srows(words.pc1),
-           srows(words.pc2), srows(words.rgb9), srows(idx))
+    rest = (srows(words.ix), srows(words.iy), srows(words.pc1),
+            srows(words.pc2), srows(words.rgb9), srows(idx))
     if cfg.cluster == "bricks":   # static curve-order bricks: no sort
-        s1 = ops
+        # the frame build reads a taken lane's key as -1
+        s1, mask = (srows(words.key),) + rest, taken
     else:
+        key = torch.where(srows(taken), -1, srows(words.key)).to(torch.int32)
         order = torch.sort(u32(key), dim=1, stable=True).indices
-        s1 = tuple(torch.gather(a, 1, order) for a in ops)
+        s1 = tuple(torch.gather(a, 1, order) for a in (key,) + rest)
+        mask = None
     return _frame_from_stage1(s1, B, S, cfg, nt_total.to(torch.int32),
-                              words=words_payload), bigs
+                              words=words_payload, taken=mask), bigs
 
 
 def build_block_frame2(prj, cfg: RasterizerConfig,

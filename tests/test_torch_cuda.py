@@ -17,6 +17,7 @@ import torch
 
 import godotgaussiansplatting_torch as gt
 from godotgaussiansplatting_torch import kernels, sfu_probe, split_render
+from godotgaussiansplatting_torch.ops import blocks2 as b2
 from godotgaussiansplatting_torch.ops import projection as prj_mod
 from godotgaussiansplatting_torch.ops import projection_kernel as pk
 from godotgaussiansplatting_torch.ops import render_v3 as rv
@@ -71,9 +72,11 @@ def test_cpu_frame_launches_no_kernel():
     assert out.image.device.type == "cpu"
     assert kernels.launch_counts() == {name: 0 for name in kernels.COUNTERS}
     assert set(kernels.COUNTERS) == {"projection", "projection_readable",
-                                     "render_v3", "render_v3_cooked",
-                                     "render_v4", "render_exact",
-                                     "emit_exact", "sfu_probe"}
+                                     "block_frame", "block_frame_cooked",
+                                     "big_lanes", "render_v3",
+                                     "render_v3_cooked", "render_v4",
+                                     "render_exact", "emit_exact",
+                                     "sfu_probe"}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -738,3 +741,100 @@ def test_streamed_exact_model_renders_its_loaded_data(cuda):
                               tile_capacity=r.tile_capacity)
     assert torch.equal(_bits(out.image), _bits(ref.image))
     assert float(out.image[..., :3].sum()) > 0.0
+
+
+# --- the Blocks stage's kernels: block_frame and big_lanes ------------------
+
+def test_block_kernel_wrappers_refuse_what_they_do_not_take():
+    """The brick build and the big-lane window refuse CPU tensors, bricks
+    of other than 128 lanes and windows they cannot hold, with no
+    fallback."""
+    cfg = gt.RasterizerConfig(width=64, height=64).fast_defaults()
+    s1 = tuple(torch.zeros((4, 128), dtype=torch.int32) for _ in range(7))
+    with pytest.raises(ValueError, match="CUDA"):
+        b2._frame_from_stage1_cuda(s1, 4, 128, cfg, 0, words=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        b2._frame_from_stage1_cuda(s1, 4, 128, cfg, 0, words=False,
+                                   taken=torch.zeros(512, dtype=torch.bool))
+    with pytest.raises(ValueError, match="128"):
+        b2._frame_from_stage1_cuda(tuple(a.reshape(8, 64) for a in s1), 8,
+                                   64, cfg, 0)
+    with pytest.raises(ValueError, match="bool"):
+        b2._frame_from_stage1_cuda(s1, 4, 128, cfg, 0,
+                                   taken=torch.zeros(512, dtype=torch.int32))
+    bkey = torch.full((4, 256), -1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        b2._big_window_cuda(bkey, 64)
+    with pytest.raises(ValueError, match="KC"):
+        b2._big_window_cuda(bkey, 512)
+    with pytest.raises(ValueError, match="1024"):
+        b2._big_window_cuda(torch.full((2, 2048), -1, dtype=torch.int32), 64)
+
+
+def _blocks_both_ways(monkeypatch, cloud, cfg):
+    """The Blocks stage of the reset camera's frame through the kernels,
+    then through their plain versions (the dispatchers patched)."""
+    from godotgaussiansplatting_torch.ops.fast_pipeline import _frame_stages
+    uni = gt.make_uniforms(gt.Camera.reset_pose(), cfg, device=cloud.device)
+    stages = dict(_frame_stages(cloud, uni, cfg))
+    prj = stages["Projection"](None)
+    kernels.reset_launch_counts()
+    kernel = stages["Blocks"](prj)
+    counts = kernels.launch_counts()
+    with monkeypatch.context() as m:
+        m.setattr(b2, "_frame_from_stage1", b2.frame_from_stage1_reference)
+        m.setattr(b2, "big_window", b2.big_window_reference)
+        plain = stages["Blocks"](prj)
+    torch.cuda.synchronize()
+    return kernel, plain, counts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("config", ["fast_defaults", "v4", "readable",
+                                    "screen_words", "padded"])
+def test_block_kernels_match_plain(cuda, monkeypatch, config):
+    """The Blocks stage through block_frame and big_lanes bit-equal (f32 as
+    bits) to the stage through their plain versions: static bricks with
+    the taken mask fused (words, cooked), the screen clustering (cooked,
+    words), and a big-lane capacity past the candidates and the window
+    (pad entries at splat 0)."""
+    base = gt.RasterizerConfig(width=640, height=480)
+    cfg = {"fast_defaults": base.fast_defaults(),
+           "v4": base.replace(kernel="v4").fast_defaults(),
+           "readable": base.replace(quality="fast"),
+           "screen_words": base.fast_defaults().replace(cluster="screen"),
+           "padded": base.replace(quality="fast", big_capacity=61_440)
+           }[config]
+    cloud = gt.fast_cloud_view(_cloud(cuda), planar_sh=cfg.projection_kernel)
+    (fk, bk), (fr, br), counts = _blocks_both_ways(monkeypatch, cloud, cfg)
+    for name, a, b in zip(fk._fields + bk._fields, (*fk, *bk), (*fr, *br)):
+        assert torch.equal(_bits(a), _bits(b)), name
+    frame = "block_frame" if cfg.words_payload else "block_frame_cooked"
+    assert counts[frame] == 1 and counts["big_lanes"] == 1
+    assert int(fk.num_valid.sum()) > 10_000
+    n_big = int(bk.valid.sum())
+    assert n_big > 0
+    if config == "padded":
+        assert n_big < bk.valid.shape[0] - 100
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R,CW", [(40, 1024), (17, 256)])
+def test_big_window_kernel_matches_plain_at_every_fill(cuda, R, CW):
+    """Rows of 0 to CW live keys (the kernel counts the keys below each up
+    to 256 live keys and sorts past that), at KC CW/4 and CW."""
+    g = torch.Generator(device=cuda).manual_seed(R)
+    counts = torch.linspace(0, CW, R, device=cuda).round().to(torch.int64)
+    place = torch.argsort(torch.rand(R, CW, generator=g, device=cuda),
+                          dim=1).argsort(dim=1)
+    depth = torch.randint(40000, 40040, (R, CW), generator=g, device=cuda)
+    keys = b2.i32(torch.where(place < counts[:, None],
+                              (depth << 10) | torch.arange(CW, device=cuda),
+                              b2.U32_MAX))
+    for KC in (CW // 4, CW):
+        kernels.reset_launch_counts()
+        got = b2.big_window(keys, KC)
+        assert kernels.launch_counts()["big_lanes"] == 1
+        want = b2.big_window_reference(keys, KC)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
