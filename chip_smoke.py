@@ -65,11 +65,17 @@ nvcc per source, all started together), then:
    with its walk (see phase 7) and the ms per G evaluations and FP32-issue
    share they imply; and the exact frame's Projection and Sort kernels on
    its 1080p inputs: projection_readable (f32 SH, the exact frame's; bf16
-   logged) and emit_exact (the emission into the static 10N buffer, its
-   fill included, on the arguments the frame's emission passed it), each
-   bit-equal to its plain version and timed beside its bound, emit_exact
-   also at a buffer of half the pairs (it drops pairs), and the stable
-   sort of the buffer with 32-bit keys against 64-bit ones; and the Blocks
+   logged), emit_exact (the write-once emission into the static 10N
+   buffer, on the arguments the frame's emission passed it; positions
+   [0, n) compared) and sort_pairs (the radix sort of the emission's n
+   live pairs), each bit-equal to its plain version and timed beside its
+   bound, both also at a buffer of half the pairs (it drops pairs),
+   sort_pairs also beside torch.sort of the buffer with its gather and
+   widening (library_ms, with the stable sort of the buffer's 32-bit keys
+   against 64-bit ones, and the same call on the n live pairs alone,
+   logged); then
+   torch.profiler over three eager Sort stages (profile_sort: kernels and
+   aten ops by device ms a stage); and the Blocks
    stage's kernels (block_frame, words and cooked, and big_lanes): the
    stage run through them and through their plain versions on the 1080p
    frames' projections of fast_defaults() (static bricks, the taken mask
@@ -98,8 +104,8 @@ nvcc per source, all started together), then:
    Rasterizer(cloud, texture_size=(1920, 1080)) (quality "exact", the
    default) and Rasterizer(..., quality="fast"), 8 orbit cameras each with
    rasterize(sync=True) after one warm-up frame: finite images, rendered
-   splats > 0, projection_readable, emit_exact and render_exact launched
-   by every exact frame and projection, block_frame, big_lanes and
+   splats > 0, projection_readable, emit_exact, sort_pairs and
+   render_exact launched by every exact frame and projection, block_frame, big_lanes and
    render_v3 by every fast frame (after the same fast frames with the
    Blocks stage's plain versions patched in, their Blocks timed before
    its kernels),
@@ -160,8 +166,8 @@ nvcc per source, all started together), then:
    counters (and the mesh's traffic) set to 0 just before each frame and
    read just after it: projection, block_frame, big_lanes and render_v3
    once a fast frame,
-   projection_readable and render_exact once and emit_exact at least once
-   an exact one (its shard read through a (P, 16, 3) view), on every rank
+   projection_readable, sort_pairs and render_exact once and emit_exact
+   at least once an exact one (its shard read through a (P, 16, 3) view), on every rank
    of the mesh. Rank 0 holds every view to its
    camera's single-device frame: fast >= 50 dB at world 1 and >= 40 dB
    past it; exact within 2e-3 at world 1 and past it >= 70 dB with max
@@ -202,7 +208,8 @@ nvcc per source, all started together), then:
    on: each graphed frame bit-equal to the eager render_frame_staged frame
    (image, sorted_values, tile_start, tile_end, tile_t0, splat_pos, stats;
    f32 compared as bits), the capture's launches one projection_readable,
-   one emit_exact a group and one render_exact, a replay's launches equal
+   one emit_exact a group, one sort_pairs and one render_exact, a replay's
+   launches equal
    to an eager frame's, a kept frame's image unchanged by later replays;
    both timed in turns (host clock, CUDA events, stages), their memory
    between frames and at peak, torch.profiler's busy share over 3 frames
@@ -214,8 +221,8 @@ nvcc per source, all started together), then:
 
 The launch counters are set to 0 just before each full-frame path and read
 just after it; the `launches` of a kernel come from the path that runs it
-(projection_readable's, emit_exact's and render_exact's from phase 8's
-exact frames, sfu_probe's from phase 9's timed runs). The other numbers
+(projection_readable's, emit_exact's, sort_pairs' and render_exact's from
+phase 8's exact frames, sfu_probe's from phase 9's timed runs). The other numbers
 of the kernels line come from phase 6, the main paths' inputs, and phase
 9 for sfu_probe (the render kernels' chain, __expf / __logf / __expf).
 `bound_ms` is the larger of the bytes the kernel must move over 3.35
@@ -225,8 +232,9 @@ instructions the function needs over the MUFU rate (`sfu_ms`: the
 alpha's exp a (pixel, lane); `bound_ms_f32` keeps the larger of the first
 two, `bound_term` names the largest; `formulation_sfu_ms` reads the MUFU
 instructions of the render kernels' log-domain blend beside it; the
-projections' and the emission's `sfu_ms` are null), counted from this
+projections', the emission's and the sort's `sfu_ms` are null), counted from this
 run's inputs (see `proj_bound`, `readable_vs_plain`, `emit_vs_plain`,
+`sort_bound`,
 `block_frame_record`, `big_lanes_record` (bytes only), `render_bound`
 and `exact_bound`: the render kernels read the payload
 rows of a tile's live big lanes, its first nbig, and evaluate each
@@ -273,6 +281,7 @@ from godotgaussiansplatting_torch.ops.binning2 import bin_blocks2
 from godotgaussiansplatting_torch.ops.fast_pipeline import (FastFrameGraph,
                                                             _frame_stages)
 from godotgaussiansplatting_torch.ops.pipeline import (ExactFrameGraph,
+                                                       _exact_stages,
                                                        pack_uniforms,
                                                        render_frame_staged)
 from godotgaussiansplatting_torch.ops.blocks2 import (
@@ -305,6 +314,7 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
     "projection_readable": (CSRC + "projection_readable.cu",
                             TPU + "projection.py:57"),
     "emit_exact": (CSRC + "emit_exact.cu", TPU + "sort.py:43"),
+    "sort_pairs": (CSRC + "sort_pairs.cu", TPU + "sort.py:187"),
     "block_frame": (CSRC + "block_frame.cu", TPU + "blocks2.py:470"),
     "block_frame_cooked": (CSRC + "block_frame.cu", TPU + "blocks2.py:521"),
     "big_lanes": (CSRC + "big_lanes.cu", TPU + "blocks2.py:239"),
@@ -416,15 +426,31 @@ BOUND_COUNTS = {
         "null): a few divides, square roots and a pow a splat against 313 "
         "bytes"),
     "emit_exact": (
-        "the emission into the static sort buffer, its fill included (two "
-        "torch fills, then the base and dense launches): bytes: the k_max "
-        "key and value slots written once (8 B a slot), "
+        "the write-once emission into the static sort buffer (the base and "
+        "dense launches, no fill): bytes: the n = min(num_pairs, k_max) "
+        "positions written once (8 B a position: key and value), "
         f"{EMIT_BYTES_PER_SPLAT} B read per splat and {EMIT_BYTES_PER_ROW}"
         " per dense row; operations: "
         f"{EMIT_OPS_PER_PAIR} integer operations per emitted pair at the "
         "f32 rate; special functions: none (sfu_ms null); ms and plain_ms "
-        "time the fill and the kernels or their plain versions on the "
-        "frame's recorded arguments"),
+        "time the kernels or their plain versions on the frame's recorded "
+        "arguments; bound_ms_k_max_fill keeps the count of the emission "
+        "that filled the buffer first, all k_max slots written"),
+    "sort_pairs": (
+        "the stable key-value radix sort of the n live pairs: bytes: the n "
+        "int32 keys and values read once (8 B a pair) and the k_max output "
+        "slots written once (int64 key and int32 value, 12 B); operations: "
+        "not counted (a few integer operations a key and pass, far below "
+        "the bytes term); special functions: none (sfu_ms null); ms: the "
+        "sort on a copy of the emission's buffers (it overwrites them), "
+        "less the copy, a CUDA graph of 5 replayed; plain_ms: "
+        "sort_pairs_reference; library_ms: torch.sort(stable=True) of the "
+        "int32 buffer with its tail filled, the values' gather and the "
+        "keys' widening (the Sort stage before this kernel: a graph-safe "
+        "torch.sort cannot be sized by the device-side n, so it sorts all "
+        "k_max slots); library_ms_live: the same on the n live pairs alone, "
+        "n read on the host (eager only); pass_bytes: what the histogram "
+        "and the passes move"),
     "block_frame": _BLOCK_COUNTS,
     "block_frame_cooked": _BLOCK_COUNTS,
     "big_lanes": (
@@ -707,10 +733,11 @@ def readable_vs_plain(tag: str, cloud, cfg, plain_reps: int):
 def emit_vs_plain(tag: str, prj, cfg, capacity: int | None = None,
                   plain_reps: int = 2):
     """The emission kernels against their plain versions on a frame's
-    projected splats: the static buffer's keys and values below the drop
-    slot, num_pairs and num_overflow bit-equal. Timed on the arguments the
-    frame's emission passed them (recorded), each run with the buffer's
-    fill. Returns (0.0, kernel ms, plain ms, bound, num_pairs, k_max)."""
+    projected splats: the static buffer's written positions [0, n), n =
+    min(num_pairs, k_max), num_pairs and num_overflow bit-equal. Timed on
+    the arguments the frame's emission passed them (recorded), on buffers
+    made once. Returns (0.0, kernel ms, plain ms, bound, num_pairs, the
+    kernels' (keys, values, num_pairs) buffers)."""
     calls = []
 
     def recorder(kind, fn):
@@ -727,39 +754,121 @@ def emit_vs_plain(tag: str, prj, cfg, capacity: int | None = None,
                                     base=so.emit_base_reference,
                                     dense=so.emit_dense_reference)
     torch.cuda.synchronize()
-    bad = {"keys": int((kk[:-1] != rk[:-1]).sum()),
-           "values": int((kv[:-1] != rv_[:-1]).sum())}
+    k_max = kk.shape[0] - 1
+    n = min(int(kn), k_max)
+    bad = {"keys": int((kk[:n] != rk[:n]).sum()),
+           "values": int((kv[:n] != rv_[:n]).sum())}
     counts = [int(kn), int(rn), int(ko), int(ro)]
     del rk, rv_
-    k_max = kk.shape[0] - 1
-    live = int((kk[:-1] != INVALID_KEY - so.SIGN).sum())
+    live = int((kk[:n] != INVALID_KEY - so.SIGN).sum())
     fns = {True: {"base": so.emit_base, "dense": so.emit_dense},
            False: {"base": so.emit_base_reference,
                    "dense": so.emit_dense_reference}}
+    keys, vals = torch.empty_like(kk), torch.empty_like(kv)
 
     def run(kernel: bool):
-        keys = torch.full_like(kk, INVALID_KEY - so.SIGN)
-        vals = torch.zeros_like(kv)
         for kind, a in calls:
             fns[kernel][kind](keys, vals, *a)
 
     ms = time_ms(lambda: run(True), 10)
     plain_ms = time_ms(lambda: run(False), plain_reps)
+    del keys, vals
     rows = sum(a[0].shape[0] for kind, a in calls if kind == "dense")
     P = prj.valid.shape[0]
-    bnd = bound(k_max * 8 + P * EMIT_BYTES_PER_SPLAT
-                + rows * EMIT_BYTES_PER_ROW, live * EMIT_OPS_PER_PAIR, None)
+    reads = P * EMIT_BYTES_PER_SPLAT + rows * EMIT_BYTES_PER_ROW
+    bnd = bound(n * 8 + reads, live * EMIT_OPS_PER_PAIR, None)
+    bnd["bound_ms_k_max_fill"] = bound(k_max * 8 + reads,
+                                       live * EMIT_OPS_PER_PAIR,
+                                       None)["bound_ms"]
     groups = [a[0].shape[0] if kind == "dense" else P for kind, a in calls]
     log(f"[{tag}] {P} splats, k_max {k_max}: {counts[0]} pairs emitted "
-        f"({live} in the buffer), overflow {counts[2]}, groups (rows) "
-        f"{groups}; entries not bit-equal to the plain version "
-        f"{json.dumps(bad)}, counts kernel / plain {counts}; fill and "
-        f"emission: kernel {ms:.4f} ms ({len(calls)} launches), plain "
-        f"{plain_ms:.4f} ms, {bound_text(bnd)}")
+        f"({live} live, {n - live} holes in the buffer's {n} written "
+        f"positions), overflow {counts[2]}, groups (rows) {groups}; "
+        f"entries of [0, n) not bit-equal to the plain version "
+        f"{json.dumps(bad)}, counts kernel / plain {counts}; emission: "
+        f"kernel {ms:.4f} ms ({len(calls)} launches), plain {plain_ms:.4f} "
+        f"ms, {bound_text(bnd)}; the old count (all k_max slots written) "
+        f"{bnd['bound_ms_k_max_fill']:.4f} ms")
     check(not any(bad.values()) and counts[0] == counts[1]
           and counts[2] == counts[3], f"{tag}: differs from the plain "
           f"version: {bad}, {counts}")
-    return 0.0, ms, plain_ms, bnd, counts[0], k_max
+    return 0.0, ms, plain_ms, bnd, counts[0], (kk, kv, kn)
+
+
+def sort_bound(n: int, k_max: int) -> dict:
+    """The sort's work (BOUND_COUNTS["sort_pairs"]): the n live pairs read
+    once, the k_max output slots written once."""
+    return bound(n * 8 + k_max * 12, 0, None)
+
+
+def sort_pass_bytes(n: int, k_max: int, end_bit: int) -> int:
+    """What the radix sort moves: the histogram's key read and tail write,
+    and each pass's pair read and write (an int64 key in the last)."""
+    passes = kernels.library("sort_pairs").gs_sort_pairs_passes(end_bit)
+    return n * 4 + (k_max - n) * 12 + n * 16 * (passes - 1) + n * 20
+
+
+def sort_vs_plain(tag: str, emitted, cfg, full: bool = True) -> dict:
+    """The radix sort against its plain version on an emission's buffers
+    (``emitted``: keys, values, num_pairs): both SortedPairs fields
+    bit-equal. With ``full``, also timed (on a copy of the buffers, less
+    the copy), beside the plain version, the library's torch.sort + gather
+    + widening on the same buffer with its tail filled (and on its n live
+    pairs alone), and its byte bound. Returns the record's numbers."""
+    keys, vals, total = emitted
+    k_max = keys.shape[0] - 1
+    n = min(int(total), k_max)
+    end_bit = so.sort_key_bits(cfg.num_tiles)
+    ref = so.sort_pairs_reference(keys, vals, total, k_max, end_bit)
+    out = so.sort_pairs(keys.clone(), vals.clone(), total, k_max, end_bit)
+    torch.cuda.synchronize()
+    bad = {"keys": int((out[0] != ref[0]).sum()),
+           "values": int((out[1] != ref[1]).sum())}
+    log(f"[{tag}] n {n} of k_max {k_max}, end_bit {end_bit}: slots not "
+        f"bit-equal to sort_pairs_reference {json.dumps(bad)}")
+    check(not any(bad.values()), f"{tag}: differs from the plain version")
+    del ref, out
+    if not full:
+        return {}
+    k, v = keys.clone(), vals.clone()
+
+    def copy():
+        k[:n].copy_(keys[:n])
+        v[:n].copy_(vals[:n])
+
+    def copy_and_sort():
+        copy()
+        so.sort_pairs(k, v, total, k_max, end_bit)
+
+    ms = min(time_graphed_ms(copy_and_sort, 5) - time_graphed_ms(copy, 5)
+             for _ in range(2))
+    plain_ms = time_ms(lambda: so.sort_pairs_reference(keys, vals, total,
+                                                       k_max, end_bit), 3)
+    filled = torch.where(torch.arange(k_max, device=keys.device) < n,
+                         keys[:k_max], INVALID_KEY - so.SIGN)
+
+    def library(m: int):
+        s, order = torch.sort(filled[:m], stable=True)
+        return vals[:m].gather(0, order), s.to(torch.int64).add_(so.SIGN)
+
+    lib_ms = time_ms(lambda: library(k_max), 5)
+    lib_live_ms = time_ms(lambda: library(n), 5)
+    sort_only = time_ms(lambda: torch.sort(filled, stable=True), 5)
+    wide = filled.to(torch.int64) + so.SIGN
+    sort64 = time_ms(lambda: torch.sort(wide, stable=True), 5)
+    del filled, wide, k, v
+    bnd = sort_bound(n, k_max)
+    moved = sort_pass_bytes(n, k_max, end_bit)
+    log(f"[{tag}] radix sort {ms:.4f} ms; the histogram and passes move "
+        f"{moved} B ({moved / HBM_BYTES_PER_S * 1e3:.4f} ms at the memory "
+        f"rate); plain {plain_ms:.4f} ms; library (torch.sort of the int32 "
+        f"buffer's k_max slots, gather and widening) {lib_ms:.4f} ms, of "
+        f"it torch.sort alone {sort_only:.4f} ms (int64 keys {sort64:.4f} "
+        f"ms); the same on the n live pairs alone (n read on the host) "
+        f"{lib_live_ms:.4f} ms; {bound_text(bnd)}")
+    return {"ms": ms, "plain_ms": plain_ms, "bnd": bnd,
+            "library_ms": lib_ms, "library_ms_live": lib_live_ms,
+            "pass_bytes": moved}
 
 
 def phase_projection(n: int, width: int, height: int) -> dict:
@@ -1361,7 +1470,8 @@ def engine_frames(tag: str, r, cloud, frames: int, expect) -> dict:
     return launches
 
 
-EXACT_PATH = ("projection_readable", "emit_exact", "render_exact")
+EXACT_PATH = ("projection_readable", "emit_exact", "sort_pairs",
+              "render_exact")
 FAST_PATH = ("projection", "block_frame", "big_lanes", "render_v3")
 
 
@@ -1559,11 +1669,11 @@ def exact_1080p(cloud, base, capacity: int, worst: float) -> dict:
 def exact_stages_1080p(full, base, worst: dict) -> list:
     """Phase 6, the exact frame's Projection and Sort kernels on the 1080p
     exact frame's inputs (reset camera): the readable projection (f32 SH,
-    the exact frame's; bf16 logged) and the emission, each held bit-equal
-    to its plain version and timed beside its bound; the emission also at
-    a sort buffer of half the pairs (it drops pairs); and the stable sort
-    of the 10N buffer with 32-bit keys against 64-bit ones. Returns the
-    two kernels' records."""
+    the exact frame's; bf16 logged), the write-once emission and the radix
+    sort of its live pairs, each held bit-equal to its plain version and
+    timed beside its bound; the emission and the sort also at a sort
+    buffer of half the pairs (it drops pairs); the sort also beside
+    torch.sort (library_ms). Returns the three kernels' records."""
     e, ms, plain_ms, bnd = readable_vs_plain(
         "6 projection_readable 1080p f32", full, base, 2)
     rec = [record("projection_readable",
@@ -1574,21 +1684,64 @@ def exact_stages_1080p(full, base, worst: dict) -> list:
     prj = project_splats(full.means, full.cov3d, full.opacity, full.sh,
                          full.upload_time, uni.view, uni.proj,
                          uni.camera_pos, uni.model_scale, uni.time, base)
-    e, ms, plain_ms, bnd, n, k_max = emit_vs_plain("6 emit_exact 1080p", prj,
-                                                   base)
+    e, ms, plain_ms, bnd, n, emitted = emit_vs_plain("6 emit_exact 1080p",
+                                                     prj, base)
     rec.append(record("emit_exact", e, ms, plain_ms, bnd))
+    srt = sort_vs_plain("6 sort_pairs 1080p", emitted, base)
+    k_max = emitted[0].shape[0] - 1
+    del emitted
+    r = record("sort_pairs", 0.0, srt["ms"], srt["plain_ms"], srt["bnd"])
+    r.update(library_ms=srt["library_ms"],
+             library_ms_live=srt["library_ms_live"],
+             pass_bytes=srt["pass_bytes"])
+    rec.append(r)
     check(n // 2 < min(n, k_max), "6 emit_exact: no pair to drop")
-    emit_vs_plain(f"6 emit_exact 1080p capacity {n // 2}", prj, base,
-                  capacity=n // 2, plain_reps=1)
-    keys = so.emit_pairs(prj.valid, prj.rect, prj.num_tiles, prj.depth16,
-                         base)[0][:-1]
-    t32 = time_ms(lambda: torch.sort(keys, stable=True), 5)
-    wide = keys.to(torch.int64) + so.SIGN
-    t64 = time_ms(lambda: torch.sort(wide, stable=True), 5)
-    log(f"[6 sort 1080p] stable torch.sort of the {keys.numel()}-slot "
-        f"buffer: int32 keys (sign-flipped u32) {t32:.4f} ms, the same keys "
-        f"as int64 {t64:.4f} ms")
+    emitted = emit_vs_plain(f"6 emit_exact 1080p capacity {n // 2}", prj,
+                            base, capacity=n // 2, plain_reps=1)[-1]
+    sort_vs_plain(f"6 sort_pairs 1080p capacity {n // 2}", emitted, base,
+                  full=False)
     return rec
+
+
+def profile_sort(tag: str, full, cfg, capacity: int, frames: int = 3) -> None:
+    """torch.profiler over the exact frame's Sort stage alone, eager, on
+    the projected splats of ``frames`` orbit cameras: the device's busy
+    time a stage, its kernels and the aten ops that launch them, each with
+    launches and device ms a stage."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+    cams = gt.orbit_trajectory(frames, radius=5.0, target=(0, 0, 6.0))
+    stages = [dict(_exact_stages(full, gt.make_uniforms(c, cfg), cfg,
+                                 capacity)) for c in cams]
+    inputs = [s["Projection"](None) for s in stages]
+    stages[0]["Sort"](inputs[0])                            # warm-up
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        for s, x in zip(stages, inputs):
+            s["Sort"](x)
+        torch.cuda.synchronize()
+    kern: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            n, t = kern.get(e.name[:110], (0, 0.0))
+            kern[e.name[:110]] = (n + 1, t + e.time_range.elapsed_us())
+    busy = sum(t for _, t in kern.values())
+    ops = [(a.key, a.count, a.self_device_time_total)
+           for a in prof.key_averages() if a.key.startswith("aten::")
+           and a.self_device_time_total > 0]
+
+    def top(items, k):
+        return {n: [round(c / frames, 2), round(t / 1e3 / frames, 4)]
+                for n, c, t in sorted(items, key=lambda x: -x[2])[:k]}
+
+    log(f"[{tag} Sort profile] {frames} eager Sort stages: "
+        f"{busy / 1e3 / frames:.3f} device ms a stage in "
+        f"{sum(c for c, _ in kern.values()) / frames:.0f} device "
+        f"activities; top [launches, device ms] a stage "
+        f"{json.dumps(top([(n, c, t) for n, (c, t) in kern.items()], 16))}")
+    log(f"[{tag} Sort profile] aten ops by self device ms, [calls, ms] a "
+        f"stage {json.dumps(top(ops, 12))}")
 
 
 # --- the Blocks stage's kernels ----------------------------------------------
@@ -2186,7 +2339,8 @@ def _sharded_path(mesh, shard, P: int, base, path: str,
     fn = (sharded.render_frame_fast_sharded if fast
           else sharded.render_frame_sharded)
     kw = {} if fast else {"tile_capacity": tile_capacity}
-    expect = FAST_PATH if fast else ("projection_readable", "render_exact")
+    expect = FAST_PATH if fast else ("projection_readable", "sort_pairs",
+                                     "render_exact")
     if not fast and shard is not None:
         # the readable projection's kernel takes (P, 16, 3) SH
         shard = dataclasses.replace(shard, local=sh_rows(shard.local))
@@ -2333,7 +2487,8 @@ def _sharded_report(recs: list, backend: str, world: int, card: str,
     fast = recs[0]["path"] == "fast"
     tag = f"11 sharded {backend} ({n_view}, {n_tile}) {recs[0]['path']}"
     frames = SHARDED_CAMERAS // n_view
-    expect = FAST_PATH if fast else ("projection_readable", "render_exact")
+    expect = FAST_PATH if fast else ("projection_readable", "sort_pairs",
+                                     "render_exact")
     members = [r for r in recs if r["member"]]
     for rec in members:
         for name in expect:
@@ -2635,7 +2790,7 @@ def phase_exact_graphs(full, base, capacity: int, card: str,
         lambda: ExactFrameGraph(full, cfg, values[0], capacity), values,
         EXACT_GRAPH_FIELDS, frames,
         lambda n: n == {"projection_readable": 1, "emit_exact": groups,
-                        "render_exact": 1})
+                        "sort_pairs": 1, "render_exact": 1})
     # the engine: one capture over the orbit and a heatmap toggle, at the
     # capacity phase 8 settled on; then a forced regrowth
     r = gt.Rasterizer(full, texture_size=(w, h), tile_capacity=capacity)
@@ -2723,6 +2878,7 @@ def main() -> int:
     rec += phase_blocks(cloud, base)
     rec += exact_stages_1080p(full, base, worst)
     rec.append(exact_1080p(full, base, capacity, worst["render_exact"]))
+    profile_sort("6 exact 1080p", full, base, capacity)
     rec.append(probe)
     launches["sfu_probe"] = probe_launches
     BUILD.mkdir(parents=True, exist_ok=True)

@@ -57,6 +57,11 @@ SIGNATURES = {
         "gs_emit_base": [_P] * 7 + [_I] * 2 + [_L, _P],
         "gs_emit_dense": [_P] * 8 + [_I] * 3 + [_L, _P],
     },
+    "sort_pairs": {
+        "gs_sort_pairs": [_P] * 8 + [_L, _I, _P],
+        "gs_sort_pairs_passes": [_I],
+        "gs_sort_pairs_scratch_words": [_L, _I],
+    },
     "render_v3": {
         "gs_render_v3": [_P] * 5 + [_I] * 8 + [_P],
         "gs_render_v3_cooked": [_P] * 5 + [_I] * 8 + [_P],
@@ -79,11 +84,11 @@ SIGNATURES = {
 # One launch counter per kernel a wrapper launches (the v3 and the
 # block_frame libraries hold two each: the word and the cooked payload;
 # sfu_probe counts every body; emit_exact counts its base and each dense
-# group's launch).
+# group's launch; sort_pairs counts a sort, its histogram and passes).
 COUNTERS = ("projection", "projection_readable", "block_frame",
             "block_frame_cooked", "big_lanes", "render_v3",
             "render_v3_cooked", "render_v4", "render_exact", "emit_exact",
-            "sfu_probe")
+            "sort_pairs", "sfu_probe")
 
 _libs: dict = {}
 _launches = {name: 0 for name in COUNTERS}

@@ -7,26 +7,30 @@ the same keys, values, ``num_pairs``, ``num_overflow``, ``start`` and
 returned as int64 holding the u32 value (torch has no ``>>``, ``<`` or
 ``searchsorted`` on u32).
 
-The emission follows the JAX package's design, with no host read: the
-static ``k_max`` key and value buffers are filled with ``INVALID_KEY`` and
-0, and every live pair is written at its emission position, positions
-``>= k_max`` dropped:
+The emission follows the JAX package's design, with no host read: every
+pair goes to its emission position in a static ``k_max`` key and value
+buffer, positions ``>= k_max`` dropped:
 
   * the base group: splat i's slot t at ``offsets[i] + t`` for
     ``t < min(num_tiles[i], max_tiles_per_splat)``, the t-th tile of its
     rect in row-major order, ``offsets`` the exclusive prefix of the capped
-    counts (culled splats' counts reserve their positions, as in JAX);
+    counts (culled splats' counts reserve their positions, as in JAX: those
+    positions are holes);
   * each ``exact_tiers`` tier's compacted dense rows at
     ``total + total_extra + off_c + t``;
   * the giants' dense rows after the tiers.
 
 That is the order JAX's stable sort of its whole slot matrices gives
-(dead slots carry ``INVALID_KEY`` and sort last), so one stable sort of the
-buffer equals it. ``emit_base`` and ``emit_dense`` send CUDA tensors to
-the kernels of csrc/emit_exact.cu and CPU tensors to their plain versions,
-which scatter the same matrices into a buffer whose last slot takes the
-dropped pairs. The keys are sorted as int32 ``key ^ 0x80000000`` (the u32
-order as a signed one: 32-bit radix passes).
+(dead slots carry ``INVALID_KEY`` and sort last). The emission writes the
+positions ``[0, n)``, ``n = min(total, k_max)``, each once, a hole as
+``INVALID_KEY``; ``sort_pairs`` then sorts those n pairs stably and writes
+the output's tail ``[n, k_max)`` as ``(INVALID_KEY, 0)``, which equals one
+stable sort of the whole buffer. ``emit_base``, ``emit_dense`` and
+``sort_pairs`` send CUDA tensors to the kernels of csrc/emit_exact.cu and
+csrc/sort_pairs.cu and CPU tensors to their plain versions; the emission's
+plain versions scatter the same matrices into a buffer whose last slot
+takes the dropped pairs. The buffer holds the keys as int32 ``key ^
+0x80000000`` (the u32 order as a signed one).
 
 ``num_pairs`` is the emitted total, not clamped to ``k_max``, as in the
 JAX package (ROADMAP queue 3 #3).
@@ -78,30 +82,37 @@ def _compact(rank: torch.Tensor, cap: int):
 def emit_base_reference(keys, vals, valid, rect, nt, offsets, depth16,
                         gx: int, max_t: int) -> None:
     """Plain version of the base emission: the (P, max_t) slot matrix,
-    each live slot scattered to its position in ``keys`` / ``vals``
-    ((k_max + 1,) int32; the last slot takes the dropped ones)."""
+    each of splat i's ``nt[i]`` slots scattered to its position in
+    ``keys`` / ``vals`` ((k_max + 1,) int32; the last slot takes the
+    dropped ones), an invalid splat's slots as holes (INVALID_KEY, 0)."""
     dev = rect.device
     k_max = keys.shape[0] - 1
     P = rect.shape[0]
     tt = torch.arange(max_t, dtype=torch.int64, device=dev)[None, :]
     pos = offsets[:, None] + tt
-    live = valid[:, None] & (tt < nt[:, None]) & (pos < k_max)
+    written = (tt < nt[:, None]) & (pos < k_max)
     w = torch.clamp(rect[:, 2] - rect[:, 0], min=1).to(torch.int64)[:, None]
     ty = tt // w
     tx = tt - ty * w
     tile = (rect[:, 1] * gx + rect[:, 0]).to(torch.int64)[:, None] \
         + ty * gx + tx
-    dest = torch.where(live, pos, k_max).reshape(-1)
+    dest = torch.where(written, pos, k_max).reshape(-1)
     ids = torch.arange(P, dtype=torch.int32, device=dev)[:, None]
-    keys.scatter_(0, dest, _flipped_keys(tile, depth16[:, None]).reshape(-1))
-    vals.scatter_(0, dest, ids.expand(-1, max_t).reshape(-1))
+    live = valid[:, None]
+    key = torch.where(live, _flipped_keys(tile, depth16[:, None]),
+                      INVALID_KEY - SIGN)
+    keys.scatter_(0, dest, key.reshape(-1))
+    vals.scatter_(0, dest, torch.where(live, ids, 0).expand(-1, max_t)
+                  .reshape(-1))
 
 
 def emit_dense_reference(keys, vals, idx, nt_c, off_c, pos0, rect, depth16,
                          width: int, gx: int) -> None:
     """Plain version of one dense group: the (C, width) matrix of the
     compacted splats ``idx`` over their full row-major rects, slot t of row
-    c at ``pos0 + off_c[c] + t`` for ``t < nt_c[c]``."""
+    c at ``pos0 + off_c[c] + t`` for ``t < nt_c[c]`` (at most ``width``:
+    a tier takes splats of at most its width, the giants' width is the
+    grid's tile count)."""
     dev = rect.device
     k_max = keys.shape[0] - 1
     idx64 = idx.to(torch.int64)
@@ -130,16 +141,21 @@ def _check_emit(what: str, keys, vals, *tensors) -> None:
 
 def emit_base(keys, vals, valid, rect, nt, offsets, depth16, gx: int,
               max_t: int) -> None:
-    """The base emission into ``keys`` / ``vals`` ((k_max + 1,) int32,
-    filled by the caller): CUDA tensors go to the kernel (csrc/
-    emit_exact.cu, ``gs_emit_base``), CPU tensors to
-    ``emit_base_reference``. ``valid`` (P,) bool, ``rect`` (P, 4) i32,
+    """The base emission into ``keys`` / ``vals`` ((k_max + 1,) int32):
+    CUDA tensors go to the kernel (csrc/emit_exact.cu, ``gs_emit_base``),
+    which writes the group's positions below k_max once each, CPU tensors
+    to ``emit_base_reference``. ``valid`` (P,) bool, ``rect`` (P, 4) i32,
     ``nt`` (P,) i32 capped counts, ``offsets`` (P,) int64 and ``depth16``
     (P,) i32."""
     if keys.device.type == "cpu":
         emit_base_reference(keys, vals, valid, rect, nt, offsets, depth16,
                             gx, max_t)
         return
+    _emit_base_cuda(keys, vals, valid, rect, nt, offsets, depth16, gx)
+
+
+def _emit_base_cuda(keys, vals, valid, rect, nt, offsets, depth16,
+                    gx: int) -> None:
     P = rect.shape[0]
     if (valid.dtype != torch.bool or rect.shape != (P, 4)
             or rect.dtype != torch.int32 or nt.dtype != torch.int32
@@ -168,6 +184,12 @@ def emit_dense(keys, vals, idx, nt_c, off_c, pos0, rect, depth16,
         emit_dense_reference(keys, vals, idx, nt_c, off_c, pos0, rect,
                              depth16, width, gx)
         return
+    _emit_dense_cuda(keys, vals, idx, nt_c, off_c, pos0, rect, depth16,
+                     width, gx)
+
+
+def _emit_dense_cuda(keys, vals, idx, nt_c, off_c, pos0, rect, depth16,
+                     width: int, gx: int) -> None:
     C = idx.shape[0]
     if (idx.dtype != torch.int32 or nt_c.dtype != torch.int32
             or off_c.dtype != torch.int64 or pos0.dtype != torch.int64
@@ -188,16 +210,23 @@ def emit_dense(keys, vals, idx, nt_c, off_c, pos0, rect, depth16,
     kernels.count_launch("emit_exact")
 
 
+def _pair_buffers(k_max: int, dev: torch.device) -> tuple:
+    """The emission's (k_max + 1,) int32 key and value buffers, left
+    unwritten: the emission writes every position the sort reads."""
+    return (torch.empty((k_max + 1,), dtype=torch.int32, device=dev),
+            torch.empty((k_max + 1,), dtype=torch.int32, device=dev))
+
+
 def emit_pairs(proj_valid: torch.Tensor, rect: torch.Tensor,
                num_tiles: torch.Tensor, depth16: torch.Tensor,
                cfg: RasterizerConfig, capacity: int | None = None,
                tiers=None, base=emit_base, dense=emit_dense) -> tuple:
     """The emission into the static buffer (see the module docstring):
     (keys, values, num_pairs, num_overflow), keys and values (k_max + 1,)
-    int32 (flipped keys; the last slot is the drop slot, whatever it
-    holds), the counts () int64. ``base`` and ``dense`` write the groups
-    (``emit_base`` and ``emit_dense``; a comparison passes their plain
-    versions)."""
+    int32 (flipped keys; positions [0, min(num_pairs, k_max)) written, the
+    rest unwritten), the counts () int64.
+    ``base`` and ``dense`` write the groups (``emit_base`` and
+    ``emit_dense``; a comparison passes their plain versions)."""
     dev = rect.device
     P = rect.shape[0]
     gx, _ = cfg.tile_dims
@@ -235,9 +264,7 @@ def emit_pairs(proj_valid: torch.Tensor, rect: torch.Tensor,
     offsets = cum - nt_capped                         # exclusive prefix
     total = cum[-1] if P else torch.zeros((), dtype=torch.int64, device=dev)
 
-    keys = torch.full((k_max + 1,), INVALID_KEY - SIGN, dtype=torch.int32,
-                      device=dev)
-    vals = torch.zeros((k_max + 1,), dtype=torch.int32, device=dev)
+    keys, vals = _pair_buffers(k_max, dev)
     base(keys, vals, proj_valid, rect, nt_capped, offsets, depth16, gx,
          max_t)
     for (width, cap, rank) in groups:
@@ -250,23 +277,91 @@ def emit_pairs(proj_valid: torch.Tensor, rect: torch.Tensor,
     return keys, vals, total, num_tiles.sum(dtype=torch.int64) - total
 
 
+def sort_key_bits(num_tiles: int) -> int:
+    """``end_bit``: the low bits of the u32 key the sort orders,
+    ``min(32, 16 + bit_length(num_tiles))``. A live key ``tile << 16 |
+    depth16`` (tile below ``num_tiles``) is at most ``(num_tiles << 16) -
+    1``, below ``2^end_bit - 1``, the key of a hole (``INVALID_KEY``) masked
+    to those bits; so holes sort after every live pair, and the masked sort
+    equals the full 32-bit one."""
+    return min(32, 16 + int(num_tiles).bit_length())
+
+
+def sort_pairs_reference(keys, vals, total, k_max: int, end_bit: int):
+    """Plain version of ``sort_pairs``: the live pairs ``[0, n)``, ``n =
+    min(total, k_max)``, of the emission's int32 buffers, each slot past
+    them read as (INVALID_KEY, 0), stably sorted by the key's low
+    ``end_bit`` bits with ``torch.sort``, the values gathered and the keys
+    widened to int64 u32 values. Returns (keys (k_max,) int64, values
+    (k_max,) int32)."""
+    dev = keys.device
+    live = (torch.arange(k_max, dtype=torch.int64, device=dev)
+            < torch.clamp(total, max=k_max))
+    u = torch.where(live, keys[:k_max].to(torch.int64) + SIGN, INVALID_KEY)
+    v = torch.where(live, vals[:k_max], 0)
+    masked = ((u & ((1 << end_bit) - 1)) - SIGN).to(torch.int32)
+    order = torch.sort(masked, stable=True).indices
+    return u.gather(0, order), v.gather(0, order)
+
+
+def sort_pairs(keys, vals, total, k_max: int, end_bit: int):
+    """The stable key-value sort of the emission's live pairs: CUDA tensors
+    go to the radix sort of csrc/sort_pairs.cu (which reads ``total`` on
+    the device and overwrites ``keys`` and ``vals``), CPU tensors to
+    ``sort_pairs_reference``. ``keys`` / ``vals`` int32 of at least
+    ``k_max`` slots, ``total`` () int64. Returns (keys (k_max,) int64,
+    values (k_max,) int32)."""
+    if keys.device.type == "cpu":
+        return sort_pairs_reference(keys, vals, total, k_max, end_bit)
+    return _sort_pairs_cuda(keys, vals, total, k_max, end_bit)
+
+
+def _sort_pairs_cuda(keys, vals, total, k_max: int, end_bit: int):
+    if (keys.dtype != torch.int32 or vals.dtype != torch.int32
+            or keys.ndim != 1 or keys.shape != vals.shape
+            or keys.shape[0] < k_max or total.dtype != torch.int64
+            or total.numel() != 1):
+        raise ValueError("sort_pairs: keys and values must be int32 of at "
+                         "least k_max slots, total a () int64")
+    if not (0 <= k_max < 1 << 30 and 1 <= end_bit <= 32):
+        raise ValueError(f"sort_pairs: k_max {k_max} or end_bit {end_bit} "
+                         "out of range")
+    kernels.require_cuda("sort_pairs", keys, vals, total)
+    dev = keys.device
+    lib = kernels.library("sort_pairs")
+    tmp = [torch.empty((k_max,), dtype=torch.int32, device=dev)
+           for _ in range(2)]
+    scratch = torch.empty((lib.gs_sort_pairs_scratch_words(k_max, end_bit),),
+                          dtype=torch.int32, device=dev)
+    out_k = torch.empty((k_max,), dtype=torch.int64, device=dev)
+    out_v = torch.empty((k_max,), dtype=torch.int32, device=dev)
+    err = lib.gs_sort_pairs(
+        keys.data_ptr(), vals.data_ptr(), tmp[0].data_ptr(),
+        tmp[1].data_ptr(), scratch.data_ptr(), total.data_ptr(),
+        out_k.data_ptr(), out_v.data_ptr(), k_max, end_bit,
+        kernels.stream_ptr(dev))
+    kernels.check(err, "sort_pairs launch")
+    kernels.count_launch("sort_pairs")
+    return out_k, out_v
+
+
 def emit_and_sort(proj_valid: torch.Tensor, rect: torch.Tensor,
                   num_tiles: torch.Tensor, depth16: torch.Tensor,
                   cfg: RasterizerConfig, capacity: int | None = None,
                   tiers=None) -> SortedPairs:
     """Emit ``(tile << 16 | depth16, splat id)`` pairs and sort them.
 
-    ``proj_valid`` (P,) bool, ``rect`` (P, 4) i32 ``[x0, y0, x1, y1)``,
-    ``num_tiles`` (P,) i32 and ``depth16`` (P,) (the low 16 bits of a u32).
-    ``tiers`` defaults to ``cfg.exact_tiers``: a splat wider than the base
-    cap is compacted into the smallest tier that covers it and emitted
-    densely; splats wider than the last tier go to the giant path."""
+    ``proj_valid`` (P,) bool, ``rect`` (P, 4) i32 ``[x0, y0, x1, y1)``
+    inside the tile grid, ``num_tiles`` (P,) i32 and ``depth16`` (P,) (the
+    low 16 bits of a u32). ``tiers`` defaults to ``cfg.exact_tiers``: a
+    splat wider than the base cap is compacted into the smallest tier that
+    covers it and emitted densely; splats wider than the last tier go to
+    the giant path."""
     keys, vals, total, overflow = emit_pairs(proj_valid, rect, num_tiles,
                                              depth16, cfg, capacity, tiers)
-    k_max = keys.shape[0] - 1
-    skeys, order = torch.sort(keys[:k_max], stable=True)
-    return SortedPairs(keys=skeys.to(torch.int64).add_(SIGN),
-                       values=vals[:k_max].gather(0, order),
+    skeys, svals = sort_pairs(keys, vals, total, keys.shape[0] - 1,
+                              sort_key_bits(cfg.num_tiles))
+    return SortedPairs(keys=skeys, values=svals,
                        num_pairs=total.to(torch.int32),
                        num_overflow=overflow.to(torch.int32))
 

@@ -28,6 +28,7 @@ from godotgaussiansplatting_torch.ops.bigbin import bin_bigs
 from godotgaussiansplatting_torch.ops.binning2 import bin_blocks2
 from godotgaussiansplatting_torch.ops.blocks2 import (
     adaptive_cell_shift, build_block_frame2, build_block_frame2_words)
+from godotgaussiansplatting_torch.config import INVALID_KEY
 from godotgaussiansplatting_torch.models.ply import load_splats
 from godotgaussiansplatting_torch.ops.pipeline import (
     ExactFrameGraph, pack_uniforms, render_frame_staged, uniforms_from_buffer)
@@ -76,7 +77,7 @@ def test_cpu_frame_launches_no_kernel():
                                      "big_lanes", "render_v3",
                                      "render_v3_cooked", "render_v4",
                                      "render_exact", "emit_exact",
-                                     "sfu_probe"}
+                                     "sort_pairs", "sfu_probe"}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -618,11 +619,11 @@ def test_projection_readable_kernel_matches_plain(cuda, sh):
 
 @pytest.mark.gpu
 def test_emit_exact_kernel_matches_plain(cuda):
-    """The emission kernels write the static buffer bit-equal to their
-    plain versions, with tiers and giants taken (the second tier and the
-    giant path past their capacities), for a buffer that holds every pair
-    and two that drop pairs (two thirds of them, and the last one); the
-    sorted pairs equal the CPU's."""
+    """The emission kernels write the static buffer's positions [0, n)
+    bit-equal to their plain versions, with tiers and giants taken (the
+    second tier and the giant path past their capacities), for a buffer
+    that holds every pair and two that drop pairs (two thirds of them, and
+    the last one); the sorted pairs equal the CPU's."""
     cfg = gt.RasterizerConfig(width=320, height=224, max_tiles_per_splat=2,
                               exact_tiers=((4, 4096), (8, 256)),
                               giant_splat_capacity=64)
@@ -643,13 +644,150 @@ def test_emit_exact_kernel_matches_plain(cuda):
         rk, rv_, rn, ro = so.emit_pairs(
             *inputs, cfg, capacity, base=so.emit_base_reference,
             dense=so.emit_dense_reference)
-        assert torch.equal(kk[:-1], rk[:-1]) and torch.equal(kv[:-1], rv_[:-1])
+        m = min(n, kk.shape[0] - 1)
+        assert torch.equal(kk[:m], rk[:m]) and torch.equal(kv[:m], rv_[:m])
         assert int(kn) == int(rn) == n and int(ko) == int(ro)
         card = so.emit_and_sort(*inputs, cfg, capacity=capacity)
         host = so.emit_and_sort(*(t.cpu() for t in inputs), cfg,
                                 capacity=capacity)
         for a, b in zip(card, host):
             assert torch.equal(a.cpu(), b)
+
+
+def _emission_case(case, dev):
+    """(inputs, cfg, halved) of an emission whose live count n is 0, 1,
+    a partial tile of the sort, past its buffer (n = k_max), or the 1080p
+    frame's (5.8M splats, some 16M pairs in a 58M-slot buffer; halved: the
+    buffer is to hold half the pairs); the splats carry holes (culled splats' counts) and, but for "one", every
+    emission group."""
+    rng = np.random.default_rng(11)
+    if case == "1080p":
+        cfg = gt.RasterizerConfig(width=1920, height=1080)
+        P = 5_800_000
+    else:
+        cfg = gt.RasterizerConfig(width=320, height=224,
+                                  max_tiles_per_splat=2,
+                                  exact_tiers=((4, 512), (8, 64)),
+                                  giant_splat_capacity=16)
+        P = {"n0": 200, "n1": 1, "partial": 2000, "overflow": 2000}[case]
+    gx, gy = cfg.tile_dims
+    x0 = rng.integers(0, gx, P)
+    y0 = rng.integers(0, gy, P)
+    wide = rng.random(P) < 0.05
+    x1 = np.minimum(x0 + np.where(wide, rng.integers(1, 40, P),
+                                  rng.integers(1, 3, P)), gx)
+    y1 = np.minimum(y0 + np.where(wide, rng.integers(1, 40, P),
+                                  rng.integers(1, 3, P)), gy)
+    valid = rng.random(P) < 0.6
+    nt = (x1 - x0) * (y1 - y0)
+    if case == "n0":
+        valid[:] = False
+        nt[:] = 0
+    if case == "n1":
+        x1, y1, nt, valid = x0 + 1, y0 + 1, np.ones(1), np.ones(1, bool)
+    depth = rng.integers(0, 1 << 16, P)
+    depth[rng.random(P) < 0.2] = 4321            # ties
+    t = lambda a, d: torch.as_tensor(np.asarray(a), dtype=d, device=dev)
+    inputs = (t(valid, torch.bool),
+              t(np.stack([x0, y0, x1, y1], 1), torch.int32),
+              t(nt, torch.int32), t(depth, torch.int32))
+    return inputs, cfg, case == "overflow"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["n0", "n1", "partial", "overflow",
+                                  "1080p"])
+def test_emission_and_sort_kernels_match_plain(cuda, monkeypatch, case):
+    """Both kernels bit-equal to their plain versions: the emission's
+    positions [0, n) on buffers that start as two different patterns (a
+    position left unwritten would differ), and the radix sort of that
+    emission at the grid's end_bit and at 32."""
+    inputs, cfg, halved = _emission_case(case, cuda)
+    capacity = int(so.emit_pairs(*inputs, cfg)[2]) // 2 if halved else None
+    fills = iter((0x13579BDF, -0x2468ACE0))
+
+    def buffers(k_max, dev):
+        f = next(fills)
+        return tuple(torch.full((k_max + 1,), f, dtype=torch.int32,
+                                device=dev) for _ in range(2))
+
+    monkeypatch.setattr(so, "_pair_buffers", buffers)
+    kk, kv, total, _ = so.emit_pairs(*inputs, cfg, capacity)
+    rk, rv_, rtotal, _ = so.emit_pairs(*inputs, cfg, capacity,
+                                       base=so.emit_base_reference,
+                                       dense=so.emit_dense_reference)
+    k_max = kk.shape[0] - 1
+    n = min(int(total), k_max)
+    assert int(total) == int(rtotal)
+    assert n == {"n0": 0, "n1": 1}.get(case, n)
+    if case == "overflow":
+        assert int(total) > k_max
+    if case == "partial":
+        assert n % 4096 != 0 and n > 4096
+    assert torch.equal(kk[:n], rk[:n]) and torch.equal(kv[:n], rv_[:n])
+    for end_bit in (so.sort_key_bits(cfg.num_tiles), 32):
+        ref = so.sort_pairs_reference(kk, kv, total, k_max, end_bit)
+        kernels.reset_launch_counts()
+        out = so.sort_pairs(kk.clone(), kv.clone(), total, k_max, end_bit)
+        assert kernels.launch_counts()["sort_pairs"] == 1
+        assert torch.equal(out[0], ref[0]), end_bit
+        assert torch.equal(out[1], ref[1]), end_bit
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("end_bit", [29, 32])
+def test_sort_pairs_kernel_keeps_equal_keys_in_order(cuda, end_bit):
+    """All keys equal (and all holes): the sort keeps the emission
+    order."""
+    k_max, n = 70_000, 65_537
+    total = torch.tensor(n, device=cuda)
+    vals = torch.randperm(k_max + 1, device=cuda).to(torch.int32)
+    for key in (777 - so.SIGN, INVALID_KEY - so.SIGN):
+        keys = torch.full((k_max + 1,), key, dtype=torch.int32, device=cuda)
+        ref = so.sort_pairs_reference(keys, vals, total, k_max, end_bit)
+        assert torch.equal(ref[1][:n], vals[:n])
+        out = so.sort_pairs(keys.clone(), vals.clone(), total, k_max,
+                            end_bit)
+        assert torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
+
+
+def test_sort_kernel_wrappers_refuse_what_they_do_not_take():
+    """The emission's and the radix sort's kernel wrappers refuse CPU
+    tensors and dtypes or ranges they do not take, with no fallback."""
+    keys = torch.zeros(65, dtype=torch.int32)
+    total = torch.tensor(10)
+    with pytest.raises(ValueError, match="CUDA"):
+        so._sort_pairs_cuda(keys, keys.clone(), total, 64, 29)
+    with pytest.raises(ValueError, match="int32"):
+        so._sort_pairs_cuda(keys.long(), keys.clone(), total, 64, 29)
+    with pytest.raises(ValueError, match="int64"):
+        so._sort_pairs_cuda(keys, keys.clone(), total.int(), 64, 29)
+    with pytest.raises(ValueError, match="slots"):
+        so._sort_pairs_cuda(keys, keys.clone(), total, 66, 29)
+    for end_bit in (33, 0):
+        with pytest.raises(ValueError, match="range"):
+            so._sort_pairs_cuda(keys, keys.clone(), total, 64, end_bit)
+    P = 8
+    valid = torch.ones(P, dtype=torch.bool)
+    rect = torch.zeros((P, 4), dtype=torch.int32)
+    nt = torch.ones(P, dtype=torch.int32)
+    off = torch.arange(P, dtype=torch.int64)
+    with pytest.raises(ValueError, match="CUDA"):
+        so._emit_base_cuda(keys, keys.clone(), valid, rect, nt, off, nt, 4)
+    with pytest.raises(ValueError, match="shapes/dtypes"):
+        so._emit_base_cuda(keys, keys.clone(), valid, rect, nt, off.int(),
+                           nt, 4)
+    with pytest.raises(ValueError, match="int32"):
+        so._emit_base_cuda(keys.long(), keys.clone(), valid, rect, nt, off,
+                           nt, 4)
+    idx = torch.arange(P, dtype=torch.int32)
+    pos0 = torch.zeros((), dtype=torch.int64)
+    with pytest.raises(ValueError, match="CUDA"):
+        so._emit_dense_cuda(keys, keys.clone(), idx, nt, off, pos0, rect, nt,
+                            4, 4)
+    with pytest.raises(ValueError, match="shapes/dtypes"):
+        so._emit_dense_cuda(keys, keys.clone(), idx, nt, off, pos0.int(),
+                            rect, nt, 4, 4)
 
 
 def _orbit_values(cfg, n):
@@ -670,7 +808,7 @@ def test_exact_frame_graph_equals_the_eager_frame(cuda):
     values = _orbit_values(cfg, 4)
     graph = ExactFrameGraph(cloud, cfg, values[0], tile_capacity=1024)
     assert graph.launches == {"projection_readable": 1, "emit_exact": 4,
-                              "render_exact": 1}
+                              "sort_pairs": 1, "render_exact": 1}
     kept = graph.render(values[0])
     kept_image = kept.image.clone()
     for v in values:

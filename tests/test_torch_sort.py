@@ -248,3 +248,107 @@ def test_static_emission_edges(edge):
     else:
         assert int(pt.num_pairs) == base + sum(dense) > capacity
         assert int((pt.keys != INVALID_KEY).sum()) == capacity
+
+
+# --- the write-once emission and the key-value sort, as the card runs them --
+
+def _garbage_buffers(monkeypatch):
+    """Make the emission's unwritten buffers start as seeded noise: a
+    position the sort reads and the emission failed to write then shows
+    in every run."""
+    rng = np.random.default_rng(9)
+
+    def buffers(k_max, dev):
+        return tuple(torch.from_numpy(rng.integers(
+            -2**31, 2**31, k_max + 1, dtype=np.int64).astype(np.int32))
+            for _ in range(2))
+
+    monkeypatch.setattr(ts, "_pair_buffers", buffers)
+
+
+@pytest.mark.parametrize("kind", ["live", "dead_tiles", "capacity_below"])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_write_once_path_bit_equal(monkeypatch, case, kind):
+    """The emission's and the sort's plain versions called as the CUDA path
+    calls them (buffers left unwritten, the sort reading [0, n) and the
+    key's low end_bit bits) are bit-equal to JAX's emit_and_sort: with the
+    dead splats' holes and with a sort buffer below the pair count."""
+    kw = dict(width=144, height=112, max_tiles_per_splat=4,
+              reference_boundary_quirk=True, **CASES[case])
+    inputs = _inputs(5, 120, 9, 7, dead_tiles=kind == "dead_tiles")
+    capacity = None
+    if kind == "capacity_below":
+        full, _ = _both(inputs, kw)
+        capacity = int(full[0].num_pairs) * 2 // 3
+    _garbage_buffers(monkeypatch)
+    jax_side, port = _both(inputs, kw, capacity=capacity)
+    _assert_equal(jax_side, port)
+    if kind == "capacity_below":
+        assert int(port[0].num_pairs) > capacity
+        assert int((port[0].keys != INVALID_KEY).sum()) == capacity
+
+
+# Tile counts just below, at and just above powers of two; 32767 sorts 31
+# bits, 32768 and 32769 all 32.
+TILE_COUNTS = (63, 64, 65, 8159, 8160, 8192, 8193, 32767, 32768, 32769)
+
+
+@pytest.mark.parametrize("T", TILE_COUNTS)
+def test_end_bit_keeps_holes_after_live_keys(T):
+    """sort_pairs_reference at end_bit = sort_key_bits(T) equals the stable
+    sort of the full u32 keys on a buffer whose holes come before its
+    largest live key, (T - 1) << 16 | 0xFFFF; at a power of two one bit
+    fewer would tie that key with the holes and put them first."""
+    end_bit = ts.sort_key_bits(T)
+    assert end_bit == min(32, 16 + len(bin(T)) - 2)
+    rng = np.random.default_rng(T)
+    n, k_max = 3000, 3500
+    u = ((rng.integers(0, T, n) << 16) | rng.integers(0, 1 << 16, n))
+    u[:40] = INVALID_KEY                      # holes, before the largest key
+    u[40:80] = ((T - 1) << 16) | 0xFFFF
+    u[80:400] = 777                           # ties keep emission order
+    rng.shuffle(u[40:])
+    junk = rng.integers(0, 2**32, k_max + 1 - n)
+    keys = torch.from_numpy(np.concatenate([u, junk]) - ts.SIGN).to(
+        torch.int32)
+    vals = torch.from_numpy(rng.permutation(k_max + 1).astype(np.int32))
+    total = torch.tensor(n, dtype=torch.int64)
+    sk, sv = ts.sort_pairs_reference(keys, vals, total, k_max, end_bit)
+    order = np.argsort(u, kind="stable")
+    want_k = np.concatenate([u[order], np.full(k_max - n, INVALID_KEY)])
+    want_v = np.concatenate([vals.numpy()[:n][order],
+                             np.zeros(k_max - n, np.int32)])
+    np.testing.assert_array_equal(sk.numpy(), want_k)
+    np.testing.assert_array_equal(sv.numpy(), want_v)
+    assert bool((sk[:n - 40] != INVALID_KEY).all())
+    if end_bit < 32 and T & (T - 1) == 0:
+        fewer = ts.sort_pairs_reference(keys, vals, total, k_max,
+                                        end_bit - 1)[0]
+        assert not torch.equal(fewer, sk)
+
+
+# (gx, gy, tile size): 63, 64 and 65 tiles, and 32761 and 32768 tiles of
+# one pixel (end_bit 31 and 32)
+GRIDS = ((9, 7, 16), (8, 8, 16), (13, 5, 16), (181, 181, 1), (256, 128, 1))
+
+
+@pytest.mark.parametrize("grid", GRIDS, ids=lambda g: f"{g[0]}x{g[1]}")
+def test_end_bit_emit_and_sort_matches_jax(grid):
+    """emit_and_sort against JAX on grids whose tile count is near a power
+    of two, with holes (dead splats' tiles) emitted before a last splat on
+    the bottom-right tile at depth 0xFFFF: the largest live key."""
+    gx, gy, ts_ = grid
+    valid, rect, nt, depth16 = _inputs(6, 80, gx, gy, max_w=4,
+                                       dead_tiles=True)
+    last = _one_splat((gx - 1, gy - 1, gx, gy), gx, gy, depth=0xFFFF)
+    inputs = tuple(np.concatenate([x, y])
+                   for x, y in zip((valid, rect, nt, depth16), last))
+    assert int(nt[~valid].sum()) > 0
+    kw = dict(width=gx * ts_, height=gy * ts_, tile_size=ts_,
+              max_tiles_per_splat=4, exact_tiers=(), giant_splat_capacity=0,
+              reference_boundary_quirk=False)
+    jax_side, port = _both(inputs, kw)
+    _assert_equal(jax_side, port)
+    keys = port[0].keys
+    largest = int(torch.nonzero(keys == (((gx * gy - 1) << 16) | 0xFFFF))[0])
+    assert largest < int(torch.nonzero(keys == INVALID_KEY)[0])
