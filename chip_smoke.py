@@ -1,8 +1,15 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --binning
 
-Builds the port's CUDA kernels from godotgaussiansplatting_torch/csrc (one
+The second form runs phase 1's build and phase 6's Binning check alone
+(both kernels bit-equal to their plain versions, timed beside their
+bounds, and torch.profiler over 3 eager Binning stages of fast_defaults()
+and quality="fast"): a quick comparison of two trees' Binning kernels on
+one card. It logs the two kernels' records and not the result line of
+a full run. With no arguments it builds the
+port's CUDA kernels from godotgaussiansplatting_torch/csrc (one
 nvcc per source, all started together), then:
 
 1. device: the card's name and power limit, the kernels' build time, the
@@ -88,7 +95,16 @@ nvcc per source, all started together), then:
    on rows holding 0 to CW live keys; each kernel timed beside its plain
    version and its byte bound, big_lanes also beside torch.sort of the
    u32 rows (its library_ms), and the global window sort with int32 keys
-   beside int64 ones;
+   beside int64 ones; and the Binning stage's kernels (bin_blocks,
+   bin_bigs): the stage run through them and through their plain
+   versions on the 1080p block frames and big sets of fast_defaults(),
+   its v4, quality="fast" (tile 16) and fast_defaults() with the screen
+   clustering, then on the shipped frame's as the second slab of two (a
+   non-zero tile_row_offset) and at caps where C1, C2 and OB all drop
+   entries (the overflows above those of C1 alone), every TileBins2 and
+   TileBigs field bit-equal (f32 as bits); each kernel timed as graph
+   replays beside its plain version and its byte bound (bin_blocks with
+   its stable torch.sort of the int32 depth keys, also timed alone);
 7. the exact composite kernel (render_exact) against its plain version on
    phase 3's cloud at 512x512, tile 16, heatmap 0 and 1, on a tile-32 case
    and with tile capacities of 1000 and 300 (not multiples of the kernel's
@@ -105,10 +121,10 @@ nvcc per source, all started together), then:
    default) and Rasterizer(..., quality="fast"), 8 orbit cameras each with
    rasterize(sync=True) after one warm-up frame: finite images, rendered
    splats > 0, projection_readable, emit_exact, sort_pairs and
-   render_exact launched by every exact frame and projection, block_frame, big_lanes and
-   render_v3 by every fast frame (after the same fast frames with the
-   Blocks stage's plain versions patched in, their Blocks timed before
-   its kernels),
+   render_exact launched by every exact frame and projection, block_frame,
+   big_lanes, bin_blocks, bin_bigs and render_v3 by every fast frame
+   (after the same fast frames with the Blocks stage's plain versions
+   patched in, their Blocks timed before its kernels),
    a centre pick that is a splat mean on both, the exact frames'
    num_overflow and final tile_capacity; the median frame, the median
    Projection / Sort / Boundaries / Render (or Blocks / Binning) stage
@@ -136,7 +152,8 @@ nvcc per source, all started together), then:
    fly, an orbit drag, wheel steps and centre picks, a /state change, a
    /frame and a /stats each tick). The launch counters are set to 0 once
    the loop has paused on idle, just before the traffic, and read once it
-   has paused again: projection, block_frame, big_lanes and render_v3
+   has paused again: projection, block_frame, big_lanes, bin_blocks,
+   bin_bigs and render_v3
    must have launched once for every frame served. The served frame (through /frame and read_png)
    must equal a direct rasterize + to_uint8 of the viewer's camera (or,
    should the direct render not repeat bit for bit, read >= 50 dB). Then
@@ -164,7 +181,8 @@ nvcc per source, all started together), then:
    .npy files into its shard_cloud on the card and renders each path over
    the orbit (n_view cameras a frame) after a warm-up frame, the launch
    counters (and the mesh's traffic) set to 0 just before each frame and
-   read just after it: projection, block_frame, big_lanes and render_v3
+   read just after it: projection, block_frame, big_lanes, bin_blocks,
+   bin_bigs and render_v3
    once a fast frame,
    projection_readable, sort_pairs and render_exact once and emit_exact
    at least once an exact one (its shard read through a (P, 16, 3) view), on every rank
@@ -184,8 +202,11 @@ nvcc per source, all started together), then:
    phase 4's scene at 1920x1080 over 8 orbit cameras, for fast_defaults(),
    RasterizerConfig(kernel="v4").fast_defaults() and
    RasterizerConfig(quality="fast"), first with the Blocks stage's plain
-   versions patched in (eager and graphed frames timed in turns: the
-   frame as it ran before the stage's kernels), then each graphed frame
+   versions patched in and then with the Binning stage's (eager and
+   graphed frames timed in turns with the eager frame of the kernels: the
+   frame as it ran before each stage's kernels; and torch.profiler's busy
+   share over 3 eager frames with the plain Binning), then each graphed
+   frame
    bit-equal to the
    eager render_frame_fast_staged frame (image, tile_t0, tile lists,
    payloads, tile_nbig, stats), the launches a replay counts equal to an
@@ -195,7 +216,9 @@ nvcc per source, all started together), then:
    frames and at its peak, and torch.profiler's busy share over 3 frames
    of each, and for fast_defaults() and its v4 torch.profiler over 3
    eager Blocks stages alone, with the plain versions and with the
-   kernels (busy ms, kernels and aten ops by device ms a stage). Then
+   kernels (busy ms, kernels and aten ops by device ms a stage), and the
+   same over the Binning stage alone for fast_defaults() and
+   quality="fast" (profile_stage). Then
    Rasterizer(quality="fast") on the scene: one capture over
    the 8 cameras and a heatmap toggle, one more after a texture_size
    change, frames bit-equal to the eager frames of its view; and a 200,000
@@ -235,7 +258,8 @@ instructions of the render kernels' log-domain blend beside it; the
 projections', the emission's and the sort's `sfu_ms` are null), counted from this
 run's inputs (see `proj_bound`, `readable_vs_plain`, `emit_vs_plain`,
 `sort_bound`,
-`block_frame_record`, `big_lanes_record` (bytes only), `render_bound`
+`block_frame_record`, `big_lanes_record`, `bin_record` (bytes only),
+`render_bound`
 and `exact_bound`: the render kernels read the payload
 rows of a tile's live big lanes, its first nbig, and evaluate each
 (pixel, live big lane) themselves; the exact kernel reads the id and
@@ -269,6 +293,8 @@ import torch
 import godotgaussiansplatting_torch as gt
 from godotgaussiansplatting_torch import kernels, native
 from godotgaussiansplatting_torch import sfu_probe as sp
+from godotgaussiansplatting_torch.ops import bigbin as bb
+from godotgaussiansplatting_torch.ops import binning2 as bn
 from godotgaussiansplatting_torch.ops import blocks2 as b2
 from godotgaussiansplatting_torch.ops import projection as prj_mod
 from godotgaussiansplatting_torch.ops import projection_kernel as pk
@@ -318,6 +344,8 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
     "block_frame": (CSRC + "block_frame.cu", TPU + "blocks2.py:470"),
     "block_frame_cooked": (CSRC + "block_frame.cu", TPU + "blocks2.py:521"),
     "big_lanes": (CSRC + "big_lanes.cu", TPU + "blocks2.py:239"),
+    "bin_blocks": (CSRC + "bin_blocks.cu", TPU + "binning2.py:39"),
+    "bin_bigs": (CSRC + "bin_bigs.cu", TPU + "bigbin.py:55"),
     "render_exact": (CSRC + "render_exact.cu", TPU + "render.py:79"),
     "sfu_probe": (CSRC + "sfu_probe.cu", "benchmarks/vpu_probe.py:34"),
 }
@@ -461,6 +489,26 @@ BOUND_COUNTS = {
         "functions: none (sfu_ms null); ms: a CUDA graph of 20 launches "
         "replayed, over 20; library_ms: torch.sort(u32(bkey), "
         "dim=1).values[:, :KC] on the same keys"),
+    "bin_blocks": (
+        "bytes: each block's rect and depth range (24 B) read once, the "
+        "bitmap and count (8 B) of each block in a tile's list, and the "
+        "(T, C2) block ids and packed depth ranges, the (T,) counts and "
+        "candidate sums and the overflow written once; operations: not "
+        "counted (a few dozen integer "
+        "operations a (supertile, block) and a (tile, candidate), far below "
+        "the bytes term); special functions: none (sfu_ms null); ms: the "
+        "wrapper, its stable torch.sort of the B int32 depth keys included, "
+        "a CUDA graph of 20 calls replayed, over 20; plain_ms: "
+        "bin_blocks2_reference"),
+    "bin_bigs": (
+        "bytes: the valid mask (N B), each valid lane's rect (16 B) and "
+        "each table row kept in a tile's list (64 B, distinct rows) read "
+        "once, and the (T, 16, OB) f32 payload, the (T, 128) bucket "
+        "prefix, the (T,) counts and the overflow written once; "
+        "operations: not counted (integer tests and a histogram, far "
+        "below the bytes term); special functions: none (sfu_ms null); "
+        "ms: a CUDA graph of 20 calls replayed, over 20; plain_ms: "
+        "bin_bigs_reference"),
     "render_v3": _RENDER_COUNTS,
     "render_v3_cooked": _RENDER_COUNTS,
     "render_v4": _RENDER_COUNTS,
@@ -1367,24 +1415,31 @@ def profile(tag: str, run_frame, frames: int) -> dict:
     return gemms
 
 
-def profile_blocks(tag: str, cloud, cfg, frames: int = 3) -> None:
-    """torch.profiler over the Blocks stage alone, eager, on the projected
-    inputs of ``frames`` orbit cameras: the device's busy time a frame,
-    its kernels and the aten ops that launch them, each with launches and
-    device ms a frame."""
+def profile_stage(tag: str, cloud, cfg, stage: str, frames: int = 3) -> None:
+    """torch.profiler over one stage of the fast frame alone (``stage``:
+    "Blocks" or "Binning"), eager, on the inputs the stages before it give
+    for ``frames`` orbit cameras: the device's busy time a stage, its
+    kernels and the aten ops that launch them, each with launches and
+    device ms a stage."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
     cloud = gt.fast_cloud_view(cloud, planar_sh=cfg.projection_kernel)
     cams = gt.orbit_trajectory(frames, radius=5.0, target=(0, 0, 6.0))
     stages = [dict(_frame_stages(cloud, gt.make_uniforms(c, cfg), cfg))
               for c in cams]
-    inputs = [s["Projection"](None) for s in stages]
-    stages[0]["Blocks"](inputs[0])                          # warm-up
+    before = list(stages[0])[:list(stages[0]).index(stage)]
+    inputs = []
+    for s in stages:
+        x = None
+        for name in before:
+            x = s[name](x)
+        inputs.append(x)
+    stages[0][stage](inputs[0])                             # warm-up
     torch.cuda.synchronize()
     with torch_profile(activities=[ProfilerActivity.CPU,
                                    ProfilerActivity.CUDA]) as prof:
         for s, x in zip(stages, inputs):
-            s["Blocks"](x)
+            s[stage](x)
         torch.cuda.synchronize()
     kern: dict = {}
     for e in prof.events():
@@ -1400,12 +1455,12 @@ def profile_blocks(tag: str, cloud, cfg, frames: int = 3) -> None:
         return {n: [round(c / frames, 2), round(t / 1e3 / frames, 4)]
                 for n, c, t in sorted(items, key=lambda x: -x[2])[:k]}
 
-    log(f"[{tag} Blocks profile] {frames} eager Blocks stages: "
+    log(f"[{tag} {stage} profile] {frames} eager {stage} stages: "
         f"{busy / 1e3 / frames:.3f} device ms a stage in "
         f"{sum(c for c, _ in kern.values()) / frames:.0f} kernel launches; "
         f"top kernels [launches, device ms] a stage "
         f"{json.dumps(top([(n, c, t) for n, (c, t) in kern.items()], 16))}")
-    log(f"[{tag} Blocks profile] aten ops by self device ms, [calls, ms] a "
+    log(f"[{tag} {stage} profile] aten ops by self device ms, [calls, ms] a "
         f"stage {json.dumps(top(ops, 20))}")
 
 
@@ -1472,7 +1527,8 @@ def engine_frames(tag: str, r, cloud, frames: int, expect) -> dict:
 
 EXACT_PATH = ("projection_readable", "emit_exact", "sort_pairs",
               "render_exact")
-FAST_PATH = ("projection", "block_frame", "big_lanes", "render_v3")
+FAST_PATH = ("projection", "block_frame", "big_lanes", "bin_blocks",
+             "bin_bigs", "render_v3")
 
 
 def phase_engine(cloud, frames: int) -> tuple:
@@ -1747,16 +1803,12 @@ def profile_sort(tag: str, full, cfg, capacity: int, frames: int = 3) -> None:
 # --- the Blocks stage's kernels ----------------------------------------------
 
 @contextlib.contextmanager
-def blocks_dispatch(plain: bool = False, calls: list | None = None):
-    """Inside the block, the Blocks stage's two dispatchers
-    (``blocks2._frame_from_stage1`` and ``blocks2.big_window``) are
-    replaced: with ``plain``, by their plain versions (the Blocks stage as
-    it ran before its kernels, timed beside them); with ``calls``, each
-    call's (kind, args, kwargs) is appended to it, kind "frame" or
-    "window". A graph captured inside the block keeps what it captured."""
-    saved = b2._frame_from_stage1, b2.big_window
-    use = ((b2.frame_from_stage1_reference, b2.big_window_reference) if plain
-           else saved)
+def _dispatch(targets, plain: bool, calls: list | None):
+    """Inside the block, each (module, attribute, plain version, kind) of
+    ``targets`` is replaced: with ``plain``, by its plain version; with
+    ``calls``, each call's (kind, args, kwargs) is appended to it. A graph
+    captured inside the block keeps what it captured."""
+    saved = [getattr(m, a) for m, a, _, _ in targets]
 
     def recorded(kind, fn):
         def call(*a, **kw):
@@ -1765,12 +1817,23 @@ def blocks_dispatch(plain: bool = False, calls: list | None = None):
             return fn(*a, **kw)
         return call
 
-    b2._frame_from_stage1 = recorded("frame", use[0])
-    b2.big_window = recorded("window", use[1])
+    for (m, a, ref, kind), fn in zip(targets, saved):
+        setattr(m, a, recorded(kind, ref if plain else fn))
     try:
         yield
     finally:
-        b2._frame_from_stage1, b2.big_window = saved
+        for (m, a, _, _), fn in zip(targets, saved):
+            setattr(m, a, fn)
+
+
+def blocks_dispatch(plain: bool = False, calls: list | None = None):
+    """The Blocks stage's two dispatchers (``blocks2._frame_from_stage1``
+    and ``blocks2.big_window``) replaced inside a block (``_dispatch``):
+    with ``plain``, the Blocks stage as it ran before its kernels; calls
+    recorded as kind "frame" or "window"."""
+    return _dispatch(
+        ((b2, "_frame_from_stage1", b2.frame_from_stage1_reference, "frame"),
+         (b2, "big_window", b2.big_window_reference, "window")), plain, calls)
 
 
 def _differ(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -1952,6 +2015,162 @@ def phase_blocks(cloud, base) -> list:
     return [block_frame_record("block_frame", runs["shipped"]),
             block_frame_record("block_frame_cooked", runs["v4"]),
             big_lanes_record(runs["shipped"])]
+
+
+# --- the Binning stage's kernels ---------------------------------------------
+
+def binning_dispatch(plain: bool = False, calls: list | None = None):
+    """The Binning stage's two kernel paths (``binning2._bin_blocks2_cuda``
+    and ``bigbin._bin_bigs_cuda``, which its dispatchers call for CUDA
+    tensors) replaced inside a block (``_dispatch``): with ``plain``, the
+    Binning stage as it ran before its kernels; calls recorded as kind
+    "blocks" or "bigs"."""
+    return _dispatch(
+        ((bn, "_bin_blocks2_cuda", bn.bin_blocks2_reference, "blocks"),
+         (bb, "_bin_bigs_cuda", bb.bin_bigs_reference, "bigs")), plain, calls)
+
+
+def _bins_differ(prefix: str, k, r) -> dict:
+    return {f"{prefix}.{f}": _differ(a, b)
+            for f, a, b in zip(k._fields, k, r)}
+
+
+def binning_vs_plain(tag: str, cloud, cfg) -> dict:
+    """The Binning stage on the reset camera's block frame and big set,
+    through its kernels and through their plain versions: every TileBins2
+    and TileBigs field bit-equal (f32 as bits); both stages timed eagerly.
+    Returns the stage's input, its recorded calls and the kernels'
+    outputs."""
+    cloud = gt.fast_cloud_view(cloud, planar_sh=cfg.projection_kernel)
+    uni = gt.make_uniforms(gt.Camera.reset_pose(), cfg, device=cloud.device)
+    st = dict(_frame_stages(cloud, uni, cfg))
+    frame = st["Blocks"](st["Projection"](None))
+    calls: list = []
+    with binning_dispatch(calls=calls):
+        _, bins_k, bigs_k = st["Binning"](frame)
+    with binning_dispatch(plain=True):
+        _, bins_r, bigs_r = st["Binning"](frame)
+    torch.cuda.synchronize()
+    check(sorted(c[0] for c in calls) == ["bigs", "blocks"],
+          f"{tag}: the stage called {[c[0] for c in calls]}")
+    bad = {**_bins_differ("bins", bins_k, bins_r),
+           **_bins_differ("bigs", bigs_k, bigs_r)}
+    kern_ms = time_ms(lambda: st["Binning"](frame), 5)
+    with binning_dispatch(plain=True):
+        plain_ms = time_ms(lambda: st["Binning"](frame), 3)
+    gx, gy = cfg.tile_dims
+    log(f"[{tag}] tile {cfg.tile_size} ({gx} x {gy} tiles), "
+        f"{frame[0].rect.shape[0]} bricks, {int(frame[1].valid.sum())} of "
+        f"{frame[1].valid.shape[0]} big lanes valid: tile lists max "
+        f"{int(bins_k.tile_nblocks.max())} blocks, "
+        f"{int(bigs_k.tile_nbig.max())} big lanes; overflow "
+        f"{int(bins_k.overflow)} + {int(bigs_k.overflow)}; entries not "
+        f"bit-equal {json.dumps({k: v for k, v in bad.items() if v})}; the "
+        f"stage, eager: kernels {kern_ms:.4f} ms, plain versions "
+        f"{plain_ms:.4f} ms")
+    check(not any(bad.values()), f"{tag}: not bit-equal: {bad}")
+    return {"frame": frame, "cfg": cfg, "bins": bins_k, "bigs": bigs_k,
+            "calls": {kind: (a, kw) for kind, a, kw in calls}}
+
+
+def binning_case(tag: str, frame, cfg, blocks_kw: dict,
+                 bigs_kw: dict) -> tuple:
+    """Both kernels against their plain versions on one block frame and
+    big set at the given caps and row offset: every field bit-equal.
+    Returns the kernels' TileBins2 and TileBigs."""
+    bf, bigs = frame
+    kb = bn._bin_blocks2_cuda(bf, cfg, **blocks_kw)
+    kg = bb._bin_bigs_cuda(bigs, cfg, **bigs_kw)
+    rb = bn.bin_blocks2_reference(bf, cfg, **blocks_kw)
+    rg = bb.bin_bigs_reference(bigs, cfg, **bigs_kw)
+    torch.cuda.synchronize()
+    bad = {**_bins_differ("bins", kb, rb), **_bins_differ("bigs", kg, rg)}
+    log(f"[{tag}] {cfg.tile_dims[0]} x {cfg.tile_dims[1]} tiles, blocks "
+        f"{json.dumps(blocks_kw)}, bigs {json.dumps(bigs_kw)}: tile lists "
+        f"max {int(kb.tile_nblocks.max())} blocks, {int(kg.tile_nbig.max())}"
+        f" big lanes; overflow {int(kb.overflow)} + {int(kg.overflow)}; "
+        f"entries not bit-equal "
+        f"{json.dumps({k: v for k, v in bad.items() if v})}")
+    check(not any(bad.values()), f"{tag}: not bit-equal: {bad}")
+    return kb, kg
+
+
+def bin_record(name: str, tag: str, run: dict) -> dict:
+    """One binning kernel on the arguments its stage passed it, timed as
+    graph replays beside its plain version and its byte bound; bin_blocks
+    also its global pre-sort alone."""
+    a, kw = run["calls"]["blocks" if name == "bin_blocks" else "bigs"]
+    if name == "bin_blocks":
+        kern, plain = bn._bin_blocks2_cuda, bn.bin_blocks2_reference
+        bf, bins = a[0], run["bins"]
+        listed = torch.unique(bins.tile_blocks[bins.tile_blocks >= 0]).numel()
+        n_bytes = (nbytes(bf.rect, bf.min_depth, bf.max_depth)
+                   + listed * 8 + nbytes(*bins))
+        key = (bf.min_depth - 32768) * 65536 + (bf.max_depth & 0xFFFF)
+        extra = (f"; its stable torch.sort of the {key.numel()} int32 depth "
+                 f"keys alone "
+                 f"{time_graphed_ms(lambda: torch.sort(key, stable=True), 20):.4f} ms")
+    else:
+        kern, plain = bb._bin_bigs_cuda, bb.bin_bigs_reference
+        bigs, tbig = a[0], run["bigs"]
+        n_valid = int(bigs.valid.sum())
+        ob = tbig.bigpay.shape[2]
+        live = (torch.arange(ob, device=tbig.bigpay.device)[None]
+                < tbig.tile_nbig[:, None])                    # (T, OB)
+        cols = tbig.bigpay.view(torch.int32).transpose(1, 2)[live]
+        kept = torch.unique(cols, dim=0).shape[0]   # distinct table rows
+        n_bytes = (nbytes(bigs.valid) + n_valid * 16 + kept * 64
+                   + nbytes(*tbig))
+        extra = (f"; {n_valid} of {bigs.valid.numel()} lanes valid, {kept} "
+                 f"kept in a tile")
+    ms = time_graphed_ms(lambda: kern(*a, **kw), 20)
+    eager_ms = time_ms(lambda: kern(*a, **kw), 20)
+    plain_ms = time_ms(lambda: plain(*a, **kw), 3)
+    bnd = bound(n_bytes, 0, None)
+    log(f"[6 {name} {tag}] kernel {ms:.4f} ms (graph replays of 20 calls; "
+        f"eagerly back to back {eager_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+        f"{n_bytes / 1e6:.1f} MB moved, {bound_text(bnd)}{extra}")
+    return record(name, 0.0, ms, plain_ms, bnd)
+
+
+def phase_binning(cloud, base) -> list:
+    """Phase 6, the Binning stage's kernels: bin_blocks and bin_bigs held
+    bit-equal to their plain versions on the 1080p frames' block frames
+    and big sets of fast_defaults(), its v4, quality="fast" (tile 16) and
+    fast_defaults() with the screen clustering (words); on the shipped
+    frame's inputs binned as the second slab of two (sharded._slab_rows:
+    a non-zero tile_row_offset); and at caps where C1, C2 and OB all drop
+    entries (both overflows > 0, and above the first level's alone). Each
+    kernel timed on the shipped frame's arguments (and logged on
+    quality="fast"'s). Returns the two records."""
+    runs = {}
+    for tag, cfg in (
+            ("shipped", base.fast_defaults()),
+            ("v4", base.replace(kernel="v4").fast_defaults()),
+            ("quality=fast", base.replace(quality="fast")),
+            ("screen words", base.fast_defaults().replace(cluster="screen"))):
+        runs[tag] = binning_vs_plain(f"6 binning {tag} 1080p", cloud, cfg)
+    shipped = runs["shipped"]
+    cfg, frame = shipped["cfg"], shipped["frame"]
+    rows = sharded._slab_rows(cfg, 2)
+    binning_case(f"6 binning slab 2 of 2 (tile_row_offset {rows})", frame,
+                 sharded._slab_cfg(cfg, rows), {"tile_row_offset": rows},
+                 {"tile_row_offset": rows})
+    kb, kg = binning_case("6 binning every cap biting", frame, cfg,
+                          {"supertile_cap": 64, "tile_cap": 16},
+                          {"supertile_cap": 64, "obig": 16})
+    lb, lg = binning_case("6 binning the first level's cap alone", frame,
+                          cfg, {"supertile_cap": 64, "tile_cap": 64},
+                          {"supertile_cap": 64, "obig": 64})
+    check(0 < int(lb.overflow) < int(kb.overflow)
+          and 0 < int(lg.overflow) < int(kg.overflow),
+          f"6 binning caps: overflow {int(kb.overflow)}, {int(kg.overflow)}"
+          f" with C1 64 and C2, OB 16; {int(lb.overflow)}, "
+          f"{int(lg.overflow)} with C1 alone biting")
+    for name in ("bin_blocks", "bin_bigs"):
+        bin_record(name, "quality=fast 1080p", runs["quality=fast"])
+    return [bin_record(name, "shipped 1080p", shipped)
+            for name in ("bin_blocks", "bin_bigs")]
 
 
 def phase_sfu_probe() -> tuple:
@@ -2601,18 +2820,17 @@ def _orbit(cfg, frames: int) -> tuple:
     return values, [gt.make_uniforms(c, cfg) for c in cams]
 
 
-def time_in_turns(tag: str, eager, graph, values, frames: int) -> None:
-    """The eager frame ``eager(i, timer)`` and the graphed frame
-    ``graph.render(values[i], timer)`` timed in turns over ``frames``
-    orbit cameras: each side's median frame (host clock, CUDA events) and
-    stages, logged."""
-    runs = {"eager": [], "graph": []}
+def time_in_turns(tag: str, sides: dict, frames: int) -> None:
+    """The frames ``fn(i, timer)`` of each side of ``sides`` (name: fn)
+    timed in turns over ``frames`` orbit cameras, the order rotated each
+    turn: each side's median frame (host clock, CUDA events) and stages,
+    logged."""
+    names = list(sides)
+    runs = {name: [] for name in names}
     for i in range(frames):
-        order = ("eager", "graph") if i % 2 == 0 else ("graph", "eager")
-        for side in order:
-            fn = ((lambda t: eager(i, t)) if side == "eager"
-                  else (lambda t: graph.render(values[i], t)))
-            runs[side].append(_timed(fn)[1:])
+        k = i % len(names)
+        for name in names[k:] + names[:k]:
+            runs[name].append(_timed(lambda t: sides[name](i, t))[1:])
     for side, rs in runs.items():
         stages = {k: round(statistics.median(r[2][k] for r in rs), 3)
                   for k in rs[0][2]}
@@ -2665,7 +2883,8 @@ def graph_against_eager(tag: str, card: str, what: str, eager, make_graph,
         f"{json.dumps({k: v for k, v in graph.launches.items() if v})} as "
         f"an eager frame's, a kept frame untouched; capture "
         f"{graph.capture_seconds:.2f} s (warm-up frame and four graphs)")
-    time_in_turns(tag, eager, graph, values, frames)
+    time_in_turns(tag, {"eager": eager, "graph": lambda i, t: graph.render(
+        values[i], t)}, frames)
     log(f"[{tag}] memory above the frame's inputs, GiB: eager "
         f"{json.dumps({k: round(v, 3) for k, v in mem_eager.items()})}, "
         f"graphed {json.dumps({k: round(v, 3) for k, v in mem_graph.items()})}"
@@ -2686,11 +2905,27 @@ def graph_config(tag: str, cloud, cfg, frames: int, card: str) -> None:
     def eager(i, timer=None):
         return gt.render_frame_fast_staged(cloud, unis[i], cfg, timer=timer)
 
-    # the frame as it ran before the Blocks stage's kernels, in this run
-    with blocks_dispatch(plain=True):
-        graph = FastFrameGraph(cloud, cfg, values[0])
-        time_in_turns(f"{tag}, plain Blocks", eager, graph, values, frames)
-    del graph
+    # the frame as it ran before the Blocks and the Binning stage's
+    # kernels, in this run, in turns with the eager frame of the kernels
+    # (the eager stages' times hold the host's launch gaps: the profile of
+    # the plain Binning's eager frames gives their busy share)
+    for stage, dispatch in (("Blocks", blocks_dispatch),
+                            ("Binning", binning_dispatch)):
+        with dispatch(plain=True):
+            graph = FastFrameGraph(cloud, cfg, values[0])
+
+        def eager_plain(i, timer=None, dispatch=dispatch):
+            with dispatch(plain=True):
+                return eager(i, timer)
+
+        time_in_turns(f"{tag}, plain {stage}", {
+            "eager": eager_plain,
+            "graph": lambda i, t, g=graph: g.render(values[i], t),
+            "eager, kernels": eager}, frames)
+        del graph
+        if stage == "Binning":
+            profile(f"{tag}, plain Binning eager",
+                    lambda i: eager_plain(i % frames), 3)
     graph_against_eager(tag, card, f"{cloud.num_splats} splats {w}x{h}",
                         eager, lambda: FastFrameGraph(cloud, cfg, values[0]),
                         values, GRAPH_FIELDS, frames,
@@ -2708,8 +2943,12 @@ def phase_graphs(full, cloud, base, card: str, frames: int = 8) -> None:
         graph_config(tag, cloud, cfg, frames, card)
         if cfg.projection_kernel:
             with blocks_dispatch(plain=True):
-                profile_blocks(f"{tag}, plain Blocks", cloud, cfg)
-            profile_blocks(tag, cloud, cfg)
+                profile_stage(f"{tag}, plain Blocks", cloud, cfg, "Blocks")
+            profile_stage(tag, cloud, cfg, "Blocks")
+        if cfg.kernel == "v3":
+            with binning_dispatch(plain=True):
+                profile_stage(f"{tag}, plain Binning", cloud, cfg, "Binning")
+            profile_stage(tag, cloud, cfg, "Binning")
     # the engine: one capture over the orbit and a heatmap toggle
     r = gt.Rasterizer(full, texture_size=(1920, 1080), quality="fast")
     r._now = lambda: 100.0
@@ -2834,11 +3073,32 @@ def phase_exact_graphs(full, base, capacity: int, card: str,
         f"to the eager frame at {grown}")
 
 
+def binning_only(card: str) -> int:
+    """``--binning``: phase 6's Binning check and the Binning stage's
+    profile (kernels) on phase 4's scene, and the two kernel records."""
+    full, setup_s = frame_cloud(5_800_000)
+    cloud = gt.fast_cloud_view(full)
+    log(f"[4 frame] scene set-up {setup_s:.1f} s")
+    base = gt.RasterizerConfig(width=1920, height=1080)
+    rec = phase_binning(cloud, base)
+    for tag, cfg in (("6 binning fast_defaults", base.fast_defaults()),
+                     ("6 binning quality=fast", base.replace(quality="fast"))):
+        profile_stage(tag, cloud, cfg, "Binning")
+    log(card)
+    log(json.dumps({"kernels": rec}))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; nothing was measured")
+    args = sys.argv[1:]
+    if args not in ([], ["--binning"]):
+        raise SystemExit(f"chip_smoke: unknown arguments {args}")
     torch.backends.cuda.matmul.allow_tf32 = False
     card = phase_device()
+    if args:
+        return binning_only(card)
     probe, probe_launches = phase_sfu_probe()   # sets SFU before any bound
     worst = phase_projection(1_000_000, 1920, 1080)
     cloud = render_cloud(200_000)
@@ -2852,18 +3112,18 @@ def main() -> int:
     log(f"[4 frame] scene set-up {setup_s:.1f} s")
     base = gt.RasterizerConfig(width=1920, height=1080)
     launches = {}
-    frames = (("4 frame fast_defaults", base.fast_defaults(),
-               ("projection", "block_frame", "big_lanes", "render_v3")),
+    binning = ("bin_blocks", "bin_bigs")
+    frames = (("4 frame fast_defaults", base.fast_defaults(), FAST_PATH),
               ("5 frame v4", base.replace(kernel="v4").fast_defaults(),
-               ("projection", "block_frame_cooked", "big_lanes",
+               ("projection", "block_frame_cooked", "big_lanes", *binning,
                 "render_v4")),
               ("5 frame quality=fast", base.replace(quality="fast"),
                ("projection_readable", "block_frame_cooked", "big_lanes",
-                "render_v3_cooked")),
+                *binning, "render_v3_cooked")),
               ("5 frame quality=fast v4",
                base.replace(quality="fast", kernel="v4"),
                ("projection_readable", "block_frame_cooked", "big_lanes",
-                "render_v4")))
+                *binning, "render_v4")))
     for tag, cfg, expect in frames:
         counts = phase_frame(tag, cloud, cfg, 8, expect)
         for name in expect:
@@ -2876,6 +3136,7 @@ def main() -> int:
         launches[name] = exact_launches[name]
     rec = phase_kernels_1080p(cloud, base, worst)
     rec += phase_blocks(cloud, base)
+    rec += phase_binning(cloud, base)
     rec += exact_stages_1080p(full, base, worst)
     rec.append(exact_1080p(full, base, capacity, worst["render_exact"]))
     profile_sort("6 exact 1080p", full, base, capacity)

@@ -53,6 +53,14 @@ SIGNATURES = {
     "big_lanes": {
         "gs_big_window": [_P] * 3 + [_I] * 3 + [_P],
     },
+    "bin_blocks": {
+        "gs_bin_blocks": [_P] * 18 + [_I] * 6 + [_P],
+        "gs_bin_blocks_chunk": [],
+    },
+    "bin_bigs": {
+        "gs_bin_bigs": [_P] * 10 + [_I] * 6 + [_P],
+        "gs_bin_bigs_chunk": [],
+    },
     "emit_exact": {
         "gs_emit_base": [_P] * 7 + [_I] * 2 + [_L, _P],
         "gs_emit_dense": [_P] * 8 + [_I] * 3 + [_L, _P],
@@ -84,9 +92,11 @@ SIGNATURES = {
 # One launch counter per kernel a wrapper launches (the v3 and the
 # block_frame libraries hold two each: the word and the cooked payload;
 # sfu_probe counts every body; emit_exact counts its base and each dense
-# group's launch; sort_pairs counts a sort, its histogram and passes).
+# group's launch; sort_pairs counts a sort, its histogram and passes;
+# bin_blocks and bin_bigs count a binning, its four and three kernels).
 COUNTERS = ("projection", "projection_readable", "block_frame",
-            "block_frame_cooked", "big_lanes", "render_v3",
+            "block_frame_cooked", "big_lanes", "bin_blocks", "bin_bigs",
+            "render_v3",
             "render_v3_cooked", "render_v4", "render_exact", "emit_exact",
             "sort_pairs", "sfu_probe")
 

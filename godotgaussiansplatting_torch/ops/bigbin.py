@@ -8,6 +8,12 @@ globally sorted by (depth16, source index), so lane index order is front to
 back and each tile's list comes out exactly depth-sorted. Tiles with more
 than ``obig`` lanes keep the closest ones; the dropped tail is counted in
 ``overflow``.
+
+On the card the binning is a hand-written kernel, csrc/bin_bigs.cu, the
+counterpart of XLA's sorts, gather and histogram in the JAX function; CPU
+tensors take the plain version, ``bin_bigs_reference``, which keeps the JAX
+function's stable sorts (each a compaction of the covering lanes in lane
+order) and which the kernel is held bit-equal to.
 """
 
 from __future__ import annotations
@@ -16,11 +22,13 @@ from typing import NamedTuple
 
 import torch
 
+from .. import kernels
 from ..config import RasterizerConfig
 from .binning2 import SUPER, supertile_origins
 from .blocks2 import DEPTH_INVALID, GATE_OFF, PAYLOAD_WIDTH, _CULL_FAR
 
 GROUP = 1  # tiles per render group; the render kernel runs one tile a block
+#           (csrc/bin_bigs.cu bins single tiles)
 
 
 class TileBigs(NamedTuple):
@@ -33,8 +41,11 @@ class TileBigs(NamedTuple):
                               # the render kernel's straddle gate
 
 
-def bin_bigs(bigs, cfg: RasterizerConfig, obig: int = 128,
-             supertile_cap: int = 2048, tile_row_offset: int = 0) -> TileBigs:
+def bin_bigs_reference(bigs, cfg: RasterizerConfig, obig: int = 128,
+                       supertile_cap: int = 2048,
+                       tile_row_offset: int = 0) -> TileBigs:
+    """The plain version of the bin_bigs kernel: the JAX function's sorts,
+    gather and bucket histogram."""
     gx, gy = cfg.tile_dims
     gx2 = -(-gx // GROUP)
     TG = gx2 * gy
@@ -114,3 +125,53 @@ def bin_bigs(bigs, cfg: RasterizerConfig, obig: int = 128,
     return TileBigs(bigpay=tp, tile_nbig=to_tiles(nbig).to(torch.int32),
                     overflow=(over_l1 + over_l2).to(torch.int32),
                     big_prefix=prefix)
+
+
+def _bin_bigs_cuda(bigs, cfg: RasterizerConfig, obig: int = 128,
+                   supertile_cap: int = 2048,
+                   tile_row_offset: int = 0) -> TileBigs:
+    """The kernel (csrc/bin_bigs.cu): the L1 and L2 compactions, the lane
+    gather and the bucket prefix, with no sort."""
+    gx, gy = cfg.tile_dims
+    sgx, sgy = -(-gx // SUPER), -(-gy // SUPER)
+    N = bigs.table.shape[0]
+    C1 = min(supertile_cap, N)
+    OB = min(obig, C1)
+    table, rect, valid = (t.contiguous() for t in (bigs.table, bigs.rect,
+                                                   bigs.valid))
+    if (table.dtype != torch.float32 or table.shape[1:] != (PAYLOAD_WIDTH,)
+            or rect.dtype != torch.int32 or valid.dtype != torch.bool):
+        raise ValueError(f"bin_bigs: expected a (N, {PAYLOAD_WIDTH}) f32 "
+                         f"table, int32 rects and a bool mask, got "
+                         f"{table.dtype} {tuple(table.shape)}, {rect.dtype}, "
+                         f"{valid.dtype}")
+    kernels.require_cuda("bin_bigs", table, rect, valid)
+    dev = table.device
+    lib = kernels.library("bin_bigs")
+    nchunks = -(-N // lib.gs_bin_bigs_chunk())
+    TG = gx * gy
+
+    def i32s(*shape):
+        return torch.empty(shape, dtype=torch.int32, device=dev)
+
+    srange, cnt, cand = i32s(N), i32s(sgx * sgy, nchunks), i32s(sgx * sgy, C1)
+    bigpay = torch.empty((TG, PAYLOAD_WIDTH, OB), device=dev)
+    nbig, overflow, prefix = i32s(TG), i32s(), i32s(TG, 128)
+    err = lib.gs_bin_bigs(
+        *(t.data_ptr() for t in (table, rect, valid, srange, cnt, cand,
+                                 bigpay, nbig, overflow, prefix)),
+        N, gx, gy, C1, OB, tile_row_offset, kernels.stream_ptr(dev))
+    kernels.check(err, "bin_bigs kernel launch")
+    kernels.count_launch("bin_bigs")
+    return TileBigs(bigpay=bigpay, tile_nbig=nbig, overflow=overflow,
+                    big_prefix=prefix)
+
+
+def bin_bigs(bigs, cfg: RasterizerConfig, obig: int = 128,
+             supertile_cap: int = 2048, tile_row_offset: int = 0) -> TileBigs:
+    """Per-tile big-lane lists (``bin_bigs_reference``). CUDA tensors go to
+    the kernel (csrc/bin_bigs.cu), CPU tensors to the plain version."""
+    if bigs.table.device.type == "cpu":
+        return bin_bigs_reference(bigs, cfg, obig, supertile_cap,
+                                  tile_row_offset)
+    return _bin_bigs_cuda(bigs, cfg, obig, supertile_cap, tile_row_offset)

@@ -3,9 +3,16 @@
 Counterpart of ``godotgaussiansplatting_tpu/ops/binning2.py``. Tile lists
 are ordered by block min depth (the v3 render composites blocks in list
 order, exact within +-1 batch); the packed depth range (min16 << 16 |
-max16) rides along to the per-tile rows. u32 sort keys are widened to int64
-(torch has no uint32 compares on the CPU); every sort that orders ties is
-stable, as in the reference.
+max16) rides along to the per-tile rows.
+
+On the card the binning is a hand-written kernel, csrc/bin_blocks.cu, the
+counterpart of XLA's sorts in the JAX function; CPU tensors take the plain
+version, ``bin_blocks2_reference``, which keeps the JAX function's sorts
+(u32 keys widened to int64, since torch has no uint32 compares on the CPU;
+every sort that orders ties is stable) and which the kernel is held
+bit-equal to. Each of those sorts but the global pre-sort is a stable
+compaction (the covering positions in order, then padding), which is what
+the kernel computes.
 """
 
 from __future__ import annotations
@@ -14,6 +21,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import kernels
 from ..config import RasterizerConfig
 from .blocks2 import BlockFrame2, U32_MAX, i32, u32
 
@@ -36,16 +44,31 @@ def supertile_origins(gx: int, gy: int, device):
     return sgx, sgy, (sid % sgx)[:, None], (sid // sgx)[:, None]
 
 
-def bin_blocks2(bf: BlockFrame2, cfg: RasterizerConfig,
-                supertile_cap: int = 1024, tile_cap: int = 256,
-                tile_row_offset: int = 0) -> TileBins2:
+def _caps(bf: BlockFrame2, cfg: RasterizerConfig, supertile_cap: int,
+          tile_cap: int) -> tuple:
+    """(C1, C2, bid_bits), raising ValueError for a grid or a block count
+    the packed rects and keys cannot hold."""
     gx, gy = cfg.tile_dims
-    T = gx * gy
     B = bf.rect.shape[0]
     C1 = min(supertile_cap, B)
     C2 = min(tile_cap, C1)
     if gx > 255 or gy > 255:
         raise ValueError("packed rects assume tile grids <= 255")
+    bid_bits = 32 - (C1 + 1).bit_length()
+    if B > (1 << bid_bits):
+        raise ValueError(f"{B} blocks exceed the {bid_bits}-bit id field")
+    return C1, C2, bid_bits
+
+
+def bin_blocks2_reference(bf: BlockFrame2, cfg: RasterizerConfig,
+                          supertile_cap: int = 1024, tile_cap: int = 256,
+                          tile_row_offset: int = 0) -> TileBins2:
+    """The plain version of the bin_blocks kernel: the JAX function's
+    sorts."""
+    gx, gy = cfg.tile_dims
+    T = gx * gy
+    B = bf.rect.shape[0]
+    C1, C2, bid_bits = _caps(bf, cfg, supertile_cap, tile_cap)
     dev = bf.rect.device
     sgx, sgy, ssx, ssy = supertile_origins(gx, gy, dev)
     NS = sgx * sgy
@@ -101,9 +124,6 @@ def bin_blocks2(bf: BlockFrame2, cfg: RasterizerConfig,
                 & cand_valid[:, None, :])             # (NS, 64, C1)
 
     # L2 compaction: the block id rides the position key's low bits
-    bid_bits = 32 - (C1 + 1).bit_length()
-    if B > (1 << bid_bits):
-        raise ValueError(f"{B} blocks exceed the {bid_bits}-bit id field")
     pos = torch.arange(C1, dtype=torch.int64, device=dev)[None, None]
     key2 = torch.where(covers_t, (pos << bid_bits) | cand_gidx[:, None, :],
                        C1 << bid_bits)
@@ -133,3 +153,61 @@ def bin_blocks2(bf: BlockFrame2, cfg: RasterizerConfig,
         overflow=((n_cover_total - n_kept_l1)
                   + (covers_t.sum() - n_kept_l2)).to(torch.int32),
     )
+
+
+def _bin_blocks2_cuda(bf: BlockFrame2, cfg: RasterizerConfig,
+                      supertile_cap: int = 1024, tile_cap: int = 256,
+                      tile_row_offset: int = 0) -> TileBins2:
+    """The kernel (csrc/bin_blocks.cu) after one stable torch.sort of the B
+    (min, max) depth keys, as int32 keys sign-flipped from the u32 ones
+    (the same order)."""
+    gx, gy = cfg.tile_dims
+    B = bf.rect.shape[0]
+    C1, C2, _ = _caps(bf, cfg, supertile_cap, tile_cap)
+    ins = [t.contiguous() for t in (bf.rect, bf.bitmap, bf.min_depth,
+                                    bf.max_depth, bf.num_valid)]
+    for t in ins:
+        if t.dtype != torch.int32:
+            raise ValueError(f"bin_blocks: expected int32 block meta, got "
+                             f"{t.dtype}")
+    kernels.require_cuda("bin_blocks", *ins)
+    dev = ins[0].device
+    # (min16 << 16 | max16) - 2^31: min16 <= 0xFFFF, so no int32 overflow
+    key = (ins[2] - 32768) * 65536 + (ins[3] & 0xFFFF)
+    gidx = torch.sort(key, stable=True).indices
+    lib = kernels.library("bin_blocks")
+    sgx, sgy = -(-gx // SUPER), -(-gy // SUPER)
+    nchunks = -(-B // lib.gs_bin_blocks_chunk())
+    T = gx * gy
+
+    def i32s(*shape):
+        return torch.empty(shape, dtype=torch.int32, device=dev)
+
+    NS = sgx * sgy
+    srange, cnt, cand = i32s(B), i32s(NS, nchunks), i32s(NS, C1)
+    # each supertile's candidates, staged once: tile mask, id, range, count
+    cmask = torch.empty((NS, C1), dtype=torch.int64, device=dev)
+    cgid, cmm, cnv = i32s(NS, C1), i32s(NS, C1), i32s(NS, C1)
+    tb, tmm = i32s(T, C2), i32s(T, C2)
+    nb, ncand, overflow = i32s(T), i32s(T), i32s()
+    err = lib.gs_bin_blocks(
+        gidx.data_ptr(), *(t.data_ptr() for t in ins),
+        *(t.data_ptr() for t in (srange, cnt, cand, cmask, cgid, cmm, cnv,
+                                 tb, nb, tmm, ncand, overflow)),
+        B, gx, gy, C1, C2, tile_row_offset, kernels.stream_ptr(dev))
+    kernels.check(err, "bin_blocks kernel launch")
+    kernels.count_launch("bin_blocks")
+    return TileBins2(tile_blocks=tb, tile_nblocks=nb, tile_minmax=tmm,
+                     tile_candidates=ncand, overflow=overflow)
+
+
+def bin_blocks2(bf: BlockFrame2, cfg: RasterizerConfig,
+                supertile_cap: int = 1024, tile_cap: int = 256,
+                tile_row_offset: int = 0) -> TileBins2:
+    """Per-tile block lists (``bin_blocks2_reference``). CUDA tensors go to
+    the kernel (csrc/bin_blocks.cu), CPU tensors to the plain version."""
+    if bf.rect.device.type == "cpu":
+        return bin_blocks2_reference(bf, cfg, supertile_cap, tile_cap,
+                                     tile_row_offset)
+    return _bin_blocks2_cuda(bf, cfg, supertile_cap, tile_cap,
+                             tile_row_offset)

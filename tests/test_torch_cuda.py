@@ -17,6 +17,8 @@ import torch
 
 import godotgaussiansplatting_torch as gt
 from godotgaussiansplatting_torch import kernels, sfu_probe, split_render
+from godotgaussiansplatting_torch.ops import bigbin as bb
+from godotgaussiansplatting_torch.ops import binning2 as bn
 from godotgaussiansplatting_torch.ops import blocks2 as b2
 from godotgaussiansplatting_torch.ops import projection as prj_mod
 from godotgaussiansplatting_torch.ops import projection_kernel as pk
@@ -74,7 +76,8 @@ def test_cpu_frame_launches_no_kernel():
     assert kernels.launch_counts() == {name: 0 for name in kernels.COUNTERS}
     assert set(kernels.COUNTERS) == {"projection", "projection_readable",
                                      "block_frame", "block_frame_cooked",
-                                     "big_lanes", "render_v3",
+                                     "big_lanes", "bin_blocks", "bin_bigs",
+                                     "render_v3",
                                      "render_v3_cooked", "render_v4",
                                      "render_exact", "emit_exact",
                                      "sort_pairs", "sfu_probe"}
@@ -103,6 +106,23 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         rx._render_exact_cuda(torch.zeros((8,), dtype=torch.int32), tiles,
                               tiles, torch.zeros((4, 2)), torch.zeros((4, 3)),
                               torch.zeros((4, 4)), 0.0, cfg, 512)
+    meta = torch.zeros((256,), dtype=torch.int32)
+    bf = b2.BlockFrame2(payload=torch.zeros((256, 8, 128), dtype=torch.int32),
+                        rect=torch.zeros((256, 4), dtype=torch.int32),
+                        bitmap=meta, min_depth=meta, max_depth=meta,
+                        num_valid=meta, num_culled_pairs=meta[0])
+    with pytest.raises(ValueError, match="CUDA"):
+        bn._bin_blocks2_cuda(bf, cfg)
+    with pytest.raises(ValueError, match="int32"):
+        bn._bin_blocks2_cuda(bf._replace(bitmap=meta.long()), cfg)
+    bigs = b2.BigSet(table=torch.zeros((256, 16)), depth16=meta,
+                     rect=torch.zeros((256, 4), dtype=torch.int32),
+                     valid=torch.zeros((256,), dtype=torch.bool),
+                     residual=meta[0])
+    with pytest.raises(ValueError, match="CUDA"):
+        bb._bin_bigs_cuda(bigs, cfg)
+    with pytest.raises(ValueError, match="bool"):
+        bb._bin_bigs_cuda(bigs._replace(valid=meta), cfg)
 
 
 def test_entry_points_default_to_the_card():
@@ -954,6 +974,44 @@ def test_block_kernels_match_plain(cuda, monkeypatch, config):
     assert n_big > 0
     if config == "padded":
         assert n_big < bk.valid.shape[0] - 100
+
+
+# --- the Binning stage's kernels: bin_blocks and bin_bigs --------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("caps", ["defaults", "biting"])
+@pytest.mark.parametrize("offset", [0, 5])
+@pytest.mark.parametrize("tile", [16, 32])
+def test_binning_kernels_match_plain(cuda, tile, offset, caps):
+    """bin_blocks and bin_bigs bit-equal (f32 as bits) to their plain
+    versions on a 512x512 frame's block frame and big set, at tile 16
+    (quality="fast") and 32 (fast_defaults()), on the whole grid and on a
+    slab of its rows past ``offset`` (rects in the full grid's rows), at
+    the frame's caps and at caps where C1, C2 and OB all drop entries."""
+    from godotgaussiansplatting_torch.ops.fast_pipeline import _frame_stages
+    base = gt.RasterizerConfig(width=512, height=512)
+    cfg = base.fast_defaults() if tile == 32 else base.replace(quality="fast")
+    cloud = gt.fast_cloud_view(_cloud(cuda), planar_sh=cfg.projection_kernel)
+    uni = gt.make_uniforms(gt.Camera.reset_pose(), cfg, device=cuda)
+    stages = dict(_frame_stages(cloud, uni, cfg))
+    bf, bigs = stages["Blocks"](stages["Projection"](None))
+    slab = cfg.replace(height=(cfg.tile_dims[1] - offset) * tile)
+    st, tc, ob, bst = ((1024, 256, 128, 2048) if caps == "defaults"
+                       else (48, 12, 16, 64))
+    kernels.reset_launch_counts()
+    kb = bn.bin_blocks2(bf, slab, st, tc, offset)
+    kg = bb.bin_bigs(bigs, slab, ob, bst, offset)
+    counts = kernels.launch_counts()
+    rb = bn.bin_blocks2_reference(bf, slab, st, tc, offset)
+    rg = bb.bin_bigs_reference(bigs, slab, ob, bst, offset)
+    torch.cuda.synchronize()
+    assert counts["bin_blocks"] == 1 and counts["bin_bigs"] == 1
+    for name, a, b in zip(kb._fields + kg._fields, (*kb, *kg), (*rb, *rg)):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        assert torch.equal(_bits(a), _bits(b)), name
+    assert int(kb.tile_nblocks.max()) > 1 and int(kg.tile_nbig.max()) > 1
+    if caps == "biting":
+        assert int(kb.overflow) > 0 and int(kg.overflow) > 0
 
 
 @pytest.mark.gpu
