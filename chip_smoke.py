@@ -100,11 +100,15 @@ nvcc per source, all started together), then:
    versions on the 1080p block frames and big sets of fast_defaults(),
    its v4, quality="fast" (tile 16) and fast_defaults() with the screen
    clustering, then on the shipped frame's as the second slab of two (a
-   non-zero tile_row_offset) and at caps where C1, C2 and OB all drop
-   entries (the overflows above those of C1 alone), every TileBins2 and
-   TileBigs field bit-equal (f32 as bits); each kernel timed as graph
-   replays beside its plain version and its byte bound (bin_blocks with
-   its stable torch.sort of the int32 depth keys, also timed alone);
+   non-zero tile_row_offset), with its depth keys cut to a few values
+   (most of them tied), and at caps where C1, C2 and OB all drop entries
+   (the overflows above those of C1 alone), every TileBins2 and TileBigs
+   field bit-equal (f32 as bits), OB a multiple of 4 in each
+   configuration; each kernel timed as graph replays beside its plain
+   version and its byte bound, with its device kernels a call
+   (torch.profiler); bin_blocks' own stable ranking of the int32 depth
+   keys also alone, bit-equal to torch.sort(stable=True) of them and
+   timed beside it (bin_blocks' library_ms);
 7. the exact composite kernel (render_exact) against its plain version on
    phase 3's cloud at 512x512, tile 16, heatmap 0 and 1, on a tile-32 case
    and with tile capacities of 1000 and 300 (not multiples of the kernel's
@@ -497,9 +501,13 @@ BOUND_COUNTS = {
         "counted (a few dozen integer "
         "operations a (supertile, block) and a (tile, candidate), far below "
         "the bytes term); special functions: none (sfu_ms null); ms: the "
-        "wrapper, its stable torch.sort of the B int32 depth keys included, "
-        "a CUDA graph of 20 calls replayed, over 20; plain_ms: "
-        "bin_blocks2_reference"),
+        "wrapper (its own stable ranking of the B int32 depth keys "
+        "included, no library call), a CUDA graph of 20 calls replayed, "
+        "over 20; plain_ms: bin_blocks2_reference; library_ms: "
+        "torch.sort(stable=True) of the same int32 keys alone, the pre-sort "
+        "the ranking replaced (rank_ms: the ranking alone); launches_a_call:"
+        " the distinct device kernels torch.profiler saw over 3 calls, each "
+        "launched once a call"),
     "bin_bigs": (
         "bytes: the valid mask (N B), each valid lane's rect (16 B) and "
         "each table row kept in a tile's list (64 B, distinct rows) read "
@@ -508,7 +516,8 @@ BOUND_COUNTS = {
         "operations: not counted (integer tests and a histogram, far "
         "below the bytes term); special functions: none (sfu_ms null); "
         "ms: a CUDA graph of 20 calls replayed, over 20; plain_ms: "
-        "bin_bigs_reference"),
+        "bin_bigs_reference; launches_a_call: the distinct device kernels "
+        "torch.profiler saw over 3 calls, each launched once a call"),
     "render_v3": _RENDER_COUNTS,
     "render_v3_cooked": _RENDER_COUNTS,
     "render_v4": _RENDER_COUNTS,
@@ -2095,21 +2104,57 @@ def binning_case(tag: str, frame, cfg, blocks_kw: dict,
     return kb, kg
 
 
+def kernel_split(fn, calls: int = 3) -> dict:
+    """torch.profiler over ``calls`` eager calls of ``fn`` (after a warm-up
+    call): {device kernel or memset: [launches a call, device ms a
+    call]}."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+    fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    split: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            n, t = split.get(e.name[:60], (0, 0.0))
+            split[e.name[:60]] = (n + 1, t + e.time_range.elapsed_us())
+    return {k: [n / calls, round(t / 1e3 / calls, 4)]
+            for k, (n, t) in split.items()}
+
+
+def rank_vs_sort(bf) -> tuple:
+    """bin_blocks' stable ranking alone on the block frame's int32 depth
+    keys, bit-equal to torch.sort(stable=True).indices, and both timed as
+    graph replays: (rank ms, torch.sort ms)."""
+    key = (bf.min_depth - 32768) * 65536 + (bf.max_depth & 0xFFFF)
+    got = bn._rank_keys_cuda(key)
+    want = torch.sort(key, stable=True).indices
+    check(torch.equal(got.long(), want),
+          "6 bin_blocks: the ranking differs from torch.sort(stable=True)")
+    return (time_graphed_ms(lambda: bn._rank_keys_cuda(key), 20),
+            time_graphed_ms(lambda: torch.sort(key, stable=True), 20))
+
+
 def bin_record(name: str, tag: str, run: dict) -> dict:
     """One binning kernel on the arguments its stage passed it, timed as
-    graph replays beside its plain version and its byte bound; bin_blocks
-    also its global pre-sort alone."""
+    graph replays beside its plain version and its byte bound, with its
+    device kernels a call; bin_blocks also its ranking alone beside
+    torch.sort(stable=True) of the same keys (its library_ms)."""
     a, kw = run["calls"]["blocks" if name == "bin_blocks" else "bigs"]
+    library_ms = None
     if name == "bin_blocks":
         kern, plain = bn._bin_blocks2_cuda, bn.bin_blocks2_reference
         bf, bins = a[0], run["bins"]
         listed = torch.unique(bins.tile_blocks[bins.tile_blocks >= 0]).numel()
         n_bytes = (nbytes(bf.rect, bf.min_depth, bf.max_depth)
                    + listed * 8 + nbytes(*bins))
-        key = (bf.min_depth - 32768) * 65536 + (bf.max_depth & 0xFFFF)
-        extra = (f"; its stable torch.sort of the {key.numel()} int32 depth "
-                 f"keys alone "
-                 f"{time_graphed_ms(lambda: torch.sort(key, stable=True), 20):.4f} ms")
+        rank_ms, library_ms = rank_vs_sort(bf)
+        extra = (f"; its stable ranking of the {bf.min_depth.numel()} int32 "
+                 f"depth keys alone {rank_ms:.4f} ms, torch.sort(stable="
+                 f"True) of them {library_ms:.4f} ms")
     else:
         kern, plain = bb._bin_bigs_cuda, bb.bin_bigs_reference
         bigs, tbig = a[0], run["bigs"]
@@ -2122,15 +2167,24 @@ def bin_record(name: str, tag: str, run: dict) -> dict:
         n_bytes = (nbytes(bigs.valid) + n_valid * 16 + kept * 64
                    + nbytes(*tbig))
         extra = (f"; {n_valid} of {bigs.valid.numel()} lanes valid, {kept} "
-                 f"kept in a tile")
+                 f"kept in a tile, OB {ob}")
     ms = time_graphed_ms(lambda: kern(*a, **kw), 20)
     eager_ms = time_ms(lambda: kern(*a, **kw), 20)
     plain_ms = time_ms(lambda: plain(*a, **kw), 3)
+    split = kernel_split(lambda: kern(*a, **kw))
     bnd = bound(n_bytes, 0, None)
     log(f"[6 {name} {tag}] kernel {ms:.4f} ms (graph replays of 20 calls; "
         f"eagerly back to back {eager_ms:.4f} ms), plain {plain_ms:.4f} ms, "
-        f"{n_bytes / 1e6:.1f} MB moved, {bound_text(bnd)}{extra}")
-    return record(name, 0.0, ms, plain_ms, bnd)
+        f"{n_bytes / 1e6:.1f} MB moved, {bound_text(bnd)}{extra}; device "
+        f"kernels a call [launches, ms] {json.dumps(split)}")
+    rec = record(name, 0.0, ms, plain_ms, bnd)
+    rec["library_ms"] = library_ms
+    # each of the wrapper's kernels launches once a call; the profiler can
+    # drop events in a long run, so its distinct kernels count them
+    rec["launches_a_call"] = len(split)
+    if name == "bin_blocks":
+        rec["rank_ms"] = rank_ms
+    return rec
 
 
 def phase_binning(cloud, base) -> list:
@@ -2152,10 +2206,21 @@ def phase_binning(cloud, base) -> list:
         runs[tag] = binning_vs_plain(f"6 binning {tag} 1080p", cloud, cfg)
     shipped = runs["shipped"]
     cfg, frame = shipped["cfg"], shipped["frame"]
+    for tag, run in runs.items():
+        ob = run["bigs"].bigpay.shape[2]
+        check(ob % 4 == 0, f"6 binning {tag}: OB {ob} is no multiple of 4: "
+              "bin_bigs' 16-byte payload stores would not run")
     rows = sharded._slab_rows(cfg, 2)
     binning_case(f"6 binning slab 2 of 2 (tile_row_offset {rows})", frame,
                  sharded._slab_cfg(cfg, rows), {"tile_row_offset": rows},
                  {"tile_row_offset": rows})
+    bf, bigs = frame
+    tied = bf._replace(min_depth=bf.min_depth & 0xF000,
+                       max_depth=bf.max_depth & 0x3)
+    check(torch.unique(tied.min_depth * 4 + tied.max_depth).numel() <= 64,
+          "6 binning tie-heavy: more than 64 distinct depth keys")
+    binning_case("6 binning tie-heavy depth keys (min16 & 0xF000, max16 & 3)",
+                 (tied, bigs), cfg, {}, {})
     kb, kg = binning_case("6 binning every cap biting", frame, cfg,
                           {"supertile_cap": 64, "tile_cap": 16},
                           {"supertile_cap": 64, "obig": 16})

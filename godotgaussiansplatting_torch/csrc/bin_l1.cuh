@@ -7,20 +7,26 @@
 // sort of a (NS, n) key per supertile row: the position where the item
 // covers the supertile, n otherwise. The sorted row is the covering
 // positions in order, then padding, so it is a stable compaction, which
-// this computes with ballots and prefix sums:
+// this computes with ballots and prefix sums, in chunks of CHUNK positions:
 //
-//   l1_count  one CTA a chunk of CHUNK positions: each position's
-//             supertile range (the supertiles its rect overlaps form a
-//             rectangle of the supertile grid), and each supertile's count
-//             of covering positions in the chunk (shared-memory atomics);
-//   l1_emit   one CTA a (chunk, supertile): the covering positions before
-//             the chunk (a sum of the counts), then each covering position
-//             of the chunk at that offset plus its rank (a warp ballot and
-//             the warps' counts), where that is below C1. A CTA whose chunk
-//             starts at or past C1 stops at once.
+//   count     each position's supertile range (the supertiles its rect
+//             overlaps form a rectangle of the supertile grid) and each
+//             (chunk, supertile)'s count of covering positions: `l1_count`
+//             here (one CTA a chunk, shared-memory atomics), or the
+//             ranking's placing kernel in bin_blocks.cu;
+//   scan      each supertile's exclusive prefix of those counts over the
+//             chunks, once, in place, and its total; the first level's
+//             overflow, max(total - C1, 0) a supertile: `l1_scan`, a CTA
+//             a group of 32 supertiles;
+//   l1_emit   one CTA a (chunk, batch of 32 supertiles): each covering
+//             position of the chunk at its supertile's offset for the chunk
+//             (read in O(1)) plus its rank in the chunk (warp ballots and
+//             the warps' counts), where that is below C1; each warp stores
+//             its kept (position, supertile) pairs 32 at a time.
 //
-// The second level reads a supertile's total from the same counts
-// (`row_total`). Only integer arithmetic: the result is exact.
+// Counts are chunk-major, (nchunks, NS), so the scan's and the emission's
+// reads of a chunk's row coalesce. Only integer arithmetic: the result is
+// exact.
 
 #pragma once
 
@@ -30,10 +36,10 @@
 namespace binning {
 
 constexpr int SUPER = 8;            // tiles a supertile edge
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr int CHUNK = THREADS;      // positions an l1_count / l1_emit CTA
+constexpr int CHUNK = 512;          // positions an l1_count / l1_emit CTA
+constexpr int CHUNK_WARPS = CHUNK / 32;
 constexpr int MAX_SUPERTILES = 32 * 32;   // grids up to 255 tiles a side
+constexpr int SCAN_THREADS = 1024;  // 32 supertiles x 32 row segments
 constexpr unsigned FULL = 0xFFFFFFFFu;
 // lo 255 > hi 0: covers no supertile of a grid up to 255 tiles a side
 constexpr uint32_t NO_RANGE = 0xFFu;
@@ -70,36 +76,27 @@ __device__ __forceinline__ bool in_range(uint32_t r, int sx, int sy) {
          && sy >= (int)((r >> 16) & 0xFFu) && sy <= (int)(r >> 24);
 }
 
-// The sum of v over the CTA's THREADS threads, returned to every thread.
-__device__ __forceinline__ int block_sum(int v) {
-  __shared__ int part[WARPS];
-  v = __reduce_add_sync(FULL, v);
-  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = v;
-  __syncthreads();
-  int s = 0;
-  for (int w = 0; w < WARPS; ++w) s += part[w];
-  __syncthreads();
-  return s;
-}
-
-// The covering positions of supertile row `row` (nchunks counts) before
-// chunk `upto`, to every thread.
-__device__ __forceinline__ int row_total(const int* __restrict__ row,
-                                         int upto) {
-  int v = 0;
-  for (int i = threadIdx.x; i < upto; i += THREADS) v += row[i];
-  return block_sum(v);
+// Adds one to each supertile count of `row` in the range r.
+__device__ __forceinline__ void count_range(uint32_t r, int* row, int sgx) {
+  if (r == NO_RANGE) return;
+  for (int sy = (int)((r >> 16) & 0xFFu); sy <= (int)(r >> 24); ++sy)
+    for (int sx = (int)(r & 0xFFu); sx <= (int)((r >> 8) & 0xFFu); ++sx)
+      atomicAdd(&row[sy * sgx + sx], 1);
 }
 
 // Src: a functor (p, x0, y0, x1, y1) -> whether position p takes part,
-// with its rect in global tile coordinates.
+// with its rect in global tile coordinates. The first CTA zeroes the
+// overflow word (the grid has at least one CTA).
 template <class Src>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(CHUNK)
 l1_count(Src src, uint32_t* __restrict__ srange, int* __restrict__ cnt,
-         int n, int nchunks, int sgx, int sgy, int row_offset) {
+         int* __restrict__ overflow, int n, int nchunks, int sgx, int sgy,
+         int row_offset) {
   __shared__ int scnt[MAX_SUPERTILES];
+  if (blockIdx.x == 0 && threadIdx.x == 0) *overflow = 0;
+  if ((int)blockIdx.x >= nchunks) return;
   const int NS = sgx * sgy;
-  for (int i = threadIdx.x; i < NS; i += THREADS) scnt[i] = 0;
+  for (int i = threadIdx.x; i < NS; i += CHUNK) scnt[i] = 0;
   __syncthreads();
   const int p = blockIdx.x * CHUNK + threadIdx.x;
   if (p < n) {
@@ -109,51 +106,167 @@ l1_count(Src src, uint32_t* __restrict__ srange, int* __restrict__ cnt,
       r = supertile_range(x0, y0 - row_offset, x1, y1 - row_offset, sgx,
                           sgy);
     srange[p] = r;
-    if (r != NO_RANGE) {
-      for (int sy = (int)((r >> 16) & 0xFFu); sy <= (int)(r >> 24); ++sy)
-        for (int sx = (int)(r & 0xFFu); sx <= (int)((r >> 8) & 0xFFu); ++sx)
-          atomicAdd(&scnt[sy * sgx + sx], 1);
-    }
+    count_range(r, scnt, sgx);
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < NS; i += THREADS)
-    cnt[(size_t)i * nchunks + blockIdx.x] = scnt[i];
+  for (int i = threadIdx.x; i < NS; i += CHUNK)
+    cnt[(size_t)blockIdx.x * NS + i] = scnt[i];
 }
 
-__global__ void __launch_bounds__(THREADS)
-l1_emit(const uint32_t* __restrict__ srange, const int* __restrict__ cnt,
-        int* __restrict__ cand, int n, int nchunks, int sgx, int C1) {
-  __shared__ int wcount[WARPS];
-  const int s = blockIdx.y;
-  const int chunk = blockIdx.x;
-  const int* row = cnt + (size_t)s * nchunks;
-  if (row[chunk] == 0) return;                   // the same for every thread
-  const int before = row_total(row, chunk);
-  if (before >= C1) return;
+// One CTA a group of 32 supertiles (lane = supertile), its 32 warps each a
+// segment of the chunk rows: the segment sums, their prefix across the
+// warps in shared memory, then each row's exclusive prefix written over its
+// count, 8 rows' loads in flight. total[s] is the supertile's covering
+// count; the first level drops max(total - C1, 0) of them.
+__global__ void __launch_bounds__(SCAN_THREADS)
+l1_scan(int* __restrict__ cnt, int* __restrict__ total,
+        int* __restrict__ overflow, int nchunks, int NS, int C1) {
+  __shared__ int part[32][33];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int p = chunk * CHUNK + threadIdx.x;
-  const bool hit = p < n && in_range(srange[p], s % sgx, s / sgx);
-  const unsigned m = __ballot_sync(FULL, hit);
-  if (lane == 0) wcount[warp] = __popc(m);
+  const int s = blockIdx.x * 32 + lane;
+  const int seg = (nchunks + 31) / 32;
+  const int j0 = warp * seg, j1 = min(j0 + seg, nchunks);
+  int sum = 0;
+  if (s < NS) {
+#pragma unroll 8
+    for (int j = j0; j < j1; ++j) sum += cnt[(size_t)j * NS + s];
+  }
+  part[warp][lane] = sum;
   __syncthreads();
-  int k = before + __popc(m & ((1u << lane) - 1u));
-  for (int w = 0; w < warp; ++w) k += wcount[w];
-  if (hit && k < C1) cand[(size_t)s * C1 + k] = p;
+  if (s >= NS) return;
+  int run = 0;
+  for (int w = 0; w < warp; ++w) run += part[w][lane];
+  if (warp == 31) {
+    const int t = run + sum;
+    total[s] = t;
+    if (t > C1) atomicAdd(overflow, t - C1);
+  }
+  for (int j = j0; j < j1; j += 8) {
+    int c[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+      c[u] = j + u < j1 ? cnt[(size_t)(j + u) * NS + s] : 0;
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      if (j + u < j1) cnt[(size_t)(j + u) * NS + s] = run;
+      run += c[u];
+    }
+  }
 }
 
-// Both first-level kernels for n positions; cnt is (NS, nchunks), cand
-// (NS, C1), srange (n,).
-template <class Src>
-cudaError_t first_level(Src src, uint32_t* srange, int* cnt, int* cand,
-                        int n, int sgx, int sgy, int C1, int row_offset,
-                        cudaStream_t st) {
+// v from lane src, as 32-bit words (T is a struct of 4-byte fields).
+template <class T>
+__device__ __forceinline__ T shfl_item(const T& v, int src) {
+  static_assert(sizeof(T) % 4 == 0, "an item is whole 32-bit words");
+  T out;
+  const int* a = reinterpret_cast<const int*>(&v);
+  int* b = reinterpret_cast<int*>(&out);
+#pragma unroll
+  for (int w = 0; w < (int)(sizeof(T) / 4); ++w)
+    b[w] = __shfl_sync(FULL, a[w], src);
+  return out;
+}
+
+// One CTA a (chunk, batch of 32 supertiles). off: (nchunks, NS) exclusive
+// offsets (the scan's). Emit: a functor with `Item load(p)`, the
+// position's data read once, and `store(item, s, k)`, candidate k of
+// supertile s.
+//
+// Each warp takes a ballot of its positions for each supertile of the
+// batch (lane i keeps slot i's), the CTA sums the warps before each warp
+// in shared memory, and each warp lists its kept (position, supertile)
+// pairs, slot by slot, each slot's in lane order, and stores them 32 at a
+// time, one a lane: a lane takes pair q whatever position it came from
+// (the position's item by shuffle), so the warp does not diverge over the
+// positions' ranges. A CTA whose chunk covers no supertile of the batch
+// that still takes candidates (offset below C1) stops at once.
+template <class Emit>
+__global__ void __launch_bounds__(CHUNK)
+l1_emit(Emit emit, const uint32_t* __restrict__ srange,
+        const int* __restrict__ off, const int* __restrict__ total, int n,
+        int sgx, int NS, int C1) {
+  __shared__ unsigned smask[CHUNK_WARPS][32];  // a warp's ballot, batch slot
+  __shared__ int soff[32];
+  __shared__ int live;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int sb = blockIdx.y * 32, nbatch = min(32, NS - sb);
+  const int* orow = off + (size_t)blockIdx.x * NS;
+  const int p = blockIdx.x * CHUNK + threadIdx.x;
+  const uint32_t r = p < n ? srange[p] : NO_RANGE;
+  if (warp == 0) {
+    // the next chunk's offset, or the total: the chunk covers s where the
+    // two differ
+    const bool lastc = (int)blockIdx.x == (int)gridDim.x - 1;
+    const int o = lane < nbatch ? orow[sb + lane] : C1;
+    const int o1 = lane < nbatch ? (lastc ? total[sb + lane]
+                                          : orow[NS + sb + lane]) : C1;
+    soff[lane] = o;
+    const bool any = __any_sync(FULL, o < C1 && o1 > o);
+    if (lane == 0) live = any;
+  }
+  __syncthreads();
+  if (!live) return;                   // the same for the CTA
+  unsigned mine = 0;
+  int sx = sb % sgx, sy = sb / sgx;
+  for (int i = 0; i < nbatch; ++i) {
+    const unsigned m = __ballot_sync(FULL, in_range(r, sx, sy));
+    if (lane == i) mine = m;
+    if (++sx == sgx) {
+      sx = 0;
+      ++sy;
+    }
+  }
+  smask[warp][lane] = mine;
+  typename Emit::Item item{};
+  if (__any_sync(FULL, mine != 0) && r != NO_RANGE) item = emit.load(p);
+  __syncthreads();
+  // slot `lane`: the k of this warp's first hit, and how many are kept
+  int k0 = 0, kept = 0;
+  if (lane < nbatch) {
+    k0 = soff[lane];
+    for (int w = 0; w < warp; ++w) k0 += __popc(smask[w][lane]);
+    kept = max(0, min(__popc(mine), C1 - k0));
+  }
+  int incl = kept;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int v = __shfl_up_sync(FULL, incl, o);
+    if (lane >= o) incl += v;
+  }
+  const int excl = incl - kept;
+  const int pairs = __shfl_sync(FULL, incl, 31);
+  for (int q0 = 0; q0 < pairs; q0 += 32) {
+    const int q = q0 + lane;
+    int slot = 0;               // the slots whose pairs all come before q
+#pragma unroll
+    for (int t = 0; t < 32; ++t) slot += __shfl_sync(FULL, incl, t) <= q;
+    slot = min(slot, 31);
+    const unsigned m = __shfl_sync(FULL, mine, slot);
+    const int first = __shfl_sync(FULL, excl, slot);
+    const int k = __shfl_sync(FULL, k0, slot) + q - first;
+    int src = 0;
+    if (q < pairs) {            // the (q - first)-th set bit of m
+      unsigned b = m;
+      for (int j = q - first; j > 0; --j) b &= b - 1;
+      src = __ffs(b) - 1;
+    }
+    const typename Emit::Item it = shfl_item(item, src);
+    if (q < pairs) emit.store(it, sb + slot, k);
+  }
+}
+
+// The scan and the emission after a count; cnt (nchunks, NS) becomes the
+// offsets, total (NS,). The scan runs for n = 0 too (it writes the totals).
+template <class Emit>
+void scan_and_emit(Emit emit, const uint32_t* srange, int* cnt, int* total,
+                   int* overflow, int n, int sgx, int NS, int C1,
+                   cudaStream_t st) {
   const int nchunks = (n + CHUNK - 1) / CHUNK;
-  if (nchunks == 0) return cudaSuccess;
-  l1_count<<<nchunks, THREADS, 0, st>>>(src, srange, cnt, n, nchunks, sgx,
-                                        sgy, row_offset);
-  l1_emit<<<dim3(nchunks, sgx * sgy), THREADS, 0, st>>>(srange, cnt, cand, n,
-                                                        nchunks, sgx, C1);
-  return cudaGetLastError();
+  l1_scan<<<(NS + 31) / 32, SCAN_THREADS, 0, st>>>(cnt, total, overflow,
+                                                    nchunks, NS, C1);
+  if (nchunks > 0 && C1 > 0)
+    l1_emit<<<dim3(nchunks, (NS + 31) / 32), CHUNK, 0, st>>>(
+        emit, srange, cnt, total, n, sgx, NS, C1);
 }
 
 }  // namespace binning

@@ -54,11 +54,13 @@ SIGNATURES = {
         "gs_big_window": [_P] * 3 + [_I] * 3 + [_P],
     },
     "bin_blocks": {
-        "gs_bin_blocks": [_P] * 18 + [_I] * 6 + [_P],
+        "gs_bin_blocks": [_P] * 22 + [_I] * 6 + [_P],
         "gs_bin_blocks_chunk": [],
+        "gs_bin_rank": [_P] * 5 + [_I, _P],
+        "gs_bin_rank_prefix_words": [_I],
     },
     "bin_bigs": {
-        "gs_bin_bigs": [_P] * 10 + [_I] * 6 + [_P],
+        "gs_bin_bigs": [_P] * 12 + [_I] * 6 + [_P],
         "gs_bin_bigs_chunk": [],
     },
     "emit_exact": {
@@ -93,9 +95,11 @@ SIGNATURES = {
 # block_frame libraries hold two each: the word and the cooked payload;
 # sfu_probe counts every body; emit_exact counts its base and each dense
 # group's launch; sort_pairs counts a sort, its histogram and passes;
-# bin_blocks and bin_bigs count a binning, its four and three kernels).
+# bin_blocks and bin_bigs count a binning, its six and four kernels;
+# bin_rank counts bin_blocks' stable ranking launched alone, its two).
 COUNTERS = ("projection", "projection_readable", "block_frame",
             "block_frame_cooked", "big_lanes", "bin_blocks", "bin_bigs",
+            "bin_rank",
             "render_v3",
             "render_v3_cooked", "render_v4", "render_exact", "emit_exact",
             "sort_pairs", "sfu_probe")

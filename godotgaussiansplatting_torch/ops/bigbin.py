@@ -24,7 +24,7 @@ import torch
 
 from .. import kernels
 from ..config import RasterizerConfig
-from .binning2 import SUPER, supertile_origins
+from .binning2 import SUPER, _i32s, supertile_origins
 from .blocks2 import DEPTH_INVALID, GATE_OFF, PAYLOAD_WIDTH, _CULL_FAR
 
 GROUP = 1  # tiles per render group; the render kernel runs one tile a block
@@ -131,7 +131,9 @@ def _bin_bigs_cuda(bigs, cfg: RasterizerConfig, obig: int = 128,
                    supertile_cap: int = 2048,
                    tile_row_offset: int = 0) -> TileBigs:
     """The kernel (csrc/bin_bigs.cu): the L1 and L2 compactions, the lane
-    gather and the bucket prefix, with no sort."""
+    gather and the bucket prefix, with no sort. Its payload stores are 16
+    bytes wide where OB is a multiple of 4 (every configuration the repo
+    runs: the default big-lane cap is a multiple of 128 and obig 128)."""
     gx, gy = cfg.tile_dims
     sgx, sgy = -(-gx // SUPER), -(-gy // SUPER)
     N = bigs.table.shape[0]
@@ -148,18 +150,19 @@ def _bin_bigs_cuda(bigs, cfg: RasterizerConfig, obig: int = 128,
     kernels.require_cuda("bin_bigs", table, rect, valid)
     dev = table.device
     lib = kernels.library("bin_bigs")
+    NS = sgx * sgy
     nchunks = -(-N // lib.gs_bin_bigs_chunk())
     TG = gx * gy
 
-    def i32s(*shape):
-        return torch.empty(shape, dtype=torch.int32, device=dev)
-
-    srange, cnt, cand = i32s(N), i32s(sgx * sgy, nchunks), i32s(sgx * sgy, C1)
+    # the supertile ranges, the chunk counts (then offsets) and totals, and
+    # each supertile's candidates: lane id and rect
+    scratch = (_i32s(dev, N), _i32s(dev, nchunks, NS), _i32s(dev, NS),
+               _i32s(dev, NS, C1), _i32s(dev, NS, C1, 4))
     bigpay = torch.empty((TG, PAYLOAD_WIDTH, OB), device=dev)
-    nbig, overflow, prefix = i32s(TG), i32s(), i32s(TG, 128)
+    nbig, overflow, prefix = _i32s(dev, TG), _i32s(dev), _i32s(dev, TG, 128)
     err = lib.gs_bin_bigs(
-        *(t.data_ptr() for t in (table, rect, valid, srange, cnt, cand,
-                                 bigpay, nbig, overflow, prefix)),
+        *(t.data_ptr() for t in (table, rect, valid, *scratch, bigpay, nbig,
+                                 overflow, prefix)),
         N, gx, gy, C1, OB, tile_row_offset, kernels.stream_ptr(dev))
     kernels.check(err, "bin_bigs kernel launch")
     kernels.count_launch("bin_bigs")

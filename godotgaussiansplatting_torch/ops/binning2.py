@@ -10,9 +10,11 @@ counterpart of XLA's sorts in the JAX function; CPU tensors take the plain
 version, ``bin_blocks2_reference``, which keeps the JAX function's sorts
 (u32 keys widened to int64, since torch has no uint32 compares on the CPU;
 every sort that orders ties is stable) and which the kernel is held
-bit-equal to. Each of those sorts but the global pre-sort is a stable
-compaction (the covering positions in order, then padding), which is what
-the kernel computes.
+bit-equal to. The global pre-sort is a stable ranking of the depth keys,
+which the kernel computes by chunks (each sorted in shared memory, then
+each key placed by the other chunks' bucket prefixes and a short search);
+each of the other sorts is a stable compaction (the covering positions in
+order, then padding), which is what the kernel computes.
 """
 
 from __future__ import annotations
@@ -155,12 +157,38 @@ def bin_blocks2_reference(bf: BlockFrame2, cfg: RasterizerConfig,
     )
 
 
+def _i32s(dev, *shape):
+    return torch.empty(shape, dtype=torch.int32, device=dev)
+
+
+def _rank_keys_cuda(key: torch.Tensor) -> torch.Tensor:
+    """The kernel's stable ranking alone (csrc/bin_blocks.cu, rank_sort and
+    rank_place) of (n,) int32 keys on the card: int32 indices equal to
+    ``torch.sort(key, stable=True).indices``, the pre-sort of
+    ``bin_blocks2_reference``. For tests and timing; ``bin_blocks2`` runs
+    the ranking inside its own launch."""
+    if key.dtype != torch.int32 or key.dim() != 1:
+        raise ValueError(f"rank: expected (n,) int32 keys, got {key.dtype} "
+                         f"{tuple(key.shape)}")
+    key = key.contiguous()
+    kernels.require_cuda("bin_rank", key)
+    n = key.shape[0]
+    lib = kernels.library("bin_blocks")
+    skey, sidx, gidx = (_i32s(key.device, n) for _ in range(3))
+    prefix = _i32s(key.device, lib.gs_bin_rank_prefix_words(n))
+    err = lib.gs_bin_rank(
+        *(t.data_ptr() for t in (key, skey, sidx, prefix, gidx)), n,
+        kernels.stream_ptr(key.device))
+    kernels.check(err, "bin_rank kernel launch")
+    kernels.count_launch("bin_rank")
+    return gidx
+
+
 def _bin_blocks2_cuda(bf: BlockFrame2, cfg: RasterizerConfig,
                       supertile_cap: int = 1024, tile_cap: int = 256,
                       tile_row_offset: int = 0) -> TileBins2:
-    """The kernel (csrc/bin_blocks.cu) after one stable torch.sort of the B
-    (min, max) depth keys, as int32 keys sign-flipped from the u32 ones
-    (the same order)."""
+    """The kernel (csrc/bin_blocks.cu): the stable ranking of the B (min,
+    max) depth keys, the L1 and L2 compactions, with no library call."""
     gx, gy = cfg.tile_dims
     B = bf.rect.shape[0]
     C1, C2, _ = _caps(bf, cfg, supertile_cap, tile_cap)
@@ -172,28 +200,24 @@ def _bin_blocks2_cuda(bf: BlockFrame2, cfg: RasterizerConfig,
                              f"{t.dtype}")
     kernels.require_cuda("bin_blocks", *ins)
     dev = ins[0].device
-    # (min16 << 16 | max16) - 2^31: min16 <= 0xFFFF, so no int32 overflow
-    key = (ins[2] - 32768) * 65536 + (ins[3] & 0xFFFF)
-    gidx = torch.sort(key, stable=True).indices
     lib = kernels.library("bin_blocks")
-    sgx, sgy = -(-gx // SUPER), -(-gy // SUPER)
+    NS = -(-gx // SUPER) * -(-gy // SUPER)
     nchunks = -(-B // lib.gs_bin_blocks_chunk())
     T = gx * gy
-
-    def i32s(*shape):
-        return torch.empty(shape, dtype=torch.int32, device=dev)
-
-    NS = sgx * sgy
-    srange, cnt, cand = i32s(B), i32s(NS, nchunks), i32s(NS, C1)
-    # each supertile's candidates, staged once: tile mask, id, range, count
-    cmask = torch.empty((NS, C1), dtype=torch.int64, device=dev)
-    cgid, cmm, cnv = i32s(NS, C1), i32s(NS, C1), i32s(NS, C1)
-    tb, tmm = i32s(T, C2), i32s(T, C2)
-    nb, ncand, overflow = i32s(T), i32s(T), i32s()
+    # the ranking (sorted chunks, the order), the supertile ranges, the
+    # ranking's bucket prefixes, the chunk counts (then offsets) and
+    # totals, each supertile's candidate positions and its candidates
+    # staged once: tile mask, id, range, count
+    scratch = [_i32s(dev, B) for _ in range(4)]
+    scratch += [_i32s(dev, lib.gs_bin_rank_prefix_words(B)),
+                _i32s(dev, nchunks, NS), _i32s(dev, NS), _i32s(dev, NS, C1),
+                torch.empty((NS, C1), dtype=torch.int64, device=dev)]
+    scratch += [_i32s(dev, NS, C1) for _ in range(3)]
+    tb, tmm = _i32s(dev, T, C2), _i32s(dev, T, C2)
+    nb, ncand, overflow = _i32s(dev, T), _i32s(dev, T), _i32s(dev)
     err = lib.gs_bin_blocks(
-        gidx.data_ptr(), *(t.data_ptr() for t in ins),
-        *(t.data_ptr() for t in (srange, cnt, cand, cmask, cgid, cmm, cnv,
-                                 tb, nb, tmm, ncand, overflow)),
+        *(t.data_ptr() for t in (*ins, *scratch, tb, nb, tmm, ncand,
+                                 overflow)),
         B, gx, gy, C1, C2, tile_row_offset, kernels.stream_ptr(dev))
     kernels.check(err, "bin_blocks kernel launch")
     kernels.count_launch("bin_blocks")

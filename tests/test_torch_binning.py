@@ -39,7 +39,7 @@ from godotgaussiansplatting_tpu.ops import blocks2 as blocks_j
 from _torch_parity import np_, port_tuple
 
 SUPER = 8
-CHUNK = 256           # positions a first-level CTA (csrc/bin_l1.cuh)
+CHUNK = 512           # positions a first-level CTA (csrc/bin_l1.cuh)
 PW = 16
 DEAD = np.array([-1.0e4] + [0.0] * 8 + [-1.0e6, -1.0e6, 0.0, 3.0e38, 0.0,
                                         0.0, 0.0], np.float32)
@@ -125,10 +125,11 @@ def big_set(name, seed=1, N=2048):
 # --- the numpy model of the kernels ------------------------------------------
 
 def model_first_level(rect, live, sgx, sgy, C1, off):
-    """l1_count and l1_emit: each supertile's first C1 covering positions
-    (-1 past them) and its count of covering positions. A rect's
-    supertiles form the range floor(x0 / 8) .. floor((x1 - 1) / 8) of the
-    grid (and so for the rows, less the offset)."""
+    """The first level (count, l1_scan, l1_emit): each supertile's first
+    C1 covering positions (-1 past them) and its count of covering
+    positions. A rect's supertiles form the range floor(x0 / 8) ..
+    floor((x1 - 1) / 8) of the grid (and so for the rows, less the
+    offset)."""
     n = rect.shape[0]
     x0, y0, x1, y1 = (rect[:, i].astype(np.int64) for i in range(4))
     lx = np.maximum(x0 // SUPER, 0)
@@ -185,7 +186,7 @@ def model_tile_mask(rect, bm, tx0, ty0):
 
 def model_bin_blocks(bf, gx, gy, C1, C2, off):
     """bin_blocks.cu: TileBins2 fields as numpy. Each supertile's
-    candidates are staged once with their tile mask (l1_emit's
+    candidates are staged once with their tile mask (l2_stage's
     StageBricks); a tile takes the candidates whose mask bit is set."""
     rect = np_(bf.rect).astype(np.int64)
     bm = np_(bf.bitmap).astype(np.int64) & 0xFFFFFFFF

@@ -77,7 +77,7 @@ def test_cpu_frame_launches_no_kernel():
     assert set(kernels.COUNTERS) == {"projection", "projection_readable",
                                      "block_frame", "block_frame_cooked",
                                      "big_lanes", "bin_blocks", "bin_bigs",
-                                     "render_v3",
+                                     "bin_rank", "render_v3",
                                      "render_v3_cooked", "render_v4",
                                      "render_exact", "emit_exact",
                                      "sort_pairs", "sfu_probe"}
@@ -123,6 +123,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         bb._bin_bigs_cuda(bigs, cfg)
     with pytest.raises(ValueError, match="bool"):
         bb._bin_bigs_cuda(bigs._replace(valid=meta), cfg)
+    with pytest.raises(ValueError, match="CUDA"):
+        bn._rank_keys_cuda(meta)
+    with pytest.raises(ValueError, match="int32"):
+        bn._rank_keys_cuda(meta.long())
 
 
 def test_entry_points_default_to_the_card():
@@ -978,23 +982,43 @@ def test_block_kernels_match_plain(cuda, monkeypatch, config):
 
 # --- the Binning stage's kernels: bin_blocks and bin_bigs --------------------
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("caps", ["defaults", "biting"])
-@pytest.mark.parametrize("offset", [0, 5])
-@pytest.mark.parametrize("tile", [16, 32])
-def test_binning_kernels_match_plain(cuda, tile, offset, caps):
-    """bin_blocks and bin_bigs bit-equal (f32 as bits) to their plain
-    versions on a 512x512 frame's block frame and big set, at tile 16
-    (quality="fast") and 32 (fast_defaults()), on the whole grid and on a
-    slab of its rows past ``offset`` (rects in the full grid's rows), at
-    the frame's caps and at caps where C1, C2 and OB all drop entries."""
+def _binning_inputs(cuda, cfg, inputs):
+    """The reset camera's block frame and big set of a 512x512 frame; with
+    "ties", its depth ranges cut to a few values (most keys equal); with
+    "tiny", its first 7 bricks and 10 big lanes (C2 and OB 7 and 10: no
+    multiple of 4); with "none", no brick and no big lane."""
     from godotgaussiansplatting_torch.ops.fast_pipeline import _frame_stages
-    base = gt.RasterizerConfig(width=512, height=512)
-    cfg = base.fast_defaults() if tile == 32 else base.replace(quality="fast")
     cloud = gt.fast_cloud_view(_cloud(cuda), planar_sh=cfg.projection_kernel)
     uni = gt.make_uniforms(gt.Camera.reset_pose(), cfg, device=cuda)
     stages = dict(_frame_stages(cloud, uni, cfg))
     bf, bigs = stages["Blocks"](stages["Projection"](None))
+    if inputs == "ties":
+        bf = bf._replace(min_depth=bf.min_depth & 0xF000,
+                         max_depth=bf.max_depth & 0x3)
+    elif inputs in ("tiny", "none"):
+        nb, ng = (7, 10) if inputs == "tiny" else (0, 0)
+        bf = bf._replace(**{f: getattr(bf, f)[:nb] for f in (
+            "rect", "bitmap", "min_depth", "max_depth", "num_valid")})
+        bigs = bigs._replace(table=bigs.table[:ng], rect=bigs.rect[:ng],
+                             valid=bigs.valid[:ng])
+    return bf, bigs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("inputs", ["frame", "ties", "tiny"])
+@pytest.mark.parametrize("caps", ["defaults", "biting"])
+@pytest.mark.parametrize("offset", [0, 5])
+@pytest.mark.parametrize("tile", [16, 32])
+def test_binning_kernels_match_plain(cuda, tile, offset, caps, inputs):
+    """bin_blocks and bin_bigs bit-equal (f32 as bits) to their plain
+    versions on a 512x512 frame's block frame and big set, at tile 16
+    (quality="fast") and 32 (fast_defaults()), on the whole grid and on a
+    slab of its rows past ``offset`` (rects in the full grid's rows), at
+    the frame's caps and at caps where C1, C2 and OB all drop entries; on
+    the frame's inputs, with most depth keys tied, and cut to a few."""
+    base = gt.RasterizerConfig(width=512, height=512)
+    cfg = base.fast_defaults() if tile == 32 else base.replace(quality="fast")
+    bf, bigs = _binning_inputs(cuda, cfg, inputs)
     slab = cfg.replace(height=(cfg.tile_dims[1] - offset) * tile)
     st, tc, ob, bst = ((1024, 256, 128, 2048) if caps == "defaults"
                        else (48, 12, 16, 64))
@@ -1009,9 +1033,62 @@ def test_binning_kernels_match_plain(cuda, tile, offset, caps):
     for name, a, b in zip(kb._fields + kg._fields, (*kb, *kg), (*rb, *rg)):
         assert a.shape == b.shape and a.dtype == b.dtype, name
         assert torch.equal(_bits(a), _bits(b)), name
-    assert int(kb.tile_nblocks.max()) > 1 and int(kg.tile_nbig.max()) > 1
-    if caps == "biting":
+    if inputs != "tiny":
+        assert int(kb.tile_nblocks.max()) > 1 and int(kg.tile_nbig.max()) > 1
+    if caps == "biting" and inputs != "tiny":
         assert int(kb.overflow) > 0 and int(kg.overflow) > 0
+
+
+@pytest.mark.gpu
+def test_binning_kernels_with_nothing_to_bin(cuda):
+    """No brick and no big lane: every tile empty, written in full."""
+    cfg = gt.RasterizerConfig(width=512, height=512).fast_defaults()
+    bf, bigs = _binning_inputs(cuda, cfg, "none")
+    for got, want in ((bn.bin_blocks2(bf, cfg), bn.bin_blocks2_reference(
+            bf, cfg)), (bb.bin_bigs(bigs, cfg), bb.bin_bigs_reference(
+                bigs, cfg))):
+        torch.cuda.synchronize()
+        for name, a, b in zip(got._fields, got, want):
+            assert a.shape == b.shape and torch.equal(_bits(a), _bits(b)), \
+                name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["random", "ties", "extreme"])
+@pytest.mark.parametrize("n", [0, 1, 1023, 1024, 1025, 45_440])
+def test_rank_kernel_matches_stable_sort(cuda, n, kind):
+    """bin_blocks' stable ranking alone, bit-equal to torch.sort(stable=
+    True).indices of the same int32 keys: random keys, keys of a few
+    values (ties across its chunks of 1024) and the extreme keys."""
+    g = torch.Generator(device=cuda).manual_seed(n)
+    if kind == "random":
+        keys = torch.randint(-2**31, 2**31, (n,), generator=g, device=cuda,
+                             dtype=torch.int64).to(torch.int32)
+    else:
+        vals = torch.tensor([-2**31, -2**31 + 1, 0, 2**31 - 1]
+                            if kind == "extreme" else [5, 6, 900, -3],
+                            dtype=torch.int32, device=cuda)
+        keys = vals[torch.randint(0, 4, (n,), generator=g, device=cuda)]
+    kernels.reset_launch_counts()
+    got = bn._rank_keys_cuda(keys)
+    assert kernels.launch_counts()["bin_rank"] == 1
+    want = torch.sort(keys, stable=True).indices
+    assert got.dtype == torch.int32 and torch.equal(got.long(), want)
+
+
+@pytest.mark.gpu
+def test_binning_card_path_holds_no_host_read(cuda):
+    """tests/test_torch_graph.py's census over the Binning stage's card
+    path: no op a CUDA graph cannot capture, and no library sort."""
+    from test_torch_graph import _Census
+    cfg = gt.RasterizerConfig(width=512, height=512).fast_defaults()
+    bf, bigs = _binning_inputs(cuda, cfg, "frame")
+    census = _Census()
+    with census:
+        bn.bin_blocks2(bf, cfg)
+        bb.bin_bigs(bigs, cfg, obig=cfg.big_tile_capacity)
+    assert not census.bad, census.bad
+    assert not {"sort", "argsort"} & census.ops, census.ops
 
 
 @pytest.mark.gpu
