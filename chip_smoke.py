@@ -82,8 +82,10 @@ nvcc per source, all started together), then:
    against 64-bit ones, and the same call on the n live pairs alone,
    logged); then
    torch.profiler over three eager Sort stages (profile_sort: kernels and
-   aten ops by device ms a stage); and the Blocks
-   stage's kernels (block_frame, words and cooked, and big_lanes): the
+   aten ops by device ms a stage); both projections at SH degree 0
+   (benchmarks/configs.py's first workload) bit-equal to their plain
+   versions; and the Blocks stage's kernels (block_frame, words and
+   cooked, big_lanes, and screen_pack, screen_sort and big_set): the
    stage run through them and through their plain versions on the 1080p
    frames' projections of fast_defaults() (static bricks, the taken mask
    fused), its v4 (cooked), quality="fast" (screen, cooked) and
@@ -92,9 +94,12 @@ nvcc per source, all started together), then:
    candidates (4,096) and past its window (20,480: pad entries at splat
    0), every BlockFrame2 and BigSet field and each kernel's output on the
    arguments the stage passed it bit-equal (f32 as bits); big_lanes also
-   on rows holding 0 to CW live keys; each kernel timed beside its plain
-   version and its byte bound, big_lanes also beside torch.sort of the
-   u32 rows (its library_ms), and the global window sort with int32 keys
+   on rows holding 0 to CW live keys, screen_sort also on the
+   quality="fast" rows with the keys cut to a few values and with a third
+   of the lanes taken; each kernel timed beside its plain version and its
+   byte bound, big_lanes also beside torch.sort of the u32 rows (its
+   library_ms), screen_sort beside torch.sort of its rows and the seven
+   gathers (its library_ms), and the global window sort with int32 keys
    beside int64 ones; and the Binning stage's kernels (bin_blocks,
    bin_bigs): the stage run through them and through their plain
    versions on the 1080p block frames and big sets of fast_defaults(),
@@ -126,7 +131,8 @@ nvcc per source, all started together), then:
    rasterize(sync=True) after one warm-up frame: finite images, rendered
    splats > 0, projection_readable, emit_exact, sort_pairs and
    render_exact launched by every exact frame and projection, block_frame,
-   big_lanes, bin_blocks, bin_bigs and render_v3 by every fast frame
+   big_lanes, big_set, bin_blocks, bin_bigs and render_v3 by every fast
+   frame
    (after the same fast frames with the Blocks stage's plain versions
    patched in, their Blocks timed before its kernels),
    a centre pick that is a splat mean on both, the exact frames'
@@ -156,9 +162,8 @@ nvcc per source, all started together), then:
    fly, an orbit drag, wheel steps and centre picks, a /state change, a
    /frame and a /stats each tick). The launch counters are set to 0 once
    the loop has paused on idle, just before the traffic, and read once it
-   has paused again: projection, block_frame, big_lanes, bin_blocks,
-   bin_bigs and render_v3
-   must have launched once for every frame served. The served frame (through /frame and read_png)
+   has paused again: projection, block_frame, big_lanes, big_set,
+   bin_blocks, bin_bigs and render_v3 must have launched once for every frame served. The served frame (through /frame and read_png)
    must equal a direct rasterize + to_uint8 of the viewer's camera (or,
    should the direct render not repeat bit for bit, read >= 50 dB). Then
    a 1M-splat .ply (write_ply of synthetic_arrays, 62 properties) is
@@ -185,9 +190,8 @@ nvcc per source, all started together), then:
    .npy files into its shard_cloud on the card and renders each path over
    the orbit (n_view cameras a frame) after a warm-up frame, the launch
    counters (and the mesh's traffic) set to 0 just before each frame and
-   read just after it: projection, block_frame, big_lanes, bin_blocks,
-   bin_bigs and render_v3
-   once a fast frame,
+   read just after it: projection, block_frame, big_lanes, big_set,
+   bin_blocks, bin_bigs and render_v3 once a fast frame,
    projection_readable, sort_pairs and render_exact once and emit_exact
    at least once an exact one (its shard read through a (P, 16, 3) view), on every rank
    of the mesh. Rank 0 holds every view to its
@@ -218,7 +222,7 @@ nvcc per source, all started together), then:
    logs the capture seconds, the eager and graphed frames' medians in
    turns (host clock, CUDA events, stages), the memory each holds between
    frames and at its peak, and torch.profiler's busy share over 3 frames
-   of each, and for fast_defaults() and its v4 torch.profiler over 3
+   of each, and for each configuration torch.profiler over 3
    eager Blocks stages alone, with the plain versions and with the
    kernels (busy ms, kernels and aten ops by device ms a stage), and the
    same over the Binning stage alone for fast_defaults() and
@@ -229,7 +233,7 @@ nvcc per source, all started together), then:
    splat .ply streamed in 16 chunks while frames render, whose frame after
    the load is bit-equal to the eager frame of the loaded cloud's own
    fast view;
-13. the exact frame as captured CUDA graphs (ExactFrameGraph), run last:
+13. the exact frame as captured CUDA graphs (ExactFrameGraph):
    on phase 4's scene (full precision, f32 SH) at 1920x1080 over the 8
    orbit cameras, boundary quirk on, at the tile capacity phase 8 settled
    on: each graphed frame bit-equal to the eager render_frame_staged frame
@@ -244,12 +248,25 @@ nvcc per source, all started together), then:
    the 8 cameras and a heatmap toggle, frames bit-equal to the eager
    frames; then its capacity set below the densest tile: captured there,
    grown and captured once more, the regrown frame bit-equal to the eager
-   frame at the new capacity.
+   frame at the new capacity;
+14. the five workloads of benchmarks/configs.py:100-113 as the port runs
+   them, run last (a bring-up check, not a benchmark): bench.py's scene
+   kind in load order at each one's splat count (500K, 500K, 2.5M, phase
+   4's 5.8M scene, 10M), RasterizerConfig(width, height, sh_degree) with
+   its defaults (quality="fast": readable projection, screen clustering,
+   tile 16, cooked v3) over 4 orbit cameras: graphed frames bit-equal to
+   the eager frames, every kernel of the path launched by each graphed
+   frame, eager and graphed frames timed in turns (stage medians), the
+   eager frame's peak memory; config 4's centre pick finite; config 5
+   (3840x2160, 240x135 tiles) also with early exit off (timed, PSNR
+   against on logged), and screen_pack, screen_sort and big_set
+   bit-equal to their plain versions on its Blocks arguments.
 
 The launch counters are set to 0 just before each full-frame path and read
 just after it; the `launches` of a kernel come from the path that runs it
 (projection_readable's, emit_exact's, sort_pairs' and render_exact's from
-phase 8's exact frames, sfu_probe's from phase 9's timed runs). The other numbers
+phase 8's exact frames, screen_pack's and screen_sort's from phase 5's
+quality="fast" frames, sfu_probe's from phase 9's timed runs). The other numbers
 of the kernels line come from phase 6, the main paths' inputs, and phase
 9 for sfu_probe (the render kernels' chain, __expf / __logf / __expf).
 `bound_ms` is the larger of the bytes the kernel must move over 3.35
@@ -262,7 +279,8 @@ instructions of the render kernels' log-domain blend beside it; the
 projections', the emission's and the sort's `sfu_ms` are null), counted from this
 run's inputs (see `proj_bound`, `readable_vs_plain`, `emit_vs_plain`,
 `sort_bound`,
-`block_frame_record`, `big_lanes_record`, `bin_record` (bytes only),
+`block_frame_record`, `big_lanes_record`, `screen_pack_record`,
+`screen_sort_record`, `big_set_record`, `bin_record` (bytes only),
 `render_bound`
 and `exact_bound`: the render kernels read the payload
 rows of a tile's live big lanes, its first nbig, and evaluate each
@@ -348,6 +366,9 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
     "block_frame": (CSRC + "block_frame.cu", TPU + "blocks2.py:470"),
     "block_frame_cooked": (CSRC + "block_frame.cu", TPU + "blocks2.py:521"),
     "big_lanes": (CSRC + "big_lanes.cu", TPU + "blocks2.py:239"),
+    "screen_pack": (CSRC + "screen_pack.cu", TPU + "blocks2.py:313"),
+    "screen_sort": (CSRC + "screen_sort.cu", TPU + "blocks2.py:461"),
+    "big_set": (CSRC + "big_set.cu", TPU + "blocks2.py:269"),
     "bin_blocks": (CSRC + "bin_blocks.cu", TPU + "binning2.py:39"),
     "bin_bigs": (CSRC + "bin_bigs.cu", TPU + "bigbin.py:55"),
     "render_exact": (CSRC + "render_exact.cu", TPU + "render.py:79"),
@@ -493,6 +514,31 @@ BOUND_COUNTS = {
         "functions: none (sfu_ms null); ms: a CUDA graph of 20 launches "
         "replayed, over 20; library_ms: torch.sort(u32(bkey), "
         "dim=1).values[:, :KC] on the same keys"),
+    "screen_pack": (
+        "bytes: each splat's valid flag, depth16, image position, conic and "
+        "colour (41 B) read once and its seven int32 words (chunk key, "
+        "stage-1 key, ix, iy, pc1, pc2, rgb9e5: 28 B) and the big count "
+        "written once; operations: not counted (the extents' pow, log and "
+        "square roots and the packing, some 80 a splat, far below the bytes "
+        "term); special functions: not counted (sfu_ms null); ms: a CUDA "
+        "graph of 20 launches replayed, over 20; plain_ms: "
+        "screen_pack_reference"),
+    "screen_sort": (
+        "bytes: each element's key, taken byte and five payload words (25 "
+        "B) read once and its seven stage-1 words (28 B) written once; "
+        "operations: not counted (four radix passes in shared memory, a few "
+        "dozen integer operations an element and pass); special functions: "
+        "none (sfu_ms null); ms: a CUDA graph of 20 launches replayed, over "
+        "20; plain_ms: screen_sort_reference; library_ms: torch.sort("
+        "stable=True) of the (SB, sb_size) u32 keys along the rows and the "
+        "seven torch.gather of the rows, the stage's sort before this "
+        "kernel"),
+    "big_set": (
+        "bytes: each lane's index and flag (9 B) and its six packed words "
+        "(24 B) read once, its cooked row (64 B), rect (16 B) and depth16 "
+        "(4 B) written once; operations: not counted (some 80 a lane); "
+        "special functions: not counted (sfu_ms null); ms: a CUDA graph of "
+        "20 launches replayed, over 20; plain_ms: big_set_reference"),
     "bin_blocks": (
         "bytes: each block's rect and depth range (24 B) read once, the "
         "bitmap and count (8 B) of each block in a tile's list, and the "
@@ -701,9 +747,11 @@ def proj_bound(args, words) -> dict:
                  + nbytes(*words), P * PROJ_OPS_PER_SPLAT, None)
 
 
-def projection_vs_plain(tag: str, cloud, cfg, plain_reps: int):
+def projection_vs_plain(tag: str, cloud, cfg, plain_reps: int,
+                        exact: bool = False):
     """The projection kernel against its plain version on one camera:
-    (max |d ix,iy|, kernel ms, plain ms, bound)."""
+    (max |d ix,iy|, kernel ms, plain ms, bound). ``exact``: every word
+    bit-equal."""
     uni = gt.make_uniforms(gt.Camera.reset_pose(), cfg, device=cloud.device)
     vec = pk.frame_uniform_vector(uni.view, uni.proj, uni.camera_pos,
                                   uni.model_scale, uni.time, cfg)
@@ -741,6 +789,8 @@ def projection_vs_plain(tag: str, cloud, cfg, plain_reps: int):
     check(ix_err <= 1e-3, f"{tag}: ix/iy error {ix_err}")
     check(pc_ulps <= 1, f"{tag}: f16 halves {pc_ulps} ulps apart")
     check(rgb_ok, f"{tag}: rgb9e5 fields more than 1 ulp apart")
+    check(not exact or not any(bad.values()),
+          f"{tag}: words not bit-equal: {bad}")
     return ix_err, ms, plain_ms, bnd
 
 
@@ -1536,8 +1586,8 @@ def engine_frames(tag: str, r, cloud, frames: int, expect) -> dict:
 
 EXACT_PATH = ("projection_readable", "emit_exact", "sort_pairs",
               "render_exact")
-FAST_PATH = ("projection", "block_frame", "big_lanes", "bin_blocks",
-             "bin_bigs", "render_v3")
+FAST_PATH = ("projection", "block_frame", "big_lanes", "big_set",
+             "bin_blocks", "bin_bigs", "render_v3")
 
 
 def phase_engine(cloud, frames: int) -> tuple:
@@ -1650,6 +1700,13 @@ def phase_kernels_1080p(cloud, base, worst: dict) -> list:
         "6 projection 1080p", cloud, base.fast_defaults(), 2)
     rec = [record("projection", max(worst["projection"], e), ms, plain_ms,
                   bnd)]
+    # SH degree 0 (benchmarks/configs.py's first workload): both
+    # projections bit-equal to their plain versions
+    sh0 = base.replace(sh_degree=0)
+    projection_vs_plain("6 projection 1080p SH degree 0", cloud,
+                        sh0.fast_defaults(), 1, exact=True)
+    readable_vs_plain("6 projection_readable 1080p SH degree 0",
+                      sh_rows(cloud), sh0.replace(quality="fast"), 1)
     runs = {}
     for name, cfg, words in (
             ("render_v3", base.fast_defaults(), True),
@@ -1835,14 +1892,33 @@ def _dispatch(targets, plain: bool, calls: list | None):
             setattr(m, a, fn)
 
 
+# The Blocks stage's kernels by the kind its calls are recorded as: (the
+# dispatcher's name, the kernel's wrapper, the plain version).
+BLOCK_KINDS = {
+    "frame": ("_frame_from_stage1", b2._frame_from_stage1_cuda,
+              b2.frame_from_stage1_reference),
+    "window": ("big_window", b2._big_window_cuda, b2.big_window_reference),
+    "pack": ("screen_pack", b2._screen_pack_cuda, b2.screen_pack_reference),
+    "sort": ("screen_sort", b2._screen_sort_cuda, b2.screen_sort_reference),
+    "bigset": ("big_set", b2._big_set_cuda, b2.big_set_reference),
+}
+
+
 def blocks_dispatch(plain: bool = False, calls: list | None = None):
-    """The Blocks stage's two dispatchers (``blocks2._frame_from_stage1``
-    and ``blocks2.big_window``) replaced inside a block (``_dispatch``):
-    with ``plain``, the Blocks stage as it ran before its kernels; calls
-    recorded as kind "frame" or "window"."""
-    return _dispatch(
-        ((b2, "_frame_from_stage1", b2.frame_from_stage1_reference, "frame"),
-         (b2, "big_window", b2.big_window_reference, "window")), plain, calls)
+    """The Blocks stage's five dispatchers (``blocks2._frame_from_stage1``,
+    ``big_window``, ``screen_pack``, ``screen_sort`` and ``big_set``)
+    replaced inside a block (``_dispatch``): with ``plain``, the Blocks
+    stage as it ran before its kernels; calls recorded by their kind in
+    ``BLOCK_KINDS``."""
+    return _dispatch(tuple((b2, name, ref, kind) for kind, (name, _, ref)
+                           in BLOCK_KINDS.items()), plain, calls)
+
+
+def _outputs_differ(prefix: str, a, b) -> dict:
+    """{prefix.field: entries that differ} of two outputs (NamedTuples or
+    tuples of tensors), f32 compared as bits."""
+    names = getattr(a, "_fields", None) or [str(i) for i in range(len(a))]
+    return {f"{prefix}.{n}": _differ(x, y) for n, x, y in zip(names, a, b)}
 
 
 def _differ(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -1858,9 +1934,10 @@ def _differ(a: torch.Tensor, b: torch.Tensor) -> int:
 def blocks_vs_plain(tag: str, cloud, cfg) -> dict:
     """The Blocks stage on the reset camera's projection, through its
     kernels and through their plain versions: every BlockFrame2 and BigSet
-    field bit-equal (f32 as bits), and each kernel bit-equal to its plain
-    version on the arguments the stage passed it (recorded). Both stages
-    timed. Returns the recorded calls and the kernels' outputs."""
+    field bit-equal (f32 as bits), and each kernel the stage called
+    bit-equal to its plain version on the arguments the stage passed it
+    (recorded). Both stages timed. Returns {kind: (args, kwargs, the
+    kernel's output)} and the kernels' big set."""
     cloud = gt.fast_cloud_view(cloud, planar_sh=cfg.projection_kernel)
     uni = gt.make_uniforms(gt.Camera.reset_pose(), cfg, device=cloud.device)
     st = dict(_frame_stages(cloud, uni, cfg))
@@ -1871,31 +1948,31 @@ def blocks_vs_plain(tag: str, cloud, cfg) -> dict:
     with blocks_dispatch(plain=True):
         bf_r, big_r = st["Blocks"](prj)
     torch.cuda.synchronize()
-    check(sorted(c[0] for c in calls) == ["frame", "window"],
-          f"{tag}: the stage called {[c[0] for c in calls]}")
+    want = {"frame", "window", "bigset"}
+    want |= {"pack"} if not cfg.projection_kernel else set()
+    want |= {"sort"} if cfg.cluster == "screen" else set()
+    kinds = sorted(c[0] for c in calls)
+    check(kinds == sorted(want), f"{tag}: the stage called {kinds}")
     found = {kind: (a, kw) for kind, a, kw in calls}
-    fa, fkw = found["frame"]
-    wa, _ = found["window"]
-    bad = {f"frame.{f}": _differ(getattr(bf_k, f), getattr(bf_r, f))
-           for f in b2.BlockFrame2._fields}
-    bad.update({f"bigs.{f}": _differ(getattr(big_k, f), getattr(big_r, f))
-                for f in b2.BigSet._fields})
-    fk = b2._frame_from_stage1_cuda(*fa, **fkw)
-    fr = b2.frame_from_stage1_reference(*fa, **fkw)
-    wk = b2._big_window_cuda(*wa)
-    wr = b2.big_window_reference(*wa)
-    torch.cuda.synchronize()
-    bad.update({f"block_frame.{f}": _differ(getattr(fk, f), getattr(fr, f))
-                for f in b2.BlockFrame2._fields})
-    bad.update({f"big_lanes.{f}": _differ(a, b)
-                for f, a, b in zip(("pos_w", "gk"), wk, wr)})
+    bad = _outputs_differ("frame", bf_k, bf_r)
+    bad.update(_outputs_differ("bigs", big_k, big_r))
+    run = {}
+    for kind, (a, kw) in found.items():
+        _, kernel, plain = BLOCK_KINDS[kind]
+        out_k, out_r = kernel(*a, **kw), plain(*a, **kw)
+        torch.cuda.synchronize()
+        bad.update(_outputs_differ(BLOCK_KINDS[kind][0].strip("_"), out_k,
+                                   out_r))
+        run[kind] = (a, kw, out_k)
     kern_ms = time_ms(lambda: st["Blocks"](prj), 5)
     with blocks_dispatch(plain=True):
         plain_ms = time_ms(lambda: st["Blocks"](prj), 3)
+    fa, fkw, fk = run["frame"]
     B = fa[1]
     big_cap = big_k.valid.shape[0]
-    R, CW = wa[0].shape
-    if bad["block_frame.payload"]:
+    R, CW = run["window"][0][0].shape
+    if bad["frame_from_stage1.payload"]:
+        fr = b2.frame_from_stage1_reference(*fa, **fkw)
         a, b = fk.payload, fr.payload
         if a.dtype == torch.float32:
             a, b = a.view(torch.int32), b.view(torch.int32)
@@ -1908,15 +1985,16 @@ def blocks_vs_plain(tag: str, cloud, cfg) -> dict:
             f"(brick, row, lane), kernel, plain, brick's count: {first}")
     log(f"[{tag}] {cloud.num_splats} splats, tile {cfg.tile_size}, cluster "
         f"{cfg.cluster}, {'words' if fkw['words'] else 'cooked'} payload, "
-        f"taken mask fused {fkw.get('taken') is not None}: {B} bricks "
-        f"({int(bf_k.num_valid.sum())} lanes valid, "
+        f"taken mask fused {fkw.get('taken') is not None}: kernels "
+        f"{kinds}; {B} bricks ({int(bf_k.num_valid.sum())} lanes valid, "
         f"{int((bf_k.num_valid == 0).sum())} bricks empty), window "
-        f"({R}, {CW}) KC {wa[1]}, big lanes {int(big_k.valid.sum())} of "
-        f"{big_cap} (residual {int(big_k.residual)}); entries not bit-equal "
+        f"({R}, {CW}) KC {run['window'][0][1]}, big lanes "
+        f"{int(big_k.valid.sum())} of {big_cap} (residual "
+        f"{int(big_k.residual)}); entries not bit-equal "
         f"{json.dumps({k: v for k, v in bad.items() if v})}; the stage, "
         f"eager: kernels {kern_ms:.4f} ms, plain versions {plain_ms:.4f} ms")
     check(not any(bad.values()), f"{tag}: not bit-equal: {bad}")
-    return {"frame": (fa, fkw, fk), "window": (wa, wk), "big_k": big_k}
+    return {**run, "big_k": big_k}
 
 
 def block_frame_record(name: str, run: dict) -> dict:
@@ -1940,7 +2018,7 @@ def big_lanes_record(run: dict) -> dict:
     plain version, the one torch call that computes it, and its byte
     bound; and the global stable sort of the window with int32 keys
     against the same keys as int64."""
-    (bkey, KC), wk = run["window"]
+    (bkey, KC), _, wk = run["window"]
     ms = time_graphed_ms(lambda: b2._big_window_cuda(bkey, KC), 20)
     eager_ms = time_ms(lambda: b2._big_window_cuda(bkey, KC), 20)
     plain_ms = time_ms(lambda: b2.big_window_reference(bkey, KC), 5)
@@ -1959,6 +2037,90 @@ def big_lanes_record(run: dict) -> dict:
     rec = record("big_lanes", 0.0, ms, plain_ms, bnd)
     rec["library_ms"] = lib_ms
     return rec
+
+
+def screen_pack_record(run: dict) -> dict:
+    """The readable projection's pack on the arguments its stage passed
+    it, timed beside its plain version and its byte bound."""
+    a, kw, out = run["pack"]
+    ms = time_graphed_ms(lambda: b2._screen_pack_cuda(*a, **kw), 20)
+    plain_ms = time_ms(lambda: b2.screen_pack_reference(*a, **kw), 3)
+    prj = a[0]
+    n_bytes = nbytes(prj.valid, prj.depth16, prj.image_pos, prj.conic,
+                     prj.color) + nbytes(*out)
+    bnd = bound(n_bytes, 0, None)
+    log(f"[6 screen_pack 1080p] {prj.valid.shape[0]} splats, cell "
+        f"{a[1]}, chunks of {a[2]}: kernel {ms:.4f} ms (graph replays of 20"
+        f" launches), plain {plain_ms:.4f} ms, {n_bytes / 1e6:.1f} MB moved,"
+        f" {bound_text(bnd)}; big splats {int(out.num_big)}")
+    return record("screen_pack", 0.0, ms, plain_ms, bnd)
+
+
+def _sort_and_gather(key, words, idx):
+    """torch's stable row sort of the u32 keys and the seven gathers of
+    the rows (key, five words, source positions): the screen clustering's
+    sort before its kernel, the taken mask's where left out."""
+    order = torch.sort(u32(key), dim=1, stable=True).indices
+    return tuple(torch.gather(a, 1, order) for a in (key, *words, idx))
+
+
+def screen_sort_record(run: dict) -> dict:
+    """The row sort on the arguments its stage passed it, timed beside its
+    plain version, the torch sort and gathers it replaced, and its byte
+    bound."""
+    a, kw, out = run["sort"]
+    ms = time_graphed_ms(lambda: b2._screen_sort_cuda(*a, **kw), 20)
+    plain_ms = time_ms(lambda: b2.screen_sort_reference(*a, **kw), 3)
+    key, taken, words = a
+    idx = torch.arange(key.numel(), dtype=torch.int32,
+                       device=key.device).reshape(key.shape)
+    lib_ms = time_ms(lambda: _sort_and_gather(key, words, idx), 5)
+    n_bytes = nbytes(key, taken, *words) + nbytes(*out)
+    bnd = bound(n_bytes, 0, None)
+    log(f"[6 screen_sort 1080p] {tuple(key.shape)} rows: kernel {ms:.4f} ms"
+        f" (graph replays of 20 launches), plain {plain_ms:.4f} ms, library"
+        f" (torch.sort of the u32 rows and seven torch.gather) {lib_ms:.4f}"
+        f" ms, {n_bytes / 1e6:.1f} MB moved, {bound_text(bnd)}")
+    rec = record("screen_sort", 0.0, ms, plain_ms, bnd)
+    rec["library_ms"] = lib_ms
+    return rec
+
+
+def big_set_record(run: dict) -> dict:
+    """The big set on the arguments its stage passed it, timed beside its
+    plain version and its byte bound."""
+    a, kw, out = run["bigset"]
+    ms = time_graphed_ms(lambda: b2._big_set_cuda(*a, **kw), 20)
+    plain_ms = time_ms(lambda: b2.big_set_reference(*a, **kw), 3)
+    words, tk_idx, tk_ok = a[:3]
+    N = tk_idx.shape[0]
+    n_bytes = nbytes(tk_idx, tk_ok) + N * 4 * len(words) + nbytes(
+        out.table, out.rect, out.depth16)
+    bnd = bound(n_bytes, 0, None)
+    log(f"[6 big_set 1080p] {N} lanes ({int(tk_ok.sum())} valid): kernel "
+        f"{ms:.4f} ms (graph replays of 20 launches), plain {plain_ms:.4f} "
+        f"ms, {bound_text(bnd)}")
+    return record("big_set", 0.0, ms, plain_ms, bnd)
+
+
+def sort_ties_vs_plain(run: dict) -> None:
+    """screen_sort on its stage's rows with the keys cut to a few values
+    (most of them tied, the sentinel among them) and with a third of the
+    lanes taken: bit-equal to the plain version."""
+    (key, taken, words), _, _ = run["sort"]
+    g = torch.Generator(device="cuda").manual_seed(16)
+    ties = torch.where(key == -1, key, key & 0x00030003)
+    more = taken | (torch.rand(key.shape, generator=g, device="cuda") < 0.3)
+    for tag, k, t in (("tie-heavy keys", ties, taken),
+                      ("a third taken", key, more)):
+        bad = [_differ(x, y) for x, y in zip(
+            b2._screen_sort_cuda(k, t, words),
+            b2.screen_sort_reference(k, t, words))]
+        check(not any(bad), f"6 screen_sort {tag}: entries not bit-equal "
+              f"{bad}")
+    log(f"[6 screen_sort 1080p] {tuple(key.shape)} rows with the keys cut "
+        f"to key & 0x00030003 and with a third of the lanes taken: "
+        f"bit-equal to the plain version")
 
 
 def dense_window_keys(R: int, CW: int, seed: int) -> torch.Tensor:
@@ -1994,15 +2156,16 @@ def window_dense_vs_plain() -> None:
 
 
 def phase_blocks(cloud, base) -> list:
-    """Phase 6, the Blocks stage's kernels: block_frame (words and cooked)
-    and big_lanes held bit-equal to their plain versions on the 1080p
-    frames' inputs of the four clusterings and payloads (fused projection
-    and static bricks with the taken mask fused, words and cooked; screen
-    clustering, words and cooked), and on a 16,384-splat scene at 384x320
-    whose big-lane capacity exceeds its candidates (4,096: entries past
-    the candidates point at splat 0, not ok) and its window (20,480: pad
-    entries); each kernel timed on the shipped (words) and v4 (cooked)
-    frame's arguments. Returns the three records."""
+    """Phase 6, the Blocks stage's kernels: block_frame (words and cooked),
+    big_lanes, screen_pack, screen_sort and big_set held bit-equal to their
+    plain versions on the 1080p frames' inputs of the four clusterings and
+    payloads (fused projection and static bricks with the taken mask
+    fused, words and cooked; screen clustering, words and cooked), and on a
+    16,384-splat scene at 384x320 whose big-lane capacity exceeds its
+    candidates (4,096: entries past the candidates point at splat 0, not
+    ok) and its window (20,480: pad entries); screen_sort also on
+    tie-heavy keys; each kernel timed on the shipped (words), v4 (cooked)
+    or quality="fast" frame's arguments. Returns the six records."""
     runs = {}
     for tag, cfg in (
             ("shipped", base.fast_defaults()),
@@ -2021,9 +2184,13 @@ def phase_blocks(cloud, base) -> list:
               f"6 blocks padded: {int(run['big_k'].valid.sum())} big lanes "
               f"of {cap}: no entries past the candidates")
     window_dense_vs_plain()
+    sort_ties_vs_plain(runs["quality=fast"])
     return [block_frame_record("block_frame", runs["shipped"]),
             block_frame_record("block_frame_cooked", runs["v4"]),
-            big_lanes_record(runs["shipped"])]
+            big_lanes_record(runs["shipped"]),
+            screen_pack_record(runs["quality=fast"]),
+            screen_sort_record(runs["quality=fast"]),
+            big_set_record(runs["quality=fast"])]
 
 
 # --- the Binning stage's kernels ---------------------------------------------
@@ -3006,10 +3173,9 @@ def phase_graphs(full, cloud, base, card: str, frames: int = 8) -> None:
                      ("12 graphs quality=fast",
                       base.replace(quality="fast"))):
         graph_config(tag, cloud, cfg, frames, card)
-        if cfg.projection_kernel:
-            with blocks_dispatch(plain=True):
-                profile_stage(f"{tag}, plain Blocks", cloud, cfg, "Blocks")
-            profile_stage(tag, cloud, cfg, "Blocks")
+        with blocks_dispatch(plain=True):
+            profile_stage(f"{tag}, plain Blocks", cloud, cfg, "Blocks")
+        profile_stage(tag, cloud, cfg, "Blocks")
         if cfg.kernel == "v3":
             with binning_dispatch(plain=True):
                 profile_stage(f"{tag}, plain Binning", cloud, cfg, "Binning")
@@ -3138,6 +3304,113 @@ def phase_exact_graphs(full, base, capacity: int, card: str,
         f"to the eager frame at {grown}")
 
 
+# --- phase 14: benchmarks/configs.py's five workloads, as the port runs them
+
+# benchmarks/configs.py:100-113: name, splats, width, height, SH degree
+WORKLOADS = (("1_demo_512_sh0", 500_000, 512, 512, 0),
+             ("2_orbit_720p_sh3", 500_000, 1280, 720, 3),
+             ("3_truck_2.5M_1080p", 2_500_000, 1920, 1080, 3),
+             ("4_garden_5.8M_1080p_pick", 5_800_000, 1920, 1080, 3),
+             ("5_stress_4K_10M", 10_000_000, 3840, 2160, 3))
+QUALITY_FAST_PATH = ("projection_readable", "screen_pack", "screen_sort",
+                     "block_frame_cooked", "big_lanes", "big_set",
+                     "bin_blocks", "bin_bigs", "render_v3_cooked")
+WORKLOAD_FRAMES = 4
+
+
+def workload(name: str, full, w: int, h: int, degree: int,
+             card: str) -> None:
+    """One workload: RasterizerConfig(width, height, sh_degree) with its
+    defaults (quality="fast": readable projection, screen clustering, tile
+    16, cooked v3) through render_frame_fast_staged and FastFrameGraph over
+    WORKLOAD_FRAMES orbit cameras: the graphed frames bit-equal to the
+    eager ones, every kernel of the path launched by each graphed frame,
+    eager and graphed frames timed in turns, the eager frame's peak memory
+    above its inputs. Config 4 picks at the centre tile; config 5 also
+    renders with early exit off and holds screen_pack, screen_sort and
+    big_set bit-equal to their plain versions on its Blocks arguments."""
+    cfg = gt.RasterizerConfig(width=w, height=h, sh_degree=degree)
+    cloud = gt.fast_cloud_view(full, planar_sh=cfg.projection_kernel)
+    values, unis = _orbit(cfg, WORKLOAD_FRAMES)
+    tag = f"14 {name}"
+
+    def eager(i, timer=None, early_exit=True):
+        return gt.render_frame_fast_staged(cloud, unis[i], cfg,
+                                           early_exit=early_exit,
+                                           timer=timer)
+
+    calls: list = []
+    base = _memory_base()
+    with blocks_dispatch(calls=calls):
+        first = eager(0)
+    mem = _memory_since(base)
+    graph = FastFrameGraph(cloud, cfg, values[0])
+    kernels.reset_launch_counts()
+    for i in range(WORKLOAD_FRAMES):
+        g = graph.render(values[i])
+        e = eager(i) if i else first
+        _hold_graphed(f"{tag} camera {i}", g, e)
+        check(bool(torch.isfinite(g.image).all()), f"{tag}: non-finite image")
+        check(int(g.stats.num_pairs) > 0, f"{tag}: no splat-tile pairs")
+    launches = kernels.launch_counts()
+    for k in QUALITY_FAST_PATH:
+        check(launches[k] == 2 * WORKLOAD_FRAMES - 1,
+              f"{tag}: {k} launched {launches[k]} times by "
+              f"{WORKLOAD_FRAMES} graphed and {WORKLOAD_FRAMES - 1} eager "
+              f"frames")
+    sides = {"eager": eager,
+             "graph": lambda i, t: graph.render(values[i], t)}
+    extra = ""
+    if name.startswith("4"):
+        gx, gy = cfg.tile_dims
+        pick = gt.pick_splat_position_fast(first, (gy // 2) * gx + gx // 2,
+                                           cloud, 1.0, cfg)
+        check(bool(torch.isfinite(pick).all()), f"{tag}: centre pick {pick}")
+        extra = f", centre pick {pick.tolist()}"
+    if name.startswith("5"):
+        off = eager(0, early_exit=False)
+        check(bool(torch.isfinite(off.image).all()),
+              f"{tag}: non-finite image with early exit off")
+        extra = (f", early exit off against on at camera 0: PSNR "
+                 f"{psnr(off.image, first.image):.2f} dB (not gated)")
+        sides["eager, early exit off"] = lambda i, t: eager(
+            i, t, early_exit=False)
+        bad = {}
+        for kind, a, kw in calls:
+            if kind in ("pack", "sort", "bigset"):
+                _, kernel, plain = BLOCK_KINDS[kind]
+                bad.update(_outputs_differ(kind, kernel(*a, **kw),
+                                           plain(*a, **kw)))
+        check(not any(bad.values()),
+              f"{tag}: the Blocks kernels not bit-equal: {bad}")
+        extra += ("; screen_pack, screen_sort and big_set bit-equal to "
+                  "their plain versions on its Blocks arguments")
+    log(f"[{tag}] {card}, {cloud.num_splats} splats {w}x{h}, SH degree "
+        f"{degree}, tile {cfg.tile_size} cluster {cfg.cluster}, "
+        f"{WORKLOAD_FRAMES} orbit cameras: graphed frames bit-equal to the "
+        f"eager frames, every kernel of the path launched by each; pairs "
+        f"{int(first.stats.num_pairs)}, overflow "
+        f"{int(first.stats.num_overflow)}; the eager frame's memory above "
+        f"its inputs, GiB "
+        f"{json.dumps({k: round(v, 3) for k, v in mem.items()})}{extra}")
+    time_in_turns(tag, sides, WORKLOAD_FRAMES)
+
+
+def phase_workloads(full, card: str) -> None:
+    """Phase 14: the five workloads of benchmarks/configs.py on bench.py's
+    scene kind in load order (``frame_cloud``) at each one's splat count
+    (phase 4's scene for the 5.8M one)."""
+    t0 = time.perf_counter()
+    scenes = {full.num_splats: full}
+    for name, n, w, h, degree in WORKLOADS:
+        if n not in scenes:
+            scenes = {full.num_splats: full, n: frame_cloud(n)[0]}
+        workload(name, scenes[n], w, h, degree, card)
+    del scenes
+    log(f"[14 workloads] five workloads in {time.perf_counter() - t0:.1f} s"
+        f" (scenes included)")
+
+
 def binning_only(card: str) -> int:
     """``--binning``: phase 6's Binning check and the Binning stage's
     profile (kernels) on phase 4's scene, and the two kernel records."""
@@ -3178,17 +3451,18 @@ def main() -> int:
     base = gt.RasterizerConfig(width=1920, height=1080)
     launches = {}
     binning = ("bin_blocks", "bin_bigs")
+    screen = ("screen_pack", "screen_sort")
     frames = (("4 frame fast_defaults", base.fast_defaults(), FAST_PATH),
               ("5 frame v4", base.replace(kernel="v4").fast_defaults(),
-               ("projection", "block_frame_cooked", "big_lanes", *binning,
-                "render_v4")),
+               ("projection", "block_frame_cooked", "big_lanes", "big_set",
+                *binning, "render_v4")),
               ("5 frame quality=fast", base.replace(quality="fast"),
-               ("projection_readable", "block_frame_cooked", "big_lanes",
-                *binning, "render_v3_cooked")),
+               ("projection_readable", *screen, "block_frame_cooked",
+                "big_lanes", "big_set", *binning, "render_v3_cooked")),
               ("5 frame quality=fast v4",
                base.replace(quality="fast", kernel="v4"),
-               ("projection_readable", "block_frame_cooked", "big_lanes",
-                *binning, "render_v4")))
+               ("projection_readable", *screen, "block_frame_cooked",
+                "big_lanes", "big_set", *binning, "render_v4")))
     for tag, cfg, expect in frames:
         counts = phase_frame(tag, cloud, cfg, 8, expect)
         for name in expect:
@@ -3212,6 +3486,7 @@ def main() -> int:
     phase_sharded(cloud, base, capacity, card)
     phase_graphs(full, cloud, base, card)
     phase_exact_graphs(full, base, capacity, card)
+    phase_workloads(full, card)
     for r in rec:
         r["launches"] = launches[r["name"]]
     log(card)

@@ -25,45 +25,18 @@
 // taken lane's key reads as 0xFFFFFFFF (invalid), which fuses the static
 // bricks' `torch.where(taken, -1, key)` into the load.
 //
-// Precision: built with --fmad=false and without fast-math, so every
-// product and sum rounds on its own exactly like the plain version's
-// separate torch ops, in the same order; divides and square roots are
-// IEEE, log and pow are the library functions torch's CUDA kernels call,
-// a divide by the tile size is a product with its f32 reciprocal (what
-// torch's CUDA division by a Python scalar computes), bf16 rounding is
-// `__float2bfloat16_rn` (torch's on sm_90) and `torch.round` is `rintf`.
-// The kernel is held bit-equal to its plain version.
+// Precision: the per-lane arithmetic is torch's own on the card
+// (pack_words.cuh, shared with screen_pack.cu and big_set.cu). The kernel
+// is held bit-equal to its plain version.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "pack_words.cuh"
 
 namespace {
 
 constexpr int S = 128;             // lanes a brick
 constexpr int WARPS = S / 32;
 constexpr unsigned FULL = 0xFFFFFFFFu;
-constexpr uint32_t INVALID = 0xFFFFFFFFu;
-constexpr float CULL_FAR = -1.0e6f;
-constexpr float GATE_OFF = -1.0e4f;
 constexpr int BIGC = 1 << 20;
-
-// NaN-propagating clamps and minimum, as torch.clamp / torch.minimum
-// compute them on the card: fmaxf / fminf, so that a -0.0 clamped at 0.0
-// is +0.0.
-__device__ __forceinline__ float cmax(float x, float lo) {
-  return (x != x) ? x : fmaxf(x, lo);
-}
-__device__ __forceinline__ float cmin(float x, float hi) {
-  return (x != x) ? x : fminf(x, hi);
-}
-__device__ __forceinline__ float clampf(float x, float lo, float hi) {
-  return cmin(cmax(x, lo), hi);
-}
-__device__ __forceinline__ float nanmin(float a, float b) {
-  return (a != a) ? a : ((b != b) ? b : fminf(a, b));
-}
 
 // Python's floor and ceiling division of signed integers (b > 0).
 __device__ __forceinline__ int floordiv(int a, int b) {
@@ -72,35 +45,6 @@ __device__ __forceinline__ int floordiv(int a, int b) {
 }
 __device__ __forceinline__ int ceildiv(int a, int b) {
   return -floordiv(-a, b);
-}
-
-__device__ __forceinline__ float half_lo(uint32_t w) {
-  return __half2float(__ushort_as_half((unsigned short)(w & 0xFFFFu)));
-}
-__device__ __forceinline__ float half_hi(uint32_t w) {
-  return __half2float(__ushort_as_half((unsigned short)(w >> 16)));
-}
-
-__device__ __forceinline__ uint32_t bf16_bits(float x) {
-  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(x));
-}
-
-// extents_from_conic: the anisotropic alpha-reach half-widths, bf16-rounded
-// (returned as their bf16 bit patterns).
-__device__ __forceinline__ void extents(float ca, float cb, float cc,
-                                        float op, uint32_t& rx,
-                                        uint32_t& ry) {
-  const float det = cmax(ca * cc - cb * cb, 1e-20f);
-  const float sxx = cmax(cc / det, 0.0f);
-  const float syy = cmax(ca / det, 0.0f);
-  const float m = 0.5f * (sxx + syy);
-  const float inv_det = (1.0f / det) * 1.0f;   // torch: reciprocal(det) * 1
-  const float lam = m + sqrtf(cmax(m * m - inv_det, 0.0f));
-  const float R = powf(cmax(op, 0.0f), 0.2f) * 2.5f * sqrtf(lam);
-  const float vis =
-      sqrtf(2.0f * cmax(logf(cmax(op, 1e-8f) * 255.0f), 0.125f));
-  rx = bf16_bits(nanmin(R, vis * sqrtf(sxx)));
-  ry = bf16_bits(nanmin(R, vis * sqrtf(syy)));
 }
 
 struct Params {
@@ -149,12 +93,8 @@ block_frame_kernel(const uint32_t* __restrict__ key_in,
   const float iy_p = valid ? iy : CULL_FAR;
 
   // each lane's tile rect (_tile_rect), then the brick's
-  const float inv_ts = 1.0f / (float)p.ts;
-  const float gxf = (float)p.gx, gyf = (float)p.gy;
-  int x0 = (int)clampf((ix_p - rx_p) * inv_ts, 0.0f, gxf);
-  int y0 = (int)clampf((iy_p - ry_p) * inv_ts, 0.0f, gyf);
-  int x1 = (int)clampf(ceilf((ix_p + rx_p) * inv_ts), 0.0f, gxf);
-  int y1 = (int)clampf(ceilf((iy_p + ry_p) * inv_ts), 0.0f, gyf);
+  const int4 lr = tile_rect(ix_p, iy_p, rx_p, ry_p, p.gx, p.gy, p.ts);
+  int x0 = lr.x, y0 = lr.y, x1 = lr.z, y1 = lr.w;
   if (!valid) {
     x0 = y0 = BIGC;
     x1 = y1 = -BIGC;
@@ -244,11 +184,8 @@ block_frame_kernel(const uint32_t* __restrict__ key_in,
     const float ln_op = cmin(logf(cmax(op, 1e-37f)), -1e-3f);
     const float f0q =
         -0.5f * ((ca * ixr) * ixr + (cc * iyr) * iyr) - (cb * ixr) * iyr;
-    const int e = (int)((wrgb >> 27) & 0x1Fu) - 15;
-    const float sc = __uint_as_float((uint32_t)(e - 9 + 127) << 23);
-    const float r = (float)(wrgb & 0x1FFu) * sc;
-    const float g = (float)((wrgb >> 9) & 0x1FFu) * sc;
-    const float bl = (float)((wrgb >> 18) & 0x1FFu) * sc;
+    float r, g, bl;
+    unpack_rgb9e5(wrgb, r, g, bl);
     const uint32_t rank =
         ((depth << 16) | ((widx >> 7) & 0xFFFFu)) ^ 0x80000000u;
     const float f[16] = {

@@ -53,6 +53,15 @@ SIGNATURES = {
     "big_lanes": {
         "gs_big_window": [_P] * 3 + [_I] * 3 + [_P],
     },
+    "screen_pack": {
+        "gs_screen_pack": [_P] * 13 + [_I] * 6 + [_P],
+    },
+    "screen_sort": {
+        "gs_screen_sort": [_P] * 8 + [_I] * 2 + [_P],
+    },
+    "big_set": {
+        "gs_big_set": [_P] * 11 + [_I] * 4 + [_P],
+    },
     "bin_blocks": {
         "gs_bin_blocks": [_P] * 22 + [_I] * 6 + [_P],
         "gs_bin_blocks_chunk": [],
@@ -98,7 +107,8 @@ SIGNATURES = {
 # bin_blocks and bin_bigs count a binning, its six and four kernels;
 # bin_rank counts bin_blocks' stable ranking launched alone, its two).
 COUNTERS = ("projection", "projection_readable", "block_frame",
-            "block_frame_cooked", "big_lanes", "bin_blocks", "bin_bigs",
+            "block_frame_cooked", "big_lanes", "screen_pack", "screen_sort",
+            "big_set", "bin_blocks", "bin_bigs",
             "bin_rank",
             "render_v3",
             "render_v3_cooked", "render_v4", "render_exact", "emit_exact",

@@ -16,12 +16,25 @@ with their shared helpers.
     cooked 16-row power features, plus tile rect, an 8x4 coverage bitmap
     over the rect and its depth range.
 
-On the card the brick build (``_frame_from_stage1``: each brick's payload,
-rect, bitmap, depth range and count) and each chunk row's big-lane window
-(``big_window``) are hand-written kernels, csrc/block_frame.cu and
-csrc/big_lanes.cu, the counterparts of XLA's fusions of the JAX functions;
-CPU tensors take their plain versions, ``frame_from_stage1_reference`` and
-``big_window_reference``, which the kernels are held bit-equal to.
+On the card the stage runs through hand-written kernels, the counterparts
+of XLA's fusions of the JAX functions, each held bit-equal to its plain
+version, which CPU tensors take:
+
+  * ``screen_pack`` (csrc/screen_pack.cu; ``screen_pack_reference``): the
+    readable projection's per-splat packing into chunk keys and stage-1
+    words;
+  * ``screen_sort`` (csrc/screen_sort.cu; ``screen_sort_reference``): the
+    screen clustering's per-superblock stable row sort and its gathers;
+  * ``big_window`` (csrc/big_lanes.cu; ``big_window_reference``): each
+    chunk row's big-lane window;
+  * ``big_set`` (csrc/big_set.cu; ``big_set_reference``): the taken big
+    lanes' cooked table, rects and depths;
+  * ``_frame_from_stage1`` (csrc/block_frame.cu;
+    ``frame_from_stage1_reference``): each brick's payload, rect, bitmap,
+    depth range and count.
+
+What stays torch: the global stable sort of the big-lane window, the
+``taken`` scatter and the pair count's sum.
 
 Packed u32 words travel as int32 bit patterns (CPU torch lacks shifts and
 compares on uint32); they are widened with ``& 0xFFFFFFFF`` into int64
@@ -301,10 +314,21 @@ def _tile_rect(ix, iy, rx, ry, gx, gy, ts):
     return x0, y0, x1, y1
 
 
-def _build_big_set(ops, ok, depth16, residual, gx, gy, ts) -> BigSet:
-    """Operand rows of the taken lanes -> BigSet (cooked table rows)."""
-    ix, iy, ca, cb, cc, r, g, b, op, idx = ops
-    valid = ok
+def big_set_reference(words, tk_idx: torch.Tensor, tk_ok: torch.Tensor,
+                      residual: torch.Tensor, cfg: RasterizerConfig
+                      ) -> BigSet:
+    """Plain version of the big_set kernel (csrc/big_set.cu): the packed
+    words (key, ix, iy, pc1, pc2, rgb9; int32, P each) of the lanes
+    ``_select_big_lanes`` took -> BigSet (cooked table rows). A taken
+    lane is valid, so its key's low 16 bits are its depth16."""
+    gx, gy = cfg.tile_dims
+    key, ix, iy, pc1, pc2, rgb9 = (w.reshape(-1)[tk_idx] for w in words)
+    ix, iy = ix.view(torch.float32), iy.view(torch.float32)
+    ca, cb = _unpack_f16(pc1)
+    cc, op = _unpack_f16(pc2)
+    r, g, b = _unpack_rgb9e5(rgb9)
+    depth16 = torch.where(tk_ok, u32(key) & 0xFFFF, U32_MAX)
+    valid = tk_ok
     bcx = torch.clamp(torch.round(ix), 0.0, 16383.0)
     bcy = torch.clamp(torch.round(iy), 0.0, 16383.0)
     ixr = ix - bcx
@@ -326,19 +350,60 @@ def _build_big_set(ops, ok, depth16, residual, gx, gy, ts) -> BigSet:
     ry_p = torch.where(valid, ry, zero)
     depth_f = torch.where(valid, (depth16 & 0xFFFF).float(),
                           torch.full_like(ix, DEPTH_INVALID))
-    idx_f = idx.to(torch.int32).view(torch.float32)
+    idx_f = tk_idx.to(torch.int32).view(torch.float32)
     table = torch.stack([
         f0, f1, f2, f3, f4, f5,
         torch.where(valid, r, zero), torch.where(valid, g, zero),
         torch.where(valid, b, zero),
         ix_p, iy_p, _pack_bf16_pair(rx_p, ry_p), depth_f, idx_f, bcx, bcy,
     ], dim=1)                                      # (big_cap, PW)
-    x0, y0, x1, y1 = _tile_rect(ix_p, iy_p, rx_p, ry_p, gx, gy, ts)
+    x0, y0, x1, y1 = _tile_rect(ix_p, iy_p, rx_p, ry_p, gx, gy,
+                                float(cfg.tile_size))
     rect = torch.where(valid[:, None], torch.stack([x0, y0, x1, y1], dim=-1),
                        torch.zeros((ix.shape[0], 4), dtype=torch.int32,
                                    device=ix.device))
     return BigSet(table=table, depth16=(depth16 & 0xFFFF).to(torch.int32),
                   rect=rect, valid=valid, residual=residual)
+
+
+def _big_set_cuda(words, tk_idx: torch.Tensor, tk_ok: torch.Tensor,
+                  residual: torch.Tensor, cfg: RasterizerConfig) -> BigSet:
+    """The kernel (csrc/big_set.cu): one thread a lane."""
+    flat = [w.reshape(-1) for w in words]
+    P = flat[0].numel()
+    for w in flat:
+        if w.dtype != torch.int32 or w.numel() != P:
+            raise ValueError(f"big_set: expected six words of {P} int32, "
+                             f"got {w.dtype} {w.numel()}")
+    N = tk_idx.shape[0]
+    if (tk_idx.dtype != torch.int64 or tk_ok.dtype != torch.bool
+            or tuple(tk_ok.shape) != (N,) or tk_idx.dim() != 1):
+        raise ValueError(f"big_set: expected (N,) int64 tk_idx and bool "
+                         f"tk_ok, got {tk_idx.dtype} {tuple(tk_idx.shape)} "
+                         f"and {tk_ok.dtype} {tuple(tk_ok.shape)}")
+    kernels.require_cuda("big_set", *flat, tk_idx, tk_ok)
+    dev = tk_idx.device
+    gx, gy = cfg.tile_dims
+    table = torch.empty((N, PAYLOAD_WIDTH), dtype=torch.float32, device=dev)
+    rect = torch.empty((N, 4), dtype=torch.int32, device=dev)
+    depth16 = torch.empty((N,), dtype=torch.int32, device=dev)
+    err = kernels.library("big_set").gs_big_set(
+        *(w.data_ptr() for w in flat), tk_idx.data_ptr(), tk_ok.data_ptr(),
+        table.data_ptr(), rect.data_ptr(), depth16.data_ptr(), N, gx, gy,
+        cfg.tile_size, kernels.stream_ptr(dev))
+    kernels.check(err, "big_set kernel launch")
+    kernels.count_launch("big_set")
+    return BigSet(table=table, depth16=depth16, rect=rect, valid=tk_ok,
+                  residual=residual)
+
+
+def big_set(words, tk_idx: torch.Tensor, tk_ok: torch.Tensor,
+            residual: torch.Tensor, cfg: RasterizerConfig) -> BigSet:
+    """The taken big lanes' BigSet (``big_set_reference``). CUDA tensors go
+    to the kernel (csrc/big_set.cu), CPU tensors to the plain version."""
+    if tk_idx.device.type == "cpu":
+        return big_set_reference(words, tk_idx, tk_ok, residual, cfg)
+    return _big_set_cuda(words, tk_idx, tk_ok, residual, cfg)
 
 
 def _or_reduce(bits: torch.Tensor, dim: int) -> torch.Tensor:
@@ -535,6 +600,146 @@ def _frame_from_stage1(s1, B: int, S: int, cfg: RasterizerConfig,
                                    taken)
 
 
+class ScreenWords(NamedTuple):
+    """The readable projection's per-splat pack (``screen_pack``)."""
+
+    key: torch.Tensor      # (P,) i32 (cell Morton << 16 | depth16) or -1
+    ix: torch.Tensor       # (P,) i32 image x bits
+    iy: torch.Tensor       # (P,) i32 image y bits
+    pc1: torch.Tensor      # (P,) i32 f16(ca) | f16(cb) << 16
+    pc2: torch.Tensor      # (P,) i32 f16(cc) | f16(opacity) << 16
+    rgb9: torch.Tensor     # (P,) i32 rgb9e5
+    bkey: torch.Tensor     # (P // CW, CW) i32 chunk keys (depth16 << 10 | col)
+    num_big: torch.Tensor  # () i32 big splats
+
+
+def screen_pack_reference(prj, cell: int, CW: int,
+                          cfg: RasterizerConfig) -> ScreenWords:
+    """Plain version of the screen_pack kernel (csrc/screen_pack.cu):
+    ProjectedSplats -> the stage-1 key before the big-lane extraction (the
+    screen cell's Morton code at edge 2^cell tiles over depth16, or -1 for
+    a culled splat), the packed operand words, the big-candidate chunk keys
+    ((depth16 << 10) | column for a valid splat whose anisotropic extent
+    reaches BIG_RADIUS, else -1) and the count of big splats."""
+    P = prj.valid.shape[0]
+    R = P // CW
+    gx, gy = cfg.tile_dims
+    ts = float(cfg.tile_size)
+    valid = prj.valid
+    depth = prj.depth16.to(torch.int64)
+    ipos, conic, color = prj.image_pos, prj.conic, prj.color
+    ctx = torch.clamp((ipos[:, 0] / ts).to(torch.int32), 0, gx - 1).to(
+        torch.int64) >> cell
+    cty = torch.clamp((ipos[:, 1] / ts).to(torch.int32), 0, gy - 1).to(
+        torch.int64) >> cell
+    morton = _spread8(ctx & 0xFF) | (_spread8(cty & 0xFF) << 1)
+    rx, ry = extents_from_conic(conic[:, 0], conic[:, 1], conic[:, 2],
+                                color[:, 3])
+    is_big = (torch.maximum(rx, ry) >= BIG_RADIUS) & valid
+    colv = torch.arange(CW, dtype=torch.int64, device=valid.device)[None]
+    bkey = torch.where(is_big.reshape(R, CW),
+                       (depth.reshape(R, CW) << 10) | colv, U32_MAX)
+    key = torch.where(valid, ((morton & 0x7FFF) << 16) | depth, U32_MAX)
+    return ScreenWords(
+        key=i32(key), ix=ipos[:, 0].contiguous().view(torch.int32),
+        iy=ipos[:, 1].contiguous().view(torch.int32),
+        pc1=_pack_f16(conic[:, 0], conic[:, 1]),
+        pc2=_pack_f16(conic[:, 2], color[:, 3]),
+        rgb9=_pack_rgb9e5(color[:, 0], color[:, 1], color[:, 2]),
+        bkey=i32(bkey), num_big=is_big.sum().to(torch.int32))
+
+
+def _screen_pack_cuda(prj, cell: int, CW: int,
+                      cfg: RasterizerConfig) -> ScreenWords:
+    """The kernel (csrc/screen_pack.cu): one thread a splat."""
+    P = prj.valid.shape[0]
+    fields = (("valid", torch.bool, (P,)), ("depth16", torch.int32, (P,)),
+              ("image_pos", torch.float32, (P, 2)),
+              ("conic", torch.float32, (P, 3)),
+              ("color", torch.float32, (P, 4)))
+    for name, dtype, shape in fields:
+        t = getattr(prj, name)
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"screen_pack: {name} must be {dtype} {shape},"
+                             f" got {t.dtype} {tuple(t.shape)}")
+    if CW <= 0 or P % CW:
+        raise ValueError(f"screen_pack: {P} splats in chunks of {CW}")
+    ins = [getattr(prj, name) for name, _, _ in fields]
+    kernels.require_cuda("screen_pack", *ins)
+    dev = prj.valid.device
+    gx, gy = cfg.tile_dims
+    out = torch.empty((7, P), dtype=torch.int32, device=dev)
+    num_big = torch.empty((), dtype=torch.int32, device=dev)
+    err = kernels.library("screen_pack").gs_screen_pack(
+        *(t.data_ptr() for t in ins), *(out[k].data_ptr() for k in range(7)),
+        num_big.data_ptr(), P, CW, cell, gx, gy, cfg.tile_size,
+        kernels.stream_ptr(dev))
+    kernels.check(err, "screen_pack kernel launch")
+    kernels.count_launch("screen_pack")
+    bkey, key, ix, iy, pc1, pc2, rgb9 = out.unbind(0)
+    return ScreenWords(key=key, ix=ix, iy=iy, pc1=pc1, pc2=pc2, rgb9=rgb9,
+                       bkey=bkey.reshape(P // CW, CW), num_big=num_big)
+
+
+def screen_pack(prj, cell: int, CW: int,
+                cfg: RasterizerConfig) -> ScreenWords:
+    """The readable projection's per-splat pack (``screen_pack_reference``).
+    CUDA tensors go to the kernel (csrc/screen_pack.cu), CPU tensors to
+    the plain version."""
+    if prj.valid.device.type == "cpu":
+        return screen_pack_reference(prj, cell, CW, cfg)
+    return _screen_pack_cuda(prj, cell, CW, cfg)
+
+
+def screen_sort_reference(key: torch.Tensor, taken: torch.Tensor,
+                          words) -> tuple:
+    """Plain version of the screen_sort kernel (csrc/screen_sort.cu): each
+    (SB, n) row's int32 keys, read as -1 where ``taken``, sorted stably as
+    u32, and the stage-1 words in that order: (key, *words, source
+    position), seven (SB, n) int32 tensors."""
+    key = torch.where(taken, -1, key).to(torch.int32)
+    SB, n = key.shape
+    idx = torch.arange(SB * n, dtype=torch.int32,
+                       device=key.device).reshape(SB, n)
+    order = torch.sort(u32(key), dim=1, stable=True).indices
+    return tuple(torch.gather(a, 1, order) for a in (key, *words, idx))
+
+
+def _screen_sort_cuda(key: torch.Tensor, taken: torch.Tensor,
+                      words) -> tuple:
+    """The kernel (csrc/screen_sort.cu): one CTA a row of n <= 8192."""
+    SB, n = key.shape
+    if not 0 < n <= SUPERBLOCK or len(words) != 5:
+        raise ValueError(f"screen_sort: rows of 1 to {SUPERBLOCK} keys and "
+                         f"five words, got {tuple(key.shape)} and "
+                         f"{len(words)}")
+    if taken.dtype != torch.bool or taken.shape != key.shape:
+        raise ValueError(f"screen_sort: expected a {tuple(key.shape)} bool "
+                         f"taken mask, got {taken.dtype} "
+                         f"{tuple(taken.shape)}")
+    for w in (key, *words):
+        if w.dtype != torch.int32 or w.shape != key.shape:
+            raise ValueError(f"screen_sort: expected {tuple(key.shape)} "
+                             f"int32 words, got {w.dtype} {tuple(w.shape)}")
+    kernels.require_cuda("screen_sort", key, taken, *words)
+    out = torch.empty((7, SB, n), dtype=torch.int32, device=key.device)
+    err = kernels.library("screen_sort").gs_screen_sort(
+        key.data_ptr(), taken.data_ptr(), *(w.data_ptr() for w in words),
+        out.data_ptr(), SB, n, kernels.stream_ptr(key.device))
+    kernels.check(err, "screen_sort kernel launch")
+    kernels.count_launch("screen_sort")
+    return tuple(out.unbind(0))
+
+
+def screen_sort(key: torch.Tensor, taken: torch.Tensor, words) -> tuple:
+    """The screen clustering's per-superblock stable row sort
+    (``screen_sort_reference``). CUDA tensors go to the kernel
+    (csrc/screen_sort.cu), CPU tensors to the plain version."""
+    if key.device.type == "cpu":
+        return screen_sort_reference(key, taken, words)
+    return _screen_sort_cuda(key, taken, words)
+
+
 def build_block_frame2_words(words, cfg: RasterizerConfig,
                              num_splats: int | None = None,
                              big_cap: int | None = None,
@@ -552,9 +757,6 @@ def build_block_frame2_words(words, cfg: RasterizerConfig,
         raise ValueError(f"splat capacity {P} must be a multiple of {sb_size}")
     SB = P // sb_size
     B = P // S
-    gx, gy = cfg.tile_dims
-    ts = float(cfg.tile_size)
-    dev = words.key.device
 
     cnt = words.cnt.reshape(-1, 128).to(torch.int64)
     num_big = cnt[:, 0].sum()
@@ -565,33 +767,21 @@ def build_block_frame2_words(words, cfg: RasterizerConfig,
     big_cap = max(big_cap, S)
     tk_idx, tk_ok = _select_big_lanes(words.bkey, big_cap)
     taken = _taken(tk_idx, tk_ok, P)
-
-    key_flat = words.key.reshape(P)
-    dep_tk = torch.where(tk_ok, u32(key_flat[tk_idx]) & 0xFFFF, U32_MAX)
-    ca_tk, cb_tk = _unpack_f16(words.pc1.reshape(P)[tk_idx])
-    cc_tk, op_tk = _unpack_f16(words.pc2.reshape(P)[tk_idx])
-    r_tk, g_tk, b_tk = _unpack_rgb9e5(words.rgb9.reshape(P)[tk_idx])
-    bigs = _build_big_set(
-        (words.ix.reshape(P)[tk_idx].view(torch.float32),
-         words.iy.reshape(P)[tk_idx].view(torch.float32),
-         ca_tk, cb_tk, cc_tk, r_tk, g_tk, b_tk, op_tk, tk_idx),
-        tk_ok, dep_tk,
-        residual=(num_big - tk_ok.sum()).to(torch.int32),
-        gx=gx, gy=gy, ts=ts)
+    packed = (words.key, words.ix, words.iy, words.pc1, words.pc2,
+              words.rgb9)
+    bigs = big_set(packed, tk_idx, tk_ok,
+                   (num_big - tk_ok.sum()).to(torch.int32), cfg)
 
     def srows(a):
         return a.reshape(SB, sb_size)
 
-    idx = torch.arange(P, dtype=torch.int32, device=dev)
-    rest = (srows(words.ix), srows(words.iy), srows(words.pc1),
-            srows(words.pc2), srows(words.rgb9), srows(idx))
     if cfg.cluster == "bricks":   # static curve-order bricks: no sort
         # the frame build reads a taken lane's key as -1
-        s1, mask = (srows(words.key),) + rest, taken
+        idx = torch.arange(P, dtype=torch.int32, device=words.key.device)
+        s1, mask = tuple(srows(a) for a in packed + (idx,)), taken
     else:
-        key = torch.where(srows(taken), -1, srows(words.key)).to(torch.int32)
-        order = torch.sort(u32(key), dim=1, stable=True).indices
-        s1 = tuple(torch.gather(a, 1, order) for a in (key,) + rest)
+        s1 = screen_sort(srows(words.key), srows(taken),
+                         tuple(srows(a) for a in packed[1:]))
         mask = None
     return _frame_from_stage1(s1, B, S, cfg, nt_total.to(torch.int32),
                               words=words_payload, taken=mask), bigs
@@ -604,14 +794,15 @@ def build_block_frame2(prj, cfg: RasterizerConfig,
     """ProjectedSplats (ops/projection.py; padded P = B * S splats in load
     order) -> (BlockFrame2, BigSet).
 
-    The per-splat operands are packed here (f16 conic and opacity pairs,
-    rgb9e5 colour), the big splats are extracted by chunked candidate keys
-    ((depth16 << 10) | column), and the rest are clustered: per superblock,
-    a stable sort by the stage-1 key (screen-cell Morton << 16 | depth16,
-    with the cell edge from ``adaptive_cell_shift``), or the static bricks
-    of the load order. ``num_splats`` (default: the capacity) picks the
-    cell. The JAX package's ``GS_BLOCKS_GATHER`` variant (a TPU A/B knob
-    with the same result) is not carried over."""
+    The per-splat operands are packed (``screen_pack``: f16 conic and
+    opacity pairs, rgb9e5 colour), the big splats are extracted by chunked
+    candidate keys ((depth16 << 10) | column), and the rest are clustered:
+    per superblock, a stable sort by the stage-1 key (screen-cell Morton
+    << 16 | depth16, with the cell edge from ``adaptive_cell_shift``;
+    ``screen_sort``), or the static bricks of the load order.
+    ``num_splats`` (default: the capacity) picks the cell. The JAX
+    package's ``GS_BLOCKS_GATHER`` variant (a TPU A/B knob with the same
+    result) is not carried over."""
     S = BLOCK_SIZE
     P = prj.valid.shape[0]
     sb_size = min(SUPERBLOCK, P)
@@ -620,72 +811,34 @@ def build_block_frame2(prj, cfg: RasterizerConfig,
     B = P // S
     SB = P // sb_size
     gx, gy = cfg.tile_dims
-    ts = float(cfg.tile_size)
-    dev = prj.valid.device
-
-    def srows(a):
-        return a.reshape(SB, sb_size, *a.shape[1:])
-
-    valid_sb = srows(prj.valid)
-    depth_sb = srows(prj.depth16).to(torch.int64)
-    ipos_sb = srows(prj.image_pos)
-    conic = srows(prj.conic)
-    color = srows(prj.color)
 
     cell = adaptive_cell_shift(num_splats or P, gx, gy)
-    ctx = torch.clamp((ipos_sb[..., 0] / ts).to(torch.int32), 0, gx - 1).to(
-        torch.int64) >> cell
-    cty = torch.clamp((ipos_sb[..., 1] / ts).to(torch.int32), 0, gy - 1).to(
-        torch.int64) >> cell
-    morton = _spread8(ctx & 0xFF) | (_spread8(cty & 0xFF) << 1)
+    CW = _big_chunk_width(P, sb_size)
+    sw = screen_pack(prj, cell, CW, cfg)
 
     # --- big-lane extraction before clustering ------------------------------
     if big_cap is None:
         big_cap = default_big_cap(P)
     big_cap = max(big_cap, S)
-    rx_sb, ry_sb = extents_from_conic(conic[..., 0], conic[..., 1],
-                                      conic[..., 2], color[..., 3])
-    is_big = (torch.maximum(rx_sb, ry_sb) >= BIG_RADIUS) & valid_sb
-    CW = _big_chunk_width(P, sb_size)
-    R = P // CW
-    colv = torch.arange(CW, dtype=torch.int64, device=dev)[None]
-    bkey = torch.where(is_big.reshape(R, CW),
-                       (depth_sb.reshape(R, CW) << 10) | colv, U32_MAX)
-    tk_idx, tk_ok = _select_big_lanes(i32(bkey), big_cap)
+    tk_idx, tk_ok = _select_big_lanes(sw.bkey, big_cap)
     taken = _taken(tk_idx, tk_ok, P)
-
-    payload_words = (
-        ipos_sb[..., 0].contiguous().view(torch.int32),
-        ipos_sb[..., 1].contiguous().view(torch.int32),
-        _pack_f16(conic[..., 0], conic[..., 1]),
-        _pack_f16(conic[..., 2], color[..., 3]),
-        _pack_rgb9e5(color[..., 0], color[..., 1], color[..., 2]))
-
-    def gath(a):
-        return a.reshape(P)[tk_idx]
-
-    dep_tk = torch.where(tk_ok, gath(depth_sb), U32_MAX)
-    ca_tk, cb_tk = _unpack_f16(gath(payload_words[2]))
-    cc_tk, op_tk = _unpack_f16(gath(payload_words[3]))
-    r_tk, g_tk, b_tk = _unpack_rgb9e5(gath(payload_words[4]))
-    bigs = _build_big_set(
-        (gath(ipos_sb[..., 0]), gath(ipos_sb[..., 1]),
-         ca_tk, cb_tk, cc_tk, r_tk, g_tk, b_tk, op_tk, tk_idx),
-        tk_ok, dep_tk,
-        residual=(is_big.sum() - tk_ok.sum()).to(torch.int32),
-        gx=gx, gy=gy, ts=ts)
+    packed = (sw.key, sw.ix, sw.iy, sw.pc1, sw.pc2, sw.rgb9)
+    bigs = big_set(packed, tk_idx, tk_ok,
+                   (sw.num_big - tk_ok.sum()).to(torch.int32), cfg)
 
     # --- stage 1: per-superblock (cell Morton, depth16) clustering ----------
-    key = torch.where(valid_sb & ~taken.reshape(SB, sb_size),
-                      ((morton & 0x7FFF) << 16) | depth_sb, U32_MAX)
-    idx = torch.arange(P, dtype=torch.int32, device=dev).reshape(SB, sb_size)
-    ops = (i32(key),) + payload_words + (idx,)
+    def srows(a):
+        return a.reshape(SB, sb_size)
+
     if cfg.cluster == "bricks":   # static curve-order bricks: no sort
-        s1 = ops
+        # the frame build reads a taken lane's key as -1
+        idx = torch.arange(P, dtype=torch.int32, device=prj.valid.device)
+        s1, mask = tuple(srows(a) for a in packed + (idx,)), taken
     else:
-        order = torch.sort(key, dim=1, stable=True).indices
-        s1 = tuple(torch.gather(a, 1, order) for a in ops)
+        s1 = screen_sort(srows(sw.key), srows(taken),
+                         tuple(srows(a) for a in packed[1:]))
+        mask = None
     frame = _frame_from_stage1(s1, B, S, cfg,
                                prj.num_tiles.sum().to(torch.int32),
-                               words=words_payload)
+                               words=words_payload, taken=mask)
     return frame, bigs

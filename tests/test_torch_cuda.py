@@ -76,7 +76,9 @@ def test_cpu_frame_launches_no_kernel():
     assert kernels.launch_counts() == {name: 0 for name in kernels.COUNTERS}
     assert set(kernels.COUNTERS) == {"projection", "projection_readable",
                                      "block_frame", "block_frame_cooked",
-                                     "big_lanes", "bin_blocks", "bin_bigs",
+                                     "big_lanes", "screen_pack",
+                                     "screen_sort", "big_set",
+                                     "bin_blocks", "bin_bigs",
                                      "bin_rank", "render_v3",
                                      "render_v3_cooked", "render_v4",
                                      "render_exact", "emit_exact",
@@ -127,6 +129,35 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         bn._rank_keys_cuda(meta)
     with pytest.raises(ValueError, match="int32"):
         bn._rank_keys_cuda(meta.long())
+    # the Blocks stage's screen pack, screen sort and big set
+    quality = gt.RasterizerConfig(width=64, height=64, quality="fast")
+    prj = prj_mod.project_splats(*_proj_args(cloud, quality)[:5],
+                                 *gt.make_uniforms(gt.Camera.reset_pose(),
+                                                   quality, device="cpu")[:5],
+                                 quality)
+    with pytest.raises(ValueError, match="CUDA"):
+        b2._screen_pack_cuda(prj, 0, 128, quality)
+    with pytest.raises(ValueError, match="int32"):
+        b2._screen_pack_cuda(prj._replace(depth16=prj.depth16.long()), 0,
+                             128, quality)
+    key = torch.zeros((2, 1024), dtype=torch.int32)
+    words = (key,) * 5
+    taken = torch.zeros((2, 1024), dtype=torch.bool)
+    with pytest.raises(ValueError, match="CUDA"):
+        b2._screen_sort_cuda(key, taken, words)
+    with pytest.raises(ValueError, match="bool"):
+        b2._screen_sort_cuda(key, key, words)
+    with pytest.raises(ValueError, match="8192"):
+        b2._screen_sort_cuda(torch.zeros((1, 16384), dtype=torch.int32),
+                             torch.zeros((1, 16384), dtype=torch.bool),
+                             (torch.zeros((1, 16384), dtype=torch.int32),) * 5)
+    flat = (key.reshape(-1),) * 6
+    tk_idx = torch.zeros((256,), dtype=torch.int64)
+    tk_ok = torch.zeros((256,), dtype=torch.bool)
+    with pytest.raises(ValueError, match="CUDA"):
+        b2._big_set_cuda(flat, tk_idx, tk_ok, meta[0], quality)
+    with pytest.raises(ValueError, match="int64"):
+        b2._big_set_cuda(flat, tk_idx.int(), tk_ok, meta[0], quality)
 
 
 def test_entry_points_default_to_the_card():
@@ -933,6 +964,9 @@ def test_block_kernel_wrappers_refuse_what_they_do_not_take():
         b2._big_window_cuda(torch.full((2, 2048), -1, dtype=torch.int32), 64)
 
 
+BLOCKS_DISPATCHERS = ("big_window", "screen_pack", "screen_sort", "big_set")
+
+
 def _blocks_both_ways(monkeypatch, cloud, cfg):
     """The Blocks stage of the reset camera's frame through the kernels,
     then through their plain versions (the dispatchers patched)."""
@@ -944,8 +978,9 @@ def _blocks_both_ways(monkeypatch, cloud, cfg):
     kernel = stages["Blocks"](prj)
     counts = kernels.launch_counts()
     with monkeypatch.context() as m:
+        for name in BLOCKS_DISPATCHERS:
+            m.setattr(b2, name, getattr(b2, f"{name}_reference"))
         m.setattr(b2, "_frame_from_stage1", b2.frame_from_stage1_reference)
-        m.setattr(b2, "big_window", b2.big_window_reference)
         plain = stages["Blocks"](prj)
     torch.cuda.synchronize()
     return kernel, plain, counts
@@ -973,11 +1008,106 @@ def test_block_kernels_match_plain(cuda, monkeypatch, config):
         assert torch.equal(_bits(a), _bits(b)), name
     frame = "block_frame" if cfg.words_payload else "block_frame_cooked"
     assert counts[frame] == 1 and counts["big_lanes"] == 1
+    assert counts["big_set"] == 1
+    assert counts["screen_pack"] == int(not cfg.projection_kernel)
+    assert counts["screen_sort"] == int(cfg.cluster == "screen")
     assert int(fk.num_valid.sum()) > 10_000
     n_big = int(bk.valid.sum())
     assert n_big > 0
     if config == "padded":
         assert n_big < bk.valid.shape[0] - 100
+
+
+def _quality_fast_blocks_args(cuda):
+    """quality="fast"'s Blocks inputs at 640x480: the projection, the cell,
+    the chunk width and the config."""
+    from godotgaussiansplatting_torch.ops.fast_pipeline import _frame_stages
+    cfg = gt.RasterizerConfig(width=640, height=480, quality="fast")
+    cloud = gt.fast_cloud_view(_cloud(cuda), planar_sh=False)
+    uni = gt.make_uniforms(gt.Camera.reset_pose(), cfg, device=cuda)
+    prj = dict(_frame_stages(cloud, uni, cfg))["Projection"](None)
+    P = prj.valid.shape[0]
+    gx, gy = cfg.tile_dims
+    return (prj, b2.adaptive_cell_shift(cloud.num_splats, gx, gy),
+            b2._big_chunk_width(P, min(8192, P)), cfg)
+
+
+@pytest.mark.gpu
+def test_screen_kernels_match_plain(cuda):
+    """screen_pack, screen_sort and big_set, each bit-equal (f32 as bits)
+    to its plain version on quality="fast"'s Blocks inputs at 640x480 and
+    on what the kernel before it wrote."""
+    prj, cell, CW, cfg = _quality_fast_blocks_args(cuda)
+    P = prj.valid.shape[0]
+    kernels.reset_launch_counts()
+    sw = b2.screen_pack(prj, cell, CW, cfg)
+    assert kernels.launch_counts()["screen_pack"] == 1
+    want = b2.screen_pack_reference(prj, cell, CW, cfg)
+    for name, a, b in zip(sw._fields, sw, want):
+        assert a.shape == b.shape and torch.equal(a, b), name
+    assert int(sw.num_big) > 0 and int((sw.key != -1).sum()) > 10_000
+    tk_idx, tk_ok = b2._select_big_lanes(sw.bkey, b2.default_big_cap(P))
+    taken = b2._taken(tk_idx, tk_ok, P)
+    SB = P // min(8192, P)
+    rows = tuple(w.reshape(SB, -1) for w in sw[:6])
+    got = b2.screen_sort(rows[0], taken.reshape(SB, -1), rows[1:])
+    want = b2.screen_sort_reference(rows[0], taken.reshape(SB, -1), rows[1:])
+    for k, (a, b) in enumerate(zip(got, want)):
+        assert torch.equal(a, b), k
+    residual = (sw.num_big - tk_ok.sum()).to(torch.int32)
+    got = b2.big_set(sw[:6], tk_idx, tk_ok, residual, cfg)
+    want = b2.big_set_reference(sw[:6], tk_idx, tk_ok, residual, cfg)
+    torch.cuda.synchronize()
+    for name, a, b in zip(got._fields, got, want):
+        assert a.shape == b.shape and torch.equal(_bits(a), _bits(b)), name
+    assert kernels.launch_counts()["screen_sort"] == 1
+    assert kernels.launch_counts()["big_set"] == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["ties", "invalid", "taken"])
+@pytest.mark.parametrize("SB,n", [(3, 8192), (1, 1000), (4, 128)])
+def test_screen_sort_kernel_matches_plain(cuda, SB, n, kind):
+    """The row sort on keys of a few values (most of them tied, the
+    sentinel among them), on rows of invalid keys and on rows whose every
+    lane is taken, at full and short rows."""
+    g = torch.Generator(device=cuda).manual_seed(SB * n)
+    vals = torch.tensor([5, 6, 900, -1, 2**31 - 1, -2**31],
+                        dtype=torch.int32, device=cuda)
+    key = vals[torch.randint(0, 6, (SB, n), generator=g, device=cuda)]
+    taken = torch.rand(SB, n, generator=g, device=cuda) < 0.1
+    if kind == "invalid":
+        key.fill_(-1)
+    if kind == "taken":
+        taken.fill_(True)
+    words = tuple(torch.randint(-2**31, 2**31, (SB, n), generator=g,
+                                device=cuda, dtype=torch.int64)
+                  .to(torch.int32) for _ in range(5))
+    got = b2._screen_sort_cuda(key, taken, words)
+    want = b2.screen_sort_reference(key, taken, words)
+    for k, (a, b) in enumerate(zip(got, want)):
+        assert torch.equal(a, b), k
+
+
+@pytest.mark.gpu
+def test_blocks_card_path_holds_no_host_read(cuda):
+    """tests/test_torch_graph.py's census over quality="fast"'s Blocks
+    stage on the card: no op a CUDA graph cannot capture, and no sort or
+    gather of the (SB, sb_size) rows (the window's global sort is 1-D)."""
+    from test_torch_graph import _Census
+
+    class _Rows(_Census):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = func.overloadpacket.__name__
+            if name in ("sort", "gather") and args[0].dim() > 1:
+                self.bad.append(f"{name} of {tuple(args[0].shape)}")
+            return super().__torch_dispatch__(func, types, args, kwargs)
+
+    prj, _, _, cfg = _quality_fast_blocks_args(cuda)
+    census = _Rows()
+    with census:
+        b2.build_block_frame2(prj, cfg, num_splats=40_000)
+    assert not census.bad, census.bad
 
 
 # --- the Binning stage's kernels: bin_blocks and bin_bigs --------------------
