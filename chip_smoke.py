@@ -2,13 +2,22 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --binning
+    python3 chip_smoke.py --sorts [OTHER_CHECKOUT]
 
 The second form runs phase 1's build and phase 6's Binning check alone
 (both kernels bit-equal to their plain versions, timed beside their
 bounds, and torch.profiler over 3 eager Binning stages of fast_defaults()
 and quality="fast"): a quick comparison of two trees' Binning kernels on
-one card. It logs the two kernels' records and not the result line of
-a full run. With no arguments it builds the
+one card. The third runs phase 1's build and phase 6's two sort records
+alone (sort_pairs and screen_sort bit-equal to their plain versions on
+their 1080p inputs and edge cases, timed beside their bounds, with the
+pairs a tile and the passes a row they meet), the 4K exact sort at
+end_bit 31, the Sort and the quality="fast" Blocks profiles; given the
+root of another checkout (for example one unpacked with ``git archive
+<commit> | tar -x -C build/ab_base``), it also holds that checkout's two
+kernels bit-equal to this one's on the same inputs and times them in
+turns, other, this, this, other. Both log their kernels' records and not
+the result line of a full run. With no arguments it builds the
 port's CUDA kernels from godotgaussiansplatting_torch/csrc (one
 nvcc per source, all started together), then:
 
@@ -75,8 +84,11 @@ nvcc per source, all started together), then:
    logged), emit_exact (the write-once emission into the static 10N
    buffer, on the arguments the frame's emission passed it; positions
    [0, n) compared) and sort_pairs (the radix sort of the emission's n
-   live pairs), each bit-equal to its plain version and timed beside its
-   bound, both also at a buffer of half the pairs (it drops pairs),
+   live pairs; its pairs a tile logged), each bit-equal to its plain
+   version and timed beside its bound, both also at a buffer of half the
+   pairs (it drops pairs), sort_pairs also on synthetic buffers (n = 0, a
+   full buffer, holes, tie-heavy keys, one tile of most pairs, end_bit 31,
+   a one-tile grid),
    sort_pairs also beside torch.sort of the buffer with its gather and
    widening (library_ms, with the stable sort of the buffer's 32-bit keys
    against 64-bit ones, and the same call on the n live pairs alone,
@@ -96,8 +108,11 @@ nvcc per source, all started together), then:
    arguments the stage passed it bit-equal (f32 as bits); big_lanes also
    on rows holding 0 to CW live keys, screen_sort also on the
    quality="fast" rows with the keys cut to a few values and with a third
-   of the lanes taken; each kernel timed beside its plain version and its
-   byte bound, big_lanes also beside torch.sort of the u32 rows (its
+   of the lanes taken, and on rows of every pass count of its narrowing
+   (0 to 4, each span at its boundary, full and short rows), its passes a
+   row logged on the 1080p rows; each kernel timed beside its plain
+   version and its byte bound, big_lanes also beside torch.sort of the u32
+   rows (its
    library_ms), screen_sort beside torch.sort of its rows and the seven
    gathers (its library_ms), and the global window sort with int32 keys
    beside int64 ones; and the Binning stage's kernels (bin_blocks,
@@ -260,7 +275,11 @@ nvcc per source, all started together), then:
    eager frame's peak memory; config 4's centre pick finite; config 5
    (3840x2160, 240x135 tiles) also with early exit off (timed, PSNR
    against on logged), and screen_pack, screen_sort and big_set
-   bit-equal to their plain versions on its Blocks arguments.
+   bit-equal to their plain versions on its Blocks arguments, with the
+   radix passes screen_sort's narrowing gives its rows; then the exact
+   frame's emission at 3840x2160 on config 5's scene and sort_pairs at
+   end_bit 31 on it (a 100M-slot buffer), bit-equal to its plain version
+   and timed, with its pairs a tile.
 
 The launch counters are set to 0 just before each full-frame path and read
 just after it; the `launches` of a kernel come from the path that runs it
@@ -526,8 +545,9 @@ BOUND_COUNTS = {
     "screen_sort": (
         "bytes: each element's key, taken byte and five payload words (25 "
         "B) read once and its seven stage-1 words (28 B) written once; "
-        "operations: not counted (four radix passes in shared memory, a few "
-        "dozen integer operations an element and pass); special functions: "
+        "operations: not counted (at most four radix passes in shared "
+        "memory, as many as the row's narrowed width needs, a few dozen "
+        "integer operations an element and pass); special functions: "
         "none (sfu_ms null); ms: a CUDA graph of 20 launches replayed, over "
         "20; plain_ms: screen_sort_reference; library_ms: torch.sort("
         "stable=True) of the (SB, sb_size) u32 keys along the rows and the "
@@ -913,6 +933,89 @@ def sort_pass_bytes(n: int, k_max: int, end_bit: int) -> int:
     and each pass's pair read and write (an int64 key in the last)."""
     passes = kernels.library("sort_pairs").gs_sort_pairs_passes(end_bit)
     return n * 4 + (k_max - n) * 12 + n * 16 * (passes - 1) + n * 20
+
+
+def pairs_a_tile(keys: torch.Tensor, n: int, end_bit: int) -> dict:
+    """The distribution of the n live pairs of an emission's int32 key
+    buffer over the tiles (the bits [16, end_bit) of the masked key): what
+    a sort by tile, then by depth in each tile's run, would meet; "over_N":
+    the tiles of more than N pairs, more than one CTA's shared memory
+    sorts at once (8192 at 12 B a pair in 112 KB)."""
+    mask = (1 << end_bit) - 1
+    tile = ((keys[:n].to(torch.int64) + so.SIGN) & mask) >> 16
+    cnt = torch.bincount(tile, minlength=1 << max(0, end_bit - 16))
+    full = cnt[cnt > 0].to(torch.float64)
+    q = torch.quantile(full, torch.tensor([0.5, 0.99], dtype=torch.float64,
+                                          device=full.device)).tolist() \
+        if full.numel() else [0.0, 0.0]
+    return {"pairs": n, "tiles": cnt.numel(),
+            "nonempty": int(full.numel()),
+            "mean_nonempty": round(float(full.mean()), 1)
+            if full.numel() else 0.0,
+            "p50": q[0], "p99": q[1], "max": int(cnt.max()),
+            "over_4096": int((cnt > 4096).sum()),
+            "pairs_over_4096": int(cnt[cnt > 4096].sum()),
+            "over_8192": int((cnt > 8192).sum()),
+            "pairs_over_8192": int(cnt[cnt > 8192].sum())}
+
+
+def synthetic_pairs(kind: str, T: int, k_max: int, total: int, seed: int):
+    """An emission-shaped (k_max + 1,) int32 key and value buffer on the
+    card, keys ``tile << 16 | depth16`` over T tiles: "random", "holes" (a
+    tenth INVALID_KEY), "ties" (four tiles, four depths) or "oversize"
+    (six tenths of the pairs on one tile, many of one depth)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    size = k_max + 1
+    tile = torch.randint(0, T, (size,), generator=g, device="cuda")
+    depth = torch.randint(0, 1 << 16, (size,), generator=g, device="cuda")
+    if kind == "ties":
+        tile = tile % min(T, 4)
+        depth = torch.tensor([3, 4, 40000, 0xFFFF], device="cuda")[depth % 4]
+    if kind == "oversize":
+        r = torch.rand(size, generator=g, device="cuda")
+        tile = torch.where(r < 0.6, T // 2, tile)
+        depth = torch.where(r < 0.2, 1234, depth)
+    u = (tile << 16) | depth
+    if kind == "holes":
+        u = torch.where(torch.rand(size, generator=g, device="cuda") < 0.1,
+                        INVALID_KEY, u)
+    vals = torch.randint(-2**31, 2**31, (size,), generator=g, device="cuda",
+                         dtype=torch.int64).to(torch.int32)
+    return ((u - so.SIGN).to(torch.int32), vals,
+            torch.tensor(total, dtype=torch.int64, device="cuda"))
+
+
+# (tag, kind, tiles, k_max, total): n = 0, a full buffer, holes, tie-heavy
+# keys, one tile holding most pairs, end_bit 31, a one-tile grid
+SORT_EDGES = (("n = 0", "random", 8160, 100_000, 0),
+              ("n = k_max", "random", 8160, 3_000_000, 3_000_007),
+              ("holes", "holes", 8160, 2_000_000, 1_900_001),
+              ("tie-heavy keys", "ties", 8160, 2_000_000, 2_000_000),
+              ("one tile of 1.2M pairs", "oversize", 8160, 2_000_000,
+               2_000_000),
+              ("end_bit 31", "random", 32400, 4_000_000, 3_999_999),
+              ("one tile", "random", 1, 200_000, 150_000))
+
+
+def sort_edge_cases() -> None:
+    """sort_pairs bit-equal to its plain version on SORT_EDGES' synthetic
+    buffers, with each one's pairs a tile."""
+    for i, (tag, kind, T, k_max, total) in enumerate(SORT_EDGES):
+        keys, vals, tot = synthetic_pairs(kind, T, k_max, total, 17 + i)
+        end_bit = so.sort_key_bits(T)
+        ref = so.sort_pairs_reference(keys, vals, tot, k_max, end_bit)
+        out = so.sort_pairs(keys.clone(), vals.clone(), tot, k_max, end_bit)
+        torch.cuda.synchronize()
+        bad = {"keys": int((out[0] != ref[0]).sum()),
+               "values": int((out[1] != ref[1]).sum())}
+        dist = pairs_a_tile(keys, min(total, k_max), end_bit)
+        check(not any(bad.values()), f"6 sort_pairs {tag}: not bit-equal "
+              f"to the plain version {bad}")
+        if kind == "oversize":
+            check(dist["over_8192"] == 1, f"6 sort_pairs {tag}: {dist}")
+        log(f"[6 sort_pairs edge] {tag}: k_max {k_max}, end_bit {end_bit}: "
+            f"bit-equal to sort_pairs_reference; pairs a tile "
+            f"{json.dumps(dist)}")
 
 
 def sort_vs_plain(tag: str, emitted, cfg, full: bool = True) -> dict:
@@ -1809,8 +1912,11 @@ def exact_stages_1080p(full, base, worst: dict) -> list:
     e, ms, plain_ms, bnd, n, emitted = emit_vs_plain("6 emit_exact 1080p",
                                                      prj, base)
     rec.append(record("emit_exact", e, ms, plain_ms, bnd))
-    srt = sort_vs_plain("6 sort_pairs 1080p", emitted, base)
     k_max = emitted[0].shape[0] - 1
+    dist = pairs_a_tile(emitted[0], min(n, k_max),
+                        so.sort_key_bits(base.num_tiles))
+    log(f"[6 sort_pairs 1080p] pairs a tile: {json.dumps(dist)}")
+    srt = sort_vs_plain("6 sort_pairs 1080p", emitted, base)
     del emitted
     r = record("sort_pairs", 0.0, srt["ms"], srt["plain_ms"], srt["bnd"])
     r.update(library_ms=srt["library_ms"],
@@ -1822,7 +1928,31 @@ def exact_stages_1080p(full, base, worst: dict) -> list:
                             base, capacity=n // 2, plain_reps=1)[-1]
     sort_vs_plain(f"6 sort_pairs 1080p capacity {n // 2}", emitted, base,
                   full=False)
+    sort_edge_cases()
     return rec
+
+
+def exact_sort_4k(cloud) -> dict:
+    """The exact frame's emission and sort_pairs at 3840x2160 (tile 16:
+    32,400 tiles, end_bit 31) on benchmarks/configs.py's fifth workload's
+    scene (the reset camera): the sort bit-equal to its plain version and
+    timed, with its pairs a tile. Returns the sort's numbers."""
+    cfg = gt.RasterizerConfig(width=3840, height=2160)
+    uni = gt.make_uniforms(gt.Camera.reset_pose(), cfg)
+    prj = project_splats(cloud.means, cloud.cov3d, cloud.opacity, cloud.sh,
+                         cloud.upload_time, uni.view, uni.proj,
+                         uni.camera_pos, uni.model_scale, uni.time, cfg)
+    keys, vals, total, _ = so.emit_pairs(prj.valid, prj.rect, prj.num_tiles,
+                                         prj.depth16, cfg)
+    del prj
+    k_max = keys.shape[0] - 1
+    end_bit = so.sort_key_bits(cfg.num_tiles)
+    check(end_bit == 31, f"14 exact sort 4K: end_bit {end_bit}")
+    dist = pairs_a_tile(keys, min(int(total), k_max), end_bit)
+    log(f"[14 exact sort 4K] {cloud.num_splats} splats, {cfg.num_tiles} "
+        f"tiles: pairs a tile {json.dumps(dist)}")
+    return sort_vs_plain("14 sort_pairs 4K end_bit 31", (keys, vals, total),
+                         cfg)
 
 
 def profile_sort(tag: str, full, cfg, capacity: int, frames: int = 3) -> None:
@@ -2123,6 +2253,103 @@ def sort_ties_vs_plain(run: dict) -> None:
         f"bit-equal to the plain version")
 
 
+def passes_a_row(key: torch.Tensor, taken: torch.Tensor) -> dict:
+    """{radix passes: rows} of screen_sort's narrowing on (SB, n) rows: a
+    row's live keys (not taken, not 0xFFFFFFFF) span b = bit_length(hi -
+    lo + 1) bits, or fewer with the key's halves narrowed apart (b =
+    bit_length(top + 1), top = (hh - hl) << db | (dh - dl), db =
+    bit_length(dh - dl)); sorted in ceil(b / 8) passes (0 for a row with
+    no live key). "whole keys only": the first rule alone; the parent
+    design ran four passes on every row."""
+    u = torch.where(taken, -1, key).to(torch.int64) & 0xFFFFFFFF
+    live = u != 0xFFFFFFFF
+    powers = torch.ones(33, dtype=torch.int64, device=u.device) << \
+        torch.arange(33, device=u.device)
+
+    def bit_length(x):
+        return (torch.clamp(x, min=0)[:, None] >= powers).sum(1)
+
+    def rng(x, cap):
+        return (torch.where(live, x, cap).amin(dim=1),
+                torch.where(live, x, -1).amax(dim=1))
+
+    lo, hi = rng(u, 1 << 32)
+    whole = bit_length(hi - lo + 1)
+    (hl, hh), (dl, dh) = rng(u >> 16, 1 << 16), rng(u & 0xFFFF, 1 << 16)
+    db = bit_length(dh - dl)
+    top = ((hh - hl) << db) | (dh - dl)
+    bits = torch.where(live.any(1), torch.minimum(bit_length(top + 1),
+                                                  whole), 0)
+
+    def count(b):
+        return {str(p): int(((b + 7) // 8 == p).sum()) for p in range(5)}
+
+    return {"passes": count(bits), "whole keys only": count(whole)}
+
+
+def _narrow_row(kind: str, n: int, g) -> tuple:
+    """One row on the card for screen_sort_edge_cases: no live key, one
+    live key, every live key equal, live keys whose span hi - lo is
+    exactly 2^b - 2 or 2^b - 1 ("span b", "span b+"), a tenth dead, or
+    three cells whose depths span 8 bits ("halves")."""
+    dead = torch.rand(n, generator=g, device="cuda") < 0.1
+    if kind == "none":
+        return torch.full((n,), -1, dtype=torch.int64, device="cuda"), dead
+    if kind == "one":
+        key = torch.full((n,), -1, dtype=torch.int64, device="cuda")
+        key[n // 3] = 12345
+        return key, torch.zeros(n, dtype=torch.bool, device="cuda")
+    if kind == "equal":
+        return torch.where(dead, -1, 0x00AB0CD0).to(torch.int64), dead
+    if kind == "halves":      # three cells, depths over 8 bits: 2 passes
+        cell = torch.tensor([0x10, 0x20, 0x90], device="cuda")[
+            torch.randint(0, 3, (n,), generator=g, device="cuda")]
+        key = (cell << 16) | torch.randint(100, 301, (n,), generator=g,
+                                           device="cuda")
+        key[0], key[1] = (0x10 << 16) | 100, (0x90 << 16) | 300
+        dead[:2] = False
+        return key, dead
+    b = int(kind.split()[1].rstrip("+"))
+    span = (1 << b) - (1 if kind.endswith("+") else 2)
+    lo = 0x40000000 if b < 31 else 0
+    key = lo + torch.randint(0, span + 1, (n,), generator=g, device="cuda")
+    key[0], key[1] = lo, lo + span
+    dead[:2] = False
+    key[1::97] = lo + span
+    key = torch.where(torch.rand(n, generator=g, device="cuda") < 0.1,
+                      0xFFFFFFFF, key)
+    key[0], key[1] = lo, lo + span
+    return key, dead
+
+
+NARROW_ROWS = ("none", "one", "equal", "span 8", "span 8+", "span 16",
+               "span 16+", "span 24", "span 24+", "span 31", "span 31+",
+               "halves")
+
+
+def screen_sort_edge_cases() -> None:
+    """screen_sort on rows of every pass count (NARROW_ROWS: 0 to 4
+    passes, each span at its boundary), as full rows of 8192 and short
+    rows of 1000, bit-equal to its plain version."""
+    g = torch.Generator(device="cuda").manual_seed(161)
+    for n in (8192, 1000):
+        rows = [_narrow_row(k, n, g) for k in NARROW_ROWS]
+        key = b2.i32(torch.stack([r[0] for r in rows]))
+        taken = torch.stack([r[1] for r in rows])
+        words = tuple(torch.randint(-2**31, 2**31, key.shape, generator=g,
+                                    device="cuda", dtype=torch.int64)
+                      .to(torch.int32) for _ in range(5))
+        bad = [_differ(x, y) for x, y in zip(
+            b2._screen_sort_cuda(key, taken, words),
+            b2.screen_sort_reference(key, taken, words))]
+        check(not any(bad), f"6 screen_sort rows of every pass count, n "
+              f"{n}: entries not bit-equal {bad}")
+        log(f"[6 screen_sort edge] {len(NARROW_ROWS)} rows of {n} "
+            f"({', '.join(NARROW_ROWS)}): passes a row "
+            f"{json.dumps(passes_a_row(key, taken))}; bit-equal to the "
+            f"plain version")
+
+
 def dense_window_keys(R: int, CW: int, seed: int) -> torch.Tensor:
     """(R, CW) int32 chunk keys on the card whose rows hold from 0 to CW
     big candidates (evenly spread), at random columns, with depths from a
@@ -2185,6 +2412,10 @@ def phase_blocks(cloud, base) -> list:
               f"of {cap}: no entries past the candidates")
     window_dense_vs_plain()
     sort_ties_vs_plain(runs["quality=fast"])
+    (key, taken, _), _, _ = runs["quality=fast"]["sort"]
+    log(f"[6 screen_sort 1080p] {tuple(key.shape)} rows, radix passes a "
+        f"row: {json.dumps(passes_a_row(key, taken))}")
+    screen_sort_edge_cases()
     return [block_frame_record("block_frame", runs["shipped"]),
             block_frame_record("block_frame_cooked", runs["v4"]),
             big_lanes_record(runs["shipped"]),
@@ -3383,8 +3614,11 @@ def workload(name: str, full, w: int, h: int, degree: int,
                                            plain(*a, **kw)))
         check(not any(bad.values()),
               f"{tag}: the Blocks kernels not bit-equal: {bad}")
+        (key, taken, _) = next(a for kind, a, _ in calls if kind == "sort")
         extra += ("; screen_pack, screen_sort and big_set bit-equal to "
-                  "their plain versions on its Blocks arguments")
+                  "their plain versions on its Blocks arguments; "
+                  f"screen_sort's {tuple(key.shape)} rows, radix passes a "
+                  f"row {json.dumps(passes_a_row(key, taken))}")
     log(f"[{tag}] {card}, {cloud.num_splats} splats {w}x{h}, SH degree "
         f"{degree}, tile {cfg.tile_size} cluster {cfg.cluster}, "
         f"{WORKLOAD_FRAMES} orbit cameras: graphed frames bit-equal to the "
@@ -3406,6 +3640,8 @@ def phase_workloads(full, card: str) -> None:
         if n not in scenes:
             scenes = {full.num_splats: full, n: frame_cloud(n)[0]}
         workload(name, scenes[n], w, h, degree, card)
+        if name.startswith("5"):
+            exact_sort_4k(scenes[n])
     del scenes
     log(f"[14 workloads] five workloads in {time.perf_counter() - t0:.1f} s"
         f" (scenes included)")
@@ -3427,16 +3663,135 @@ def binning_only(card: str) -> int:
     return 0
 
 
+def ab_sorts(root: str, emitted, run, cfg, card: str) -> None:
+    """``--sorts OTHER``: the other checkout's sort_pairs and screen_sort
+    (its package imported beside this one, its kernels built from its own
+    sources) on the same 1080p inputs as this one's: outputs bit-equal
+    between the two, then each kernel timed in turns other, this, this,
+    other (sort_pairs as in sort_vs_plain, screen_sort as graph replays of
+    20 launches)."""
+    from godotgaussiansplatting_torch.ab_render import import_other
+    _, other_kernels = import_other(Path(root).resolve())
+    import importlib
+    o_so = importlib.import_module("gsother.ops.sort")
+    o_b2 = importlib.import_module("gsother.ops.blocks2")
+    other_kernels.build("sort_pairs", "screen_sort")
+    keys, vals, total = emitted
+    k_max = keys.shape[0] - 1
+    n = min(int(total), k_max)
+    end_bit = so.sort_key_bits(cfg.num_tiles)
+    sorts = {"other": o_so._sort_pairs_cuda, "this": so._sort_pairs_cuda}
+    outs = {s: f(keys.clone(), vals.clone(), total, k_max, end_bit)
+            for s, f in sorts.items()}
+    check(all(torch.equal(a, b) for a, b in zip(outs["other"],
+                                                 outs["this"])),
+          "ab sort_pairs: the two checkouts' outputs differ")
+    del outs
+    k, v = keys.clone(), vals.clone()
+
+    def sort_ms(fn):
+        def copy():
+            k[:n].copy_(keys[:n])
+            v[:n].copy_(vals[:n])
+
+        def copy_and_sort():
+            copy()
+            fn(k, v, total, k_max, end_bit)
+        return min(time_graphed_ms(copy_and_sort, 5) - time_graphed_ms(copy, 5)
+                   for _ in range(2))
+
+    order = ("other", "this", "this", "other")
+    times = [round(sort_ms(sorts[s]), 4) for s in order]
+    log(f"[ab sort_pairs 1080p] {card}: n {n} of k_max {k_max}, end_bit "
+        f"{end_bit}: bit-equal between the checkouts; ms in turns "
+        f"{json.dumps(list(zip(order, times)))}")
+    a, kw, _ = run["sort"]
+    rows = {"other": o_b2._screen_sort_cuda, "this": b2._screen_sort_cuda}
+    outs = {s: f(*a, **kw) for s, f in rows.items()}
+    check(all(torch.equal(x, y) for x, y in zip(outs["other"],
+                                                 outs["this"])),
+          "ab screen_sort: the two checkouts' outputs differ")
+    times = [round(time_graphed_ms(lambda f=rows[s]: f(*a, **kw), 20), 4)
+             for s in order]
+    log(f"[ab screen_sort 1080p] {card}: {tuple(a[0].shape)} rows: "
+        f"bit-equal between the checkouts; ms in turns "
+        f"{json.dumps(list(zip(order, times)))}")
+
+
+def sorts_only(card: str, other: str | None) -> int:
+    """``--sorts [OTHER]``: phase 6's two sort records alone on phase 4's
+    scene (sort_pairs on the 1080p exact emission, screen_sort on the
+    1080p quality="fast" Blocks stage's rows), their distributions (pairs
+    a tile, passes a row) and edge cases, the 4K exact sort at end_bit 31
+    on the fifth workload's 10M scene, profile_sort and the quality="fast"
+    Blocks profile; with OTHER, the other checkout's two kernels on the
+    same inputs, timed in turns (``ab_sorts``). Logs the two records and
+    not the result line of a full run."""
+    full, setup_s = frame_cloud(5_800_000)
+    cloud = gt.fast_cloud_view(full)
+    log(f"[4 frame] scene set-up {setup_s:.1f} s")
+    base = gt.RasterizerConfig(width=1920, height=1080)
+    uni = gt.make_uniforms(gt.Camera.reset_pose(), base)
+    prj = project_splats(full.means, full.cov3d, full.opacity, full.sh,
+                         full.upload_time, uni.view, uni.proj,
+                         uni.camera_pos, uni.model_scale, uni.time, base)
+    keys, vals, total, _ = so.emit_pairs(prj.valid, prj.rect, prj.num_tiles,
+                                         prj.depth16, base)
+    del prj
+    k_max = keys.shape[0] - 1
+    emitted = (keys, vals, total)
+    dist = pairs_a_tile(keys, min(int(total), k_max),
+                        so.sort_key_bits(base.num_tiles))
+    log(f"[6 sort_pairs 1080p] pairs a tile: {json.dumps(dist)}")
+    srt = sort_vs_plain("6 sort_pairs 1080p", emitted, base)
+    r = record("sort_pairs", 0.0, srt["ms"], srt["plain_ms"], srt["bnd"])
+    r.update(library_ms=srt["library_ms"],
+             library_ms_live=srt["library_ms_live"],
+             pass_bytes=srt["pass_bytes"])
+    rec = [r]
+    sort_edge_cases()
+    fast = base.replace(quality="fast")
+    run = blocks_vs_plain("6 blocks quality=fast 1080p", cloud, fast)
+    (key, taken, _), _, _ = run["sort"]
+    log(f"[6 screen_sort 1080p] {tuple(key.shape)} rows, radix passes a "
+        f"row: {json.dumps(passes_a_row(key, taken))}")
+    rec.append(screen_sort_record(run))
+    sort_ties_vs_plain(run)
+    screen_sort_edge_cases()
+    if other:
+        ab_sorts(other, emitted, run, base, card)
+    del emitted, keys, vals, run
+    profile_sort("6 exact 1080p", full, base, 2048)   # Sort ignores it
+    profile_stage("6 blocks quality=fast", cloud, fast, "Blocks")
+    del cloud, full
+    gc.collect()
+    big, setup_s = frame_cloud(10_000_000)
+    log(f"[14 5_stress_4K_10M] scene set-up {setup_s:.1f} s")
+    exact_sort_4k(big)
+    cfg5 = gt.RasterizerConfig(width=3840, height=2160)
+    run5 = blocks_vs_plain("14 blocks quality=fast 4K", big,
+                           cfg5.replace(quality="fast"))
+    (key, taken, _), _, _ = run5["sort"]
+    log(f"[14 screen_sort 4K] {tuple(key.shape)} rows, radix passes a row:"
+        f" {json.dumps(passes_a_row(key, taken))}")
+    log(card)
+    log(json.dumps({"kernels": rec}))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; nothing was measured")
     args = sys.argv[1:]
-    if args not in ([], ["--binning"]):
+    if not (args in ([], ["--binning"])
+            or (args[:1] == ["--sorts"] and len(args) <= 2)):
         raise SystemExit(f"chip_smoke: unknown arguments {args}")
     torch.backends.cuda.matmul.allow_tf32 = False
     card = phase_device()
-    if args:
+    if args == ["--binning"]:
         return binning_only(card)
+    if args:
+        return sorts_only(card, args[1] if len(args) == 2 else None)
     probe, probe_launches = phase_sfu_probe()   # sets SFU before any bound
     worst = phase_projection(1_000_000, 1920, 1080)
     cloud = render_cloud(200_000)

@@ -15,7 +15,10 @@ the frames are timed in turns, other, this, this, other (median host
 clock, CUDA events and stage times over the cameras); the Blocks stage
 alone is timed as graph replays on each camera's projection; and each
 side's peak device memory above its inputs during an eager frame is
-printed. Needs a CUDA device.
+printed. Then the exact frame (RasterizerConfig's default quality, tile
+capacity 2048) as each side's ``ExactFrameGraph``: the image, tile_t0,
+the sorted values, the tile ranges and the statistics of the 8 cameras
+compared bit for bit, and the frames timed in turns. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -158,6 +161,50 @@ def config_ab(tag: str, sides: dict, card: str) -> None:
     del state
 
 
+EXACT_FIELDS = ("image", "tile_t0", "sorted_values", "tile_start",
+                "tile_end")
+
+
+def exact_ab(sides: dict, card: str, capacity: int = 2048) -> None:
+    """The exact frame on both sides: frames compared, then timed."""
+    cams = gt.orbit_trajectory(CAMERAS, radius=5.0, target=(0, 0, 6.0))
+    state = {}
+    for name, side in sides.items():
+        cfg = side.pkg.RasterizerConfig(width=1920, height=1080)
+        pipe = importlib.import_module(f"{side.pkg.__name__}.ops.pipeline")
+        w, h = cfg.target_size
+        values = [pack_uniforms(c.view_matrix(), c.projection_matrix(w, h),
+                                c.camera_pos_ply(), 1.0, 1e9, 0.0)
+                  for c in cams]
+        state[name] = (pipe.ExactFrameGraph(side.cloud, cfg, values[0],
+                                            capacity), values)
+    differ = []
+    for i in range(CAMERAS):
+        a = state["other"][0].render(state["other"][1][i])
+        a = a._replace(**{f: getattr(a, f).clone() for f in EXACT_FIELDS})
+        b = state["this"][0].render(state["this"][1][i])
+        differ += [f"camera {i} {f}" for f in EXACT_FIELDS
+                   if not torch.equal(_bits(getattr(a, f)),
+                                      _bits(getattr(b, f)))]
+        differ += [f"camera {i} stats.{f}" for f, x, y in zip(
+            a.stats._fields, a.stats, b.stats) if not torch.equal(x, y)]
+    print(f"[exact] {card}: {CAMERAS} graphed frames of each side, tile "
+          f"capacity {capacity}, every field "
+          f"{'bit-equal' if not differ else 'DIFFERS: ' + str(differ)}",
+          flush=True)
+    for k, name in enumerate(("other", "this", "this", "other")):
+        graph, values = state[name]
+        runs = [_timed(graph, values[i], sides[name].fp.StageTimer)
+                for i in range(CAMERAS)]
+        med = {s: round(statistics.median(r[2][s] for r in runs), 3)
+               for s in runs[0][2]}
+        print(f"[exact] {name} ({k + 1} of 4): median frame "
+              f"{statistics.median(r[0] for r in runs):.3f} ms host clock, "
+              f"{statistics.median(r[1] for r in runs):.3f} ms CUDA events,"
+              f" median stages {json.dumps(med)}", flush=True)
+    del state
+
+
 def main(argv) -> int:
     if len(argv) != 1 or not torch.cuda.is_available():
         raise SystemExit(__doc__)
@@ -177,6 +224,7 @@ def main(argv) -> int:
              "this": Side("this", gt, fp, cloud)}
     for tag in ("shipped", "v4", "quality=fast"):
         config_ab(tag, sides, card)
+    exact_ab(sides, card)
     return 0
 
 

@@ -31,10 +31,12 @@
 //
 // Design (onesweep: Adinets and Merrill, 2022):
 // - one histogram kernel counts every pass's digits in one read of the
-//   keys, with plain shared-memory atomics (aggregating a warp's equal
-//   digits first, by match or by ballots, measured slower on the card),
-//   and zeroes the look-back words of the tiles this sort runs; a tail
-//   kernel writes the output's tail in 16-byte stores;
+//   keys (1024 threads a CTA, four 16-byte loads in flight a thread), with
+//   plain shared-memory atomics (aggregating a warp's equal digits first,
+//   by match or by ballots, measured slower on the card, and eight copies
+//   of the counts, a lane's its lane % 8, no faster), and zeroes the
+//   look-back words of the tiles this sort runs; a tail kernel writes the
+//   output's tail in 16-byte stores;
 // - then one kernel per pass. A persistent grid takes tiles of TILE keys
 //   in order from an atomic counter, so a tile's predecessors have all
 //   been taken by running CTAs. Each CTA ranks its tile stably in shared
@@ -46,14 +48,22 @@
 //   over tiles), looks back over the
 //   predecessors' words for its exclusive prefix (decoupled look-back),
 //   reorders the tile by digit in shared memory and writes each digit's
-//   run to its place, so the stores of a run coalesce.
+//   run to its place, so the stores of a run coalesce. Only the digits a
+//   pass has take part in its look-back.
 // Measured on the card and left out: reading 2-16 look-back words at once
 // (slower), and prefetching the next tile with cp.async (its ticket,
 // taken a tile early, delays the look-back of the tiles after it as much
 // as the prefetch saves).
-// Digits are BITS = 8 bits wide: 4 passes at end_bit 29, 256 digits. 10-bit
-// digits (3 passes, 1024 digits) measured slower on the card: shorter runs
-// a digit and four times the look-back (PERF.md).
+// Digits are at most BITS = 8 bits wide, the end_bit bits split evenly over
+// ceil(end_bit / 8) passes (8 + 7 + 7 + 7 at end_bit 29): a pass of fewer
+// digits has longer runs and less look-back, and measured faster
+// (PERF.md). 10-bit digits (3 passes, 1024 digits) measured slower on the
+// card: shorter runs a digit and four times the look-back.
+// Measured on the card and left out: a two-level sort that groups the
+// pairs by tile with two such passes over the tile bits and then sorts
+// each tile's segment by depth16 in shared memory; its shared-memory
+// passes over segments of some 2,300 pairs cost as much as global passes
+// (PERF.md).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -67,6 +77,7 @@ constexpr int WARPS = THREADS / 32;
 constexpr int ITEMS = 16;                  // keys a thread holds
 constexpr int TILE = THREADS * ITEMS;      // keys a tile
 constexpr int MAX_PASSES = 4;
+constexpr int HIST_THREADS = 1024;
 constexpr unsigned FULL = 0xFFFFFFFFu;
 constexpr unsigned SIGN = 0x80000000u;
 constexpr unsigned FLAG_A = 1u << 30;      // the tile's own count
@@ -87,6 +98,16 @@ __device__ __forceinline__ unsigned load_relaxed(const unsigned* p) {
 
 __device__ __forceinline__ void store_relaxed(unsigned* p, unsigned v) {
   asm volatile("st.relaxed.gpu.u32 [%0], %1;" :: "l"(p), "r"(v) : "memory");
+}
+
+// Pass p's digit: bits [shift, shift + width) of the u32 key, the end_bit
+// bits split evenly over the passes, the wider digits first.
+__host__ __device__ __forceinline__ void digit_bits(int end_bit, int p,
+                                                    int* shift, int* width) {
+  const int passes = (end_bit + BITS - 1) / BITS;
+  const int w = end_bit / passes, wide = end_bit % passes;
+  *shift = p * w + (p < wide ? p : wide);
+  *width = w + (p < wide ? 1 : 0);
 }
 
 // The digit of a pass: bits [shift, shift + width) of the u32 key.
@@ -133,7 +154,7 @@ __device__ __forceinline__ void block_exclusive_scan(const unsigned (&v)[PT],
   __syncthreads();
 }
 
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(HIST_THREADS)
 histogram_kernel(const int* __restrict__ keys,
                  const long long* __restrict__ total, long long k_max,
                  int end_bit, unsigned* __restrict__ hist,
@@ -141,47 +162,57 @@ histogram_kernel(const int* __restrict__ keys,
   __shared__ unsigned h[MAX_PASSES * D];
   const long long n = live_count(total, k_max);
   const int passes = (end_bit + BITS - 1) / BITS;
-  const int lane = threadIdx.x & 31;
-  for (int i = threadIdx.x; i < passes * D; i += THREADS) h[i] = 0;
+  for (int i = threadIdx.x; i < passes * D; i += HIST_THREADS) h[i] = 0;
   __syncthreads();
-  const long long stride = (long long)gridDim.x * THREADS;
-  const bool aligned = ((uintptr_t)keys & 15) == 0;
-  // warp-uniform steps of 128 consecutive keys, four a lane
-  for (long long w0 = ((long long)blockIdx.x * THREADS + threadIdx.x - lane)
-                      * 4;
-       w0 < n; w0 += stride * 4) {
-    const long long i0 = w0 + 4 * lane;
-    unsigned u[4];
-    if (aligned && i0 + 3 < n) {
-      const int4 q = *reinterpret_cast<const int4*>(keys + i0);
-      u[0] = (unsigned)q.x; u[1] = (unsigned)q.y;
-      u[2] = (unsigned)q.z; u[3] = (unsigned)q.w;
-    } else {
+  int shift[MAX_PASSES], width[MAX_PASSES];
 #pragma unroll
-      for (int q = 0; q < 4; ++q)
-        u[q] = i0 + q < n ? (unsigned)keys[i0 + q] : 0u;
+  for (int p = 0; p < MAX_PASSES; ++p)
+    digit_bits(end_bit, p < passes ? p : 0, &shift[p], &width[p]);
+  const long long stride = (long long)gridDim.x * HIST_THREADS * 4;
+  const bool aligned = ((uintptr_t)keys & 15) == 0;
+  // four groups of four consecutive keys a thread, the loads in flight
+  // together
+  for (long long b = ((long long)blockIdx.x * HIST_THREADS + threadIdx.x) * 4;
+       b < n; b += stride * 4) {
+    unsigned u[4][4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const long long i0 = b + r * stride;
+      if (aligned && i0 + 3 < n) {
+        const int4 q = *reinterpret_cast<const int4*>(keys + i0);
+        u[r][0] = (unsigned)q.x; u[r][1] = (unsigned)q.y;
+        u[r][2] = (unsigned)q.z; u[r][3] = (unsigned)q.w;
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          u[r][q] = i0 + q < n ? (unsigned)keys[i0 + q] : 0u;
+      }
     }
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const bool ok = i0 + q < n;
-      const unsigned key = u[q] ^ SIGN;
-      for (int p = 0; p < passes; ++p) {
-        const int shift = p * BITS;
-        const int width = min(BITS, end_bit - shift);
-        const unsigned d = digit_of(key, shift, (1u << width) - 1);
-        if (ok) atomicAdd(&h[p * D + d], 1u);
+    for (int r = 0; r < 4; ++r) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        if (b + r * stride + q >= n) continue;
+        const unsigned key = u[r][q] ^ SIGN;
+#pragma unroll
+        for (int p = 0; p < MAX_PASSES; ++p)
+          if (p < passes)
+            atomicAdd(&h[p * D + digit_of(key, shift[p],
+                                          (1u << width[p]) - 1)], 1u);
       }
     }
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < passes * D; i += THREADS)
+  for (int i = threadIdx.x; i < passes * D; i += HIST_THREADS)
     if (h[i]) atomicAdd(&hist[i], h[i]);
   // the look-back words of the tiles the passes run
-  const long long gid = (long long)blockIdx.x * THREADS + threadIdx.x;
+  const long long gid = (long long)blockIdx.x * HIST_THREADS + threadIdx.x;
   const long long words = (n + TILE - 1) / TILE * D;
   for (int p = 0; p < passes; ++p) {
     unsigned* st = status + (long long)p * tiles_max * D;
-    for (long long i = gid; i < words; i += stride) st[i] = 0;
+    for (long long i = gid; i < words;
+         i += (long long)gridDim.x * HIST_THREADS)
+      st[i] = 0;
   }
 }
 
@@ -288,8 +319,9 @@ pass_kernel(const int* __restrict__ src_k, const int* __restrict__ src_v,
 #pragma unroll
     for (int k = 0; k < PT; ++k) {
       const int d = threadIdx.x * PT + k;
-      store_relaxed(&status[tile * D + d],
-                    (tile == 0 ? FLAG_P : FLAG_A) | (unsigned)goff[d]);
+      if (d <= (int)mask)
+        store_relaxed(&status[tile * D + d],
+                      (tile == 0 ? FLAG_P : FLAG_A) | (unsigned)goff[d]);
     }
     // stable ranks within the warp's keys, step by step
 #pragma unroll
@@ -320,11 +352,12 @@ pass_kernel(const int* __restrict__ src_k, const int* __restrict__ src_v,
     }
     block_exclusive_scan<PT>(cnt, start, sums);
     // decoupled look-back: the digit's count in the tiles before this one
+    // (a digit past the pass's width holds no key: no look-back)
 #pragma unroll
     for (int k = 0; k < PT; ++k) {
       const int d = threadIdx.x * PT + k;
       unsigned excl = 0;
-      if (tile > 0) {
+      if (tile > 0 && d <= (int)mask) {
         for (long long j = tile - 1;; --j) {
           unsigned w;
           do {
@@ -366,7 +399,7 @@ pass_kernel(const int* __restrict__ src_k, const int* __restrict__ src_v,
 }
 
 struct Grids {
-  int hist = 0, pass = 0, pass_last = 0;
+  int hist = 0, tail = 0, pass = 0, pass_last = 0;
 };
 
 // The persistent grids: every CTA that fits on the card at once.
@@ -388,9 +421,13 @@ int grids(Grids* g) {
     if (e == cudaSuccess) cached.pass_last = sms * (per > 0 ? per : 1);
     if (e == cudaSuccess)
       e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per, histogram_kernel, THREADS, 0);
+          &per, histogram_kernel, HIST_THREADS, 0);
+    if (e == cudaSuccess) cached.hist = sms * (per > 0 ? per : 1);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, tail_kernel,
+                                                        THREADS, 0);
     if (e != cudaSuccess) return (int)e;
-    cached.hist = sms * (per > 0 ? per : 1);
+    cached.tail = sms * (per > 0 ? per : 1);
     ready = true;
   }
   *g = cached;
@@ -440,22 +477,23 @@ extern "C" int gs_sort_pairs(void* keys_, void* vals_, void* tmp_keys,
   err = (int)cudaMemsetAsync(hist, 0, ((size_t)passes * D + passes) * 4,
                              stream);
   if (err) return err;
-  const long long hist_grid = (k_max + THREADS - 1) / THREADS;
-  histogram_kernel<<<(int)(hist_grid < g.hist ? hist_grid : g.hist), THREADS,
-                     0, stream>>>(keys, total, k_max, end_bit, hist, status,
-                                  tiles_max);
+  const long long hist_grid = (k_max + 16 * HIST_THREADS - 1) /
+                              (16 * HIST_THREADS);
+  histogram_kernel<<<(int)(hist_grid < g.hist ? hist_grid : g.hist),
+                     HIST_THREADS, 0, stream>>>(keys, total, k_max, end_bit,
+                                                hist, status, tiles_max);
   err = (int)cudaGetLastError();
   if (err) return err;
   const long long tail_grid = (k_max + 2 * THREADS - 1) / (2 * THREADS);
-  tail_kernel<<<(int)(tail_grid < g.hist ? tail_grid : g.hist), THREADS, 0,
+  tail_kernel<<<(int)(tail_grid < g.tail ? tail_grid : g.tail), THREADS, 0,
                 stream>>>(total, k_max, out_k, out_v);
   err = (int)cudaGetLastError();
   if (err) return err;
   const int* sk = keys;
   const int* sv = vals;
   for (int p = 0; p < passes; ++p) {
-    const int shift = p * BITS;
-    const int width = min(BITS, end_bit - shift);
+    int shift, width;
+    digit_bits(end_bit, p, &shift, &width);
     unsigned* st = status + (long long)p * tiles_max * D;
     if (p == passes - 1) {
       const long long grid = tiles_max < g.pass_last ? tiles_max : g.pass_last;

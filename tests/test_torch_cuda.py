@@ -806,6 +806,122 @@ def test_sort_pairs_kernel_keeps_equal_keys_in_order(cuda, end_bit):
         assert torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
 
 
+def _pairs(kind, T, k_max, total, seed, dev):
+    """An emission-shaped (k_max + 1,) int32 key and value buffer, keys
+    ``tile << 16 | depth16`` over T tiles: "random", "holes", "ties" or
+    "oversize" (six tenths of the pairs on one tile)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    size = k_max + 1
+    tile = torch.randint(0, T, (size,), generator=g, device=dev)
+    depth = torch.randint(0, 1 << 16, (size,), generator=g, device=dev)
+    if kind == "ties":
+        tile = tile % min(T, 4)
+        depth = torch.tensor([3, 4, 40000, 0xFFFF], device=dev)[depth % 4]
+    if kind == "oversize":
+        r = torch.rand(size, generator=g, device=dev)
+        tile = torch.where(r < 0.6, T // 2, tile)
+        depth = torch.where(r < 0.2, 1234, depth)
+    u = (tile << 16) | depth
+    if kind == "holes":
+        u = torch.where(torch.rand(size, generator=g, device=dev) < 0.1,
+                        INVALID_KEY, u)
+    vals = torch.randint(-2**31, 2**31, (size,), generator=g, device=dev,
+                         dtype=torch.int64).to(torch.int32)
+    return ((u - so.SIGN).to(torch.int32), vals,
+            torch.tensor(total, dtype=torch.int64, device=dev))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,T,k_max,total", [
+    ("random", 8160, 50_000, 0), ("random", 8160, 400_000, 400_009),
+    ("holes", 8160, 300_000, 250_001), ("ties", 8160, 300_000, 300_000),
+    ("oversize", 8160, 500_000, 480_000), ("random", 32400, 600_000, 599_999),
+    ("random", 1, 40_000, 30_000), ("oversize", 32400, 200_000, 200_000)])
+def test_sort_pairs_kernel_matches_plain_on_edge_buffers(cuda, kind, T, k_max,
+                                                         total):
+    """The sort bit-equal to its plain version at n = 0, at a full buffer,
+    with holes, on tie-heavy keys, with one tile holding most pairs, at
+    end_bit 31 (digits 8 + 8 + 8 + 7) and on a one-tile grid (end_bit 17:
+    6 + 6 + 5)."""
+    keys, vals, tot = _pairs(kind, T, k_max, total, T + k_max, cuda)
+    end_bit = so.sort_key_bits(T)
+    ref = so.sort_pairs_reference(keys, vals, tot, k_max, end_bit)
+    out = so.sort_pairs(keys.clone(), vals.clone(), tot, k_max, end_bit)
+    assert torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
+
+
+def _narrow_rows(n, g, dev):
+    """Rows of every pass count of screen_sort's narrowing: no live key,
+    one, all equal, three cells whose depths span 8 bits (the halves
+    narrowed apart), and spans hi - lo of 2^b - 2 and 2^b - 1 for b = 8,
+    16, 24 and 31, a tenth of each row dead."""
+    rows = []
+    for kind in ("none", "one", "equal", "halves", 8, 9, 16, 17, 24, 25, 31,
+                 32):
+        dead = torch.rand(n, generator=g, device=dev) < 0.1
+        key = torch.full((n,), -1, dtype=torch.int64, device=dev)
+        if kind == "one":
+            key[n // 3] = 12345
+            dead[:] = False
+        elif kind == "equal":
+            key = torch.where(dead, -1, 0x00AB0CD0).to(torch.int64)
+        elif kind == "halves":      # three cells, depths over 8 bits
+            cell = torch.tensor([0x10, 0x20, 0x90], device=dev)[
+                torch.randint(0, 3, (n,), generator=g, device=dev)]
+            key = (cell << 16) | torch.randint(100, 301, (n,), generator=g,
+                                               device=dev)
+        elif kind != "none":
+            b = kind if kind in (8, 16, 24, 31) else kind - 1
+            span = (1 << b) - (2 if kind in (8, 16, 24, 31) else 1)
+            lo = 0x40000000 if b < 31 else 0
+            key = lo + torch.randint(0, span + 1, (n,), generator=g,
+                                     device=dev)
+            key = torch.where(torch.rand(n, generator=g, device=dev) < 0.1,
+                              0xFFFFFFFF, key)
+            key[1::97] = lo + span
+            key[0], key[1] = lo, lo + span
+            dead[:2] = False
+        rows.append((b2.i32(key), dead))
+    return (torch.stack([r[0] for r in rows]),
+            torch.stack([r[1] for r in rows]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [8192, 1000, 4096])
+def test_screen_sort_kernel_narrows_each_row(cuda, n):
+    """The row sort on rows of 0 to 4 radix passes, each span at its
+    boundary, bit-equal to the plain version; 1000 is no multiple of 16,
+    so those rows take the plain loads in place of the bulk copies."""
+    g = torch.Generator(device=cuda).manual_seed(n)
+    key, taken = _narrow_rows(n, g, cuda)
+    words = tuple(torch.randint(-2**31, 2**31, key.shape, generator=g,
+                                device=cuda, dtype=torch.int64)
+                  .to(torch.int32) for _ in range(5))
+    got = b2._screen_sort_cuda(key, taken, words)
+    want = b2.screen_sort_reference(key, taken, words)
+    for k, (a, b) in enumerate(zip(got, want)):
+        assert torch.equal(a, b), k
+
+
+@pytest.mark.gpu
+def test_screen_sort_kernel_walks_more_rows_than_ctas(cuda):
+    """More rows than the persistent grid holds: each CTA sorts several,
+    its next row's keys arriving while it gathers this one's payload."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    SB, n = 700, 8192
+    key = torch.randint(0, 2**31, (SB, n), generator=g, device=cuda,
+                        dtype=torch.int64)
+    key = b2.i32(key >> (torch.arange(SB, device=cuda)[:, None] % 24))
+    taken = torch.rand(SB, n, generator=g, device=cuda) < 0.05
+    words = tuple(torch.randint(-2**31, 2**31, (SB, n), generator=g,
+                                device=cuda, dtype=torch.int64)
+                  .to(torch.int32) for _ in range(5))
+    got = b2._screen_sort_cuda(key, taken, words)
+    want = b2.screen_sort_reference(key, taken, words)
+    for k, (a, b) in enumerate(zip(got, want)):
+        assert torch.equal(a, b), k
+
+
 def test_sort_kernel_wrappers_refuse_what_they_do_not_take():
     """The emission's and the radix sort's kernel wrappers refuse CPU
     tensors and dtypes or ranges they do not take, with no fallback."""
