@@ -81,7 +81,10 @@ nvcc per source, all started together), then:
    with its walk (see phase 7) and the ms per G evaluations and FP32-issue
    share they imply; and the exact frame's Projection and Sort kernels on
    its 1080p inputs: projection_readable (f32 SH, the exact frame's; bf16
-   logged), emit_exact (the write-once emission into the static 10N
+   logged), emit_plan (the emission's plan: every EmitPlan field
+   bit-equal, timed as graph replays beside the plain plan and
+   torch.cumsum of the capped counts, its library_ms, with its device
+   kernels a call), emit_exact (the write-once emission into the static 10N
    buffer, on the arguments the frame's emission passed it; positions
    [0, n) compared) and sort_pairs (the radix sort of the emission's n
    live pairs; its pairs a tile logged), each bit-equal to its plain
@@ -94,7 +97,8 @@ nvcc per source, all started together), then:
    against 64-bit ones, and the same call on the n live pairs alone,
    logged); then
    torch.profiler over three eager Sort stages (profile_sort: kernels and
-   aten ops by device ms a stage); both projections at SH degree 0
+   aten ops by device ms a stage, with the plain plan and then with
+   emit_plan's kernel); both projections at SH degree 0
    (benchmarks/configs.py's first workload) bit-equal to their plain
    versions; and the Blocks stage's kernels (block_frame, words and
    cooked, big_lanes, and screen_pack, screen_sort and big_set): the
@@ -277,13 +281,15 @@ nvcc per source, all started together), then:
    against on logged), and screen_pack, screen_sort and big_set
    bit-equal to their plain versions on its Blocks arguments, with the
    radix passes screen_sort's narrowing gives its rows; then the exact
-   frame's emission at 3840x2160 on config 5's scene and sort_pairs at
+   frame's emission plan (emit_plan bit-equal to its plain version and
+   timed), its emission at 3840x2160 on config 5's scene and sort_pairs at
    end_bit 31 on it (a 100M-slot buffer), bit-equal to its plain version
    and timed, with its pairs a tile.
 
 The launch counters are set to 0 just before each full-frame path and read
 just after it; the `launches` of a kernel come from the path that runs it
-(projection_readable's, emit_exact's, sort_pairs' and render_exact's from
+(projection_readable's, emit_plan's, emit_exact's, sort_pairs' and
+render_exact's from
 phase 8's exact frames, screen_pack's and screen_sort's from phase 5's
 quality="fast" frames, sfu_probe's from phase 9's timed runs). The other numbers
 of the kernels line come from phase 6, the main paths' inputs, and phase
@@ -380,6 +386,7 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
     # XLA there, no Pallas kernel
     "projection_readable": (CSRC + "projection_readable.cu",
                             TPU + "projection.py:57"),
+    "emit_plan": (CSRC + "emit_plan.cu", TPU + "sort.py:77"),
     "emit_exact": (CSRC + "emit_exact.cu", TPU + "sort.py:43"),
     "sort_pairs": (CSRC + "sort_pairs.cu", TPU + "sort.py:187"),
     "block_frame": (CSRC + "block_frame.cu", TPU + "blocks2.py:470"),
@@ -497,6 +504,19 @@ BOUND_COUNTS = {
         "each transcendental one; special functions: not counted (sfu_ms "
         "null): a few divides, square roots and a pow a splat against 313 "
         "bytes"),
+    "emit_plan": (
+        "the exact emission's plan (each splat's capped count and offset, "
+        "each dense group's compacted slots and the totals): bytes: each "
+        "splat's valid flag and num_tiles read once (5 B) and its capped "
+        "count and offset written once (12 B), each group slot's id, count "
+        "and offset (16 B) and the totals written once; operations: not "
+        "counted (a few integer operations a splat); special functions: "
+        "none (sfu_ms null); ms: a CUDA graph of 20 calls replayed, over "
+        "20; plain_ms: emit_plan_reference eager (plain_graphed_ms: the "
+        "same as graph replays, its device time); library_ms: "
+        "torch.cumsum of the (P,) capped counts as int64, one of the plan's "
+        "outputs, as graph replays; launches_a_call: the device kernels "
+        "and memsets torch.profiler saw over 3 calls, a call"),
     "emit_exact": (
         "the write-once emission into the static sort buffer (the base and "
         "dense launches, no fill): bytes: the n = min(num_pairs, k_max) "
@@ -558,7 +578,12 @@ BOUND_COUNTS = {
         "(24 B) read once, its cooked row (64 B), rect (16 B) and depth16 "
         "(4 B) written once; operations: not counted (some 80 a lane); "
         "special functions: not counted (sfu_ms null); ms: a CUDA graph of "
-        "20 launches replayed, over 20; plain_ms: big_set_reference"),
+        "20 launches replayed, over 20; plain_ms: big_set_reference; "
+        "empty_ms: an empty kernel of the same grid, replayed the same way "
+        "(the launch's floor); sector_bound_ms: the 32-byte sectors the "
+        "lanes' scattered word reads move (distinct sectors of each word "
+        "array), with the coalesced reads and writes, over the memory "
+        "rate"),
     "bin_blocks": (
         "bytes: each block's rect and depth range (24 B) read once, the "
         "bitmap and count (8 B) of each block in a tile's list, and the "
@@ -877,9 +902,10 @@ def emit_vs_plain(tag: str, prj, cfg, capacity: int | None = None,
     kk, kv, kn, ko = so.emit_pairs(*inputs, cfg, capacity,
                                    base=recorder("base", so.emit_base),
                                    dense=recorder("dense", so.emit_dense))
-    rk, rv_, rn, ro = so.emit_pairs(*inputs, cfg, capacity,
-                                    base=so.emit_base_reference,
-                                    dense=so.emit_dense_reference)
+    with plan_dispatch(plain=True):
+        rk, rv_, rn, ro = so.emit_pairs(*inputs, cfg, capacity,
+                                        base=so.emit_base_reference,
+                                        dense=so.emit_dense_reference)
     torch.cuda.synchronize()
     k_max = kk.shape[0] - 1
     n = min(int(kn), k_max)
@@ -920,6 +946,76 @@ def emit_vs_plain(tag: str, prj, cfg, capacity: int | None = None,
           and counts[2] == counts[3], f"{tag}: differs from the plain "
           f"version: {bad}, {counts}")
     return 0.0, ms, plain_ms, bnd, counts[0], (kk, kv, kn)
+
+
+def plan_dispatch(plain: bool = False, calls: list | None = None):
+    """The plan's kernel wrapper (``sort._emit_plan_cuda``) replaced inside
+    a block (``_dispatch``): with ``plain``, the Sort stage's plan as it ran
+    before its kernel (``emit_plan_reference``)."""
+    return _dispatch(((so, "_emit_plan_cuda", so.emit_plan_reference,
+                       "plan"),), plain, calls)
+
+
+def plan_differ(a, b) -> dict:
+    """{field: entries that differ} of two EmitPlans (a dtype that
+    differs counts every entry)."""
+    pairs = [(f, getattr(a, f), getattr(b, f)) for f in
+             ("nt_capped", "offsets", "base_total", "total", "overflow")]
+    for g, (ga, gb) in enumerate(zip(a.groups, b.groups)):
+        pairs += [(f"group{g}.{f}", getattr(ga, f), getattr(gb, f))
+                  for f in ("idx", "nt_c", "off_c", "pos0")]
+    bad = {f: int(x.numel()) if x.dtype != y.dtype or x.shape != y.shape
+           else int((x != y).sum()) for f, x, y in pairs}
+    if len(a.groups) != len(b.groups) or any(
+            ga.width != gb.width for ga, gb in zip(a.groups, b.groups)):
+        bad["groups"] = 1
+    return {f: n for f, n in bad.items() if n}
+
+
+def plan_vs_plain(tag: str, prj, cfg, full: bool = True) -> dict | None:
+    """The plan's kernel against its plain version on a frame's projected
+    splats: every EmitPlan field bit-equal, one count a call. With
+    ``full``, timed as graph replays beside the plain version (eager and
+    graphed), torch.cumsum of the capped counts (library_ms) and its byte
+    bound, with its device kernels a call; returns the record."""
+    v, nt = prj.valid, prj.num_tiles
+    kernels.reset_launch_counts()
+    k = so.emit_plan(v, nt, cfg)
+    count = kernels.launch_counts()["emit_plan"]
+    r = so.emit_plan_reference(v, nt, cfg)
+    torch.cuda.synchronize()
+    bad = plan_differ(k, r)
+    P = v.shape[0]
+    live = [int(g.nt_c.count_nonzero()) for g in k.groups]
+    log(f"[{tag}] {P} splats, groups' live slots {live} of "
+        f"{[g.idx.shape[0] for g in k.groups]}, base total "
+        f"{int(k.base_total)}, total {int(k.total)}, overflow "
+        f"{int(k.overflow)}: fields not bit-equal to emit_plan_reference "
+        f"{json.dumps(bad)}, launches counted {count}")
+    check(not bad and count == 1, f"{tag}: differs from the plain version "
+          f"{bad} or counted {count} launches")
+    if not full:
+        return None
+    ms = time_graphed_ms(lambda: so._emit_plan_cuda(v, nt, cfg), 20)
+    plain_ms = time_ms(lambda: so.emit_plan_reference(v, nt, cfg), 3)
+    plain_graphed = time_graphed_ms(lambda: so.emit_plan_reference(v, nt,
+                                                                   cfg), 3)
+    lib_ms = time_graphed_ms(lambda: torch.cumsum(k.nt_capped, 0,
+                                                  dtype=torch.int64), 20)
+    split = kernel_split(lambda: so._emit_plan_cuda(v, nt, cfg))
+    n_bytes = nbytes(v, nt, k.nt_capped, k.offsets, k.total) + sum(
+        nbytes(g.idx, g.nt_c, g.off_c, g.pos0) for g in k.groups) + nbytes(
+        k.base_total, k.overflow)
+    bnd = bound(n_bytes, 0, None)
+    log(f"[{tag}] kernel {ms:.4f} ms (graph replays of 20 calls; device "
+        f"kernels and memsets a call {json.dumps(split)}), plain "
+        f"{plain_ms:.4f} ms eager, {plain_graphed:.4f} ms as graph replays, "
+        f"library (torch.cumsum of the capped counts, int64) {lib_ms:.4f} "
+        f"ms, {n_bytes / 1e6:.1f} MB moved, {bound_text(bnd)}")
+    rec = record("emit_plan", 0.0, ms, plain_ms, bnd)
+    rec.update(library_ms=lib_ms, plain_graphed_ms=plain_graphed,
+               launches_a_call=sum(n for n, _ in split.values()))
+    return rec
 
 
 def sort_bound(n: int, k_max: int) -> dict:
@@ -1687,8 +1783,8 @@ def engine_frames(tag: str, r, cloud, frames: int, expect) -> dict:
     return launches
 
 
-EXACT_PATH = ("projection_readable", "emit_exact", "sort_pairs",
-              "render_exact")
+EXACT_PATH = ("projection_readable", "emit_plan", "emit_exact",
+              "sort_pairs", "render_exact")
 FAST_PATH = ("projection", "block_frame", "big_lanes", "big_set",
              "bin_blocks", "bin_bigs", "render_v3")
 
@@ -1909,6 +2005,7 @@ def exact_stages_1080p(full, base, worst: dict) -> list:
     prj = project_splats(full.means, full.cov3d, full.opacity, full.sh,
                          full.upload_time, uni.view, uni.proj,
                          uni.camera_pos, uni.model_scale, uni.time, base)
+    rec.append(plan_vs_plain("6 emit_plan 1080p", prj, base))
     e, ms, plain_ms, bnd, n, emitted = emit_vs_plain("6 emit_exact 1080p",
                                                      prj, base)
     rec.append(record("emit_exact", e, ms, plain_ms, bnd))
@@ -1942,6 +2039,11 @@ def exact_sort_4k(cloud) -> dict:
     prj = project_splats(cloud.means, cloud.cov3d, cloud.opacity, cloud.sh,
                          cloud.upload_time, uni.view, uni.proj,
                          uni.camera_pos, uni.model_scale, uni.time, cfg)
+    plan_vs_plain("14 emit_plan 4K", prj, cfg, full=False)
+    ms = time_graphed_ms(lambda: so._emit_plan_cuda(prj.valid, prj.num_tiles,
+                                                    cfg), 20)
+    log(f"[14 emit_plan 4K] {prj.valid.shape[0]} splats: kernel {ms:.4f} ms "
+        f"(graph replays of 20 calls)")
     keys, vals, total, _ = so.emit_pairs(prj.valid, prj.rect, prj.num_tiles,
                                          prj.depth16, cfg)
     del prj
@@ -1955,24 +2057,29 @@ def exact_sort_4k(cloud) -> dict:
                          cfg)
 
 
-def profile_sort(tag: str, full, cfg, capacity: int, frames: int = 3) -> None:
+def profile_sort(tag: str, full, cfg, capacity: int, frames: int = 3,
+                 plain_plan: bool = False) -> None:
     """torch.profiler over the exact frame's Sort stage alone, eager, on
     the projected splats of ``frames`` orbit cameras: the device's busy
     time a stage, its kernels and the aten ops that launch them, each with
-    launches and device ms a stage."""
+    launches and device ms a stage. With ``plain_plan``, the stage's plan
+    runs as it did before its kernel (``plan_dispatch``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
     cams = gt.orbit_trajectory(frames, radius=5.0, target=(0, 0, 6.0))
     stages = [dict(_exact_stages(full, gt.make_uniforms(c, cfg), cfg,
                                  capacity)) for c in cams]
     inputs = [s["Projection"](None) for s in stages]
-    stages[0]["Sort"](inputs[0])                            # warm-up
-    torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA]) as prof:
-        for s, x in zip(stages, inputs):
-            s["Sort"](x)
+    if plain_plan:
+        tag += " plain plan"
+    with plan_dispatch(plain=plain_plan):
+        stages[0]["Sort"](inputs[0])                        # warm-up
         torch.cuda.synchronize()
+        with torch_profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA]) as prof:
+            for s, x in zip(stages, inputs):
+                s["Sort"](x)
+            torch.cuda.synchronize()
     kern: dict = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
@@ -2218,19 +2325,33 @@ def screen_sort_record(run: dict) -> dict:
 
 def big_set_record(run: dict) -> dict:
     """The big set on the arguments its stage passed it, timed beside its
-    plain version and its byte bound."""
+    plain version, its byte bound, an empty kernel of its grid (the
+    launch's floor) and the bound of the 32-byte sectors its scattered
+    word reads move."""
     a, kw, out = run["bigset"]
     ms = time_graphed_ms(lambda: b2._big_set_cuda(*a, **kw), 20)
+    lib = kernels.library("big_set")
+    N = a[1].shape[0]
+    empty_ms = time_graphed_ms(lambda: kernels.check(lib.gs_big_set_empty(
+        N, kernels.stream_ptr(a[1].device)), "big_set empty launch"), 20)
     plain_ms = time_ms(lambda: b2.big_set_reference(*a, **kw), 3)
     words, tk_idx, tk_ok = a[:3]
-    N = tk_idx.shape[0]
-    n_bytes = nbytes(tk_idx, tk_ok) + N * 4 * len(words) + nbytes(
-        out.table, out.rect, out.depth16)
+    written = nbytes(out.table, out.rect, out.depth16)
+    n_bytes = nbytes(tk_idx, tk_ok) + N * 4 * len(words) + written
     bnd = bound(n_bytes, 0, None)
+    # every lane reads its six words (a pad lane splat 0's): each distinct
+    # 8-word run of a word array is one 32-byte sector
+    sectors = int(torch.unique(tk_idx // 8).numel()) * len(words)
+    sector_bytes = nbytes(tk_idx, tk_ok) + sectors * 32 + written
+    sector_ms = sector_bytes / HBM_BYTES_PER_S * 1e3
     log(f"[6 big_set 1080p] {N} lanes ({int(tk_ok.sum())} valid): kernel "
-        f"{ms:.4f} ms (graph replays of 20 launches), plain {plain_ms:.4f} "
-        f"ms, {bound_text(bnd)}")
-    return record("big_set", 0.0, ms, plain_ms, bnd)
+        f"{ms:.4f} ms (graph replays of 20 launches), an empty kernel of "
+        f"its grid {empty_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"{bound_text(bnd)}; the scattered reads move {sectors} sectors "
+        f"({sector_bytes / 1e6:.2f} MB in all: {sector_ms:.4f} ms)")
+    rec = record("big_set", 0.0, ms, plain_ms, bnd)
+    rec.update(empty_ms=empty_ms, sector_bound_ms=sector_ms)
+    return rec
 
 
 def sort_ties_vs_plain(run: dict) -> None:
@@ -3490,8 +3611,9 @@ def phase_exact_graphs(full, base, capacity: int, card: str,
         f"capacity {capacity}, boundary quirk on", eager,
         lambda: ExactFrameGraph(full, cfg, values[0], capacity), values,
         EXACT_GRAPH_FIELDS, frames,
-        lambda n: n == {"projection_readable": 1, "emit_exact": groups,
-                        "sort_pairs": 1, "render_exact": 1})
+        lambda n: n == {"projection_readable": 1, "emit_plan": 1,
+                        "emit_exact": groups, "sort_pairs": 1,
+                        "render_exact": 1})
     # the engine: one capture over the orbit and a heatmap toggle, at the
     # capacity phase 8 settled on; then a forced regrowth
     r = gt.Rasterizer(full, texture_size=(w, h), tile_capacity=capacity)
@@ -3735,6 +3857,7 @@ def sorts_only(card: str, other: str | None) -> int:
     prj = project_splats(full.means, full.cov3d, full.opacity, full.sh,
                          full.upload_time, uni.view, uni.proj,
                          uni.camera_pos, uni.model_scale, uni.time, base)
+    plan = plan_vs_plain("6 emit_plan 1080p", prj, base)
     keys, vals, total, _ = so.emit_pairs(prj.valid, prj.rect, prj.num_tiles,
                                          prj.depth16, base)
     del prj
@@ -3748,7 +3871,7 @@ def sorts_only(card: str, other: str | None) -> int:
     r.update(library_ms=srt["library_ms"],
              library_ms_live=srt["library_ms_live"],
              pass_bytes=srt["pass_bytes"])
-    rec = [r]
+    rec = [plan, r]
     sort_edge_cases()
     fast = base.replace(quality="fast")
     run = blocks_vs_plain("6 blocks quality=fast 1080p", cloud, fast)
@@ -3761,7 +3884,9 @@ def sorts_only(card: str, other: str | None) -> int:
     if other:
         ab_sorts(other, emitted, run, base, card)
     del emitted, keys, vals, run
-    profile_sort("6 exact 1080p", full, base, 2048)   # Sort ignores it
+    for plain_plan in (True, False):    # Sort ignores the capacity
+        profile_sort("6 exact 1080p", full, base, 2048,
+                     plain_plan=plain_plan)
     profile_stage("6 blocks quality=fast", cloud, fast, "Blocks")
     del cloud, full
     gc.collect()
@@ -3833,7 +3958,9 @@ def main() -> int:
     rec += phase_binning(cloud, base)
     rec += exact_stages_1080p(full, base, worst)
     rec.append(exact_1080p(full, base, capacity, worst["render_exact"]))
-    profile_sort("6 exact 1080p", full, base, capacity)
+    for plain_plan in (True, False):
+        profile_sort("6 exact 1080p", full, base, capacity,
+                     plain_plan=plain_plan)
     rec.append(probe)
     launches["sfu_probe"] = probe_launches
     BUILD.mkdir(parents=True, exist_ok=True)

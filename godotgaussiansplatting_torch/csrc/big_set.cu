@@ -82,6 +82,9 @@ big_set_kernel(Words w, const long long* __restrict__ tk_idx,
   depth16[i] = valid ? (int)d : 0xFFFF;
 }
 
+// The launch's floor: the same grid, no work.
+__global__ void __launch_bounds__(THREADS) empty_kernel() {}
+
 }  // namespace
 
 // key, ix, iy, pc1, pc2, rgb9: (P,) int32 words; tk_idx (N,) int64 flat
@@ -100,5 +103,14 @@ extern "C" int gs_big_set(const void* key, const void* ix, const void* iy,
                    (cudaStream_t)stream>>>(
       w, (const long long*)tk_idx, (const uint8_t*)tk_ok, (float4*)table,
       (int4*)rect, (int*)depth16, N, gx, gy, ts);
+  return (int)cudaGetLastError();
+}
+
+// An empty kernel of gs_big_set's grid for N lanes: what its launch alone
+// costs.
+extern "C" int gs_big_set_empty(int N, void* stream) {
+  if (N <= 0) return 0;
+  empty_kernel<<<(N + THREADS - 1) / THREADS, THREADS, 0,
+                 (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }

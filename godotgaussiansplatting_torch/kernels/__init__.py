@@ -61,6 +61,7 @@ SIGNATURES = {
     },
     "big_set": {
         "gs_big_set": [_P] * 11 + [_I] * 4 + [_P],
+        "gs_big_set_empty": [_I, _P],
     },
     "bin_blocks": {
         "gs_bin_blocks": [_P] * 22 + [_I] * 6 + [_P],
@@ -71,6 +72,10 @@ SIGNATURES = {
     "bin_bigs": {
         "gs_bin_bigs": [_P] * 12 + [_I] * 6 + [_P],
         "gs_bin_bigs_chunk": [],
+    },
+    "emit_plan": {
+        "gs_emit_plan": [_P] * 10 + [_L, _P],
+        "gs_emit_plan_scratch_words": [_L],
     },
     "emit_exact": {
         "gs_emit_base": [_P] * 7 + [_I] * 2 + [_L, _P],
@@ -102,8 +107,9 @@ SIGNATURES = {
 }
 # One launch counter per kernel a wrapper launches (the v3 and the
 # block_frame libraries hold two each: the word and the cooked payload;
-# sfu_probe counts every body; emit_exact counts its base and each dense
-# group's launch; sort_pairs counts a sort, its histogram and passes;
+# sfu_probe counts every body; emit_plan counts a plan, its two kernels;
+# emit_exact counts its base and each dense group's launch; sort_pairs
+# counts a sort, its histogram and passes;
 # bin_blocks and bin_bigs count a binning, its six and four kernels;
 # bin_rank counts bin_blocks' stable ranking launched alone, its two).
 COUNTERS = ("projection", "projection_readable", "block_frame",
@@ -111,8 +117,8 @@ COUNTERS = ("projection", "projection_readable", "block_frame",
             "big_set", "bin_blocks", "bin_bigs",
             "bin_rank",
             "render_v3",
-            "render_v3_cooked", "render_v4", "render_exact", "emit_exact",
-            "sort_pairs", "sfu_probe")
+            "render_v3_cooked", "render_v4", "render_exact", "emit_plan",
+            "emit_exact", "sort_pairs", "sfu_probe")
 
 _libs: dict = {}
 _launches = {name: 0 for name in COUNTERS}

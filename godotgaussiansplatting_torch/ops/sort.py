@@ -25,12 +25,13 @@ That is the order JAX's stable sort of its whole slot matrices gives
 positions ``[0, n)``, ``n = min(total, k_max)``, each once, a hole as
 ``INVALID_KEY``; ``sort_pairs`` then sorts those n pairs stably and writes
 the output's tail ``[n, k_max)`` as ``(INVALID_KEY, 0)``, which equals one
-stable sort of the whole buffer. ``emit_base``, ``emit_dense`` and
-``sort_pairs`` send CUDA tensors to the kernels of csrc/emit_exact.cu and
-csrc/sort_pairs.cu and CPU tensors to their plain versions; the emission's
-plain versions scatter the same matrices into a buffer whose last slot
-takes the dropped pairs. The buffer holds the keys as int32 ``key ^
-0x80000000`` (the u32 order as a signed one).
+stable sort of the whole buffer. ``emit_plan`` (the groups' counts,
+offsets and compacted splats), ``emit_base``, ``emit_dense`` and
+``sort_pairs`` send CUDA tensors to the kernels of csrc/emit_plan.cu,
+csrc/emit_exact.cu and csrc/sort_pairs.cu and CPU tensors to their plain
+versions; the emission's plain versions scatter the same matrices into a
+buffer whose last slot takes the dropped pairs. The buffer holds the keys
+as int32 ``key ^ 0x80000000`` (the u32 order as a signed one).
 
 ``num_pairs`` is the emitted total, not clamped to ``k_max``, as in the
 JAX package (ROADMAP queue 3 #3).
@@ -38,6 +39,7 @@ JAX package (ROADMAP queue 3 #3).
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Tuple
 
 import torch
@@ -217,6 +219,164 @@ def _pair_buffers(k_max: int, dev: torch.device) -> tuple:
             torch.empty((k_max + 1,), dtype=torch.int32, device=dev))
 
 
+class EmitGroup(NamedTuple):
+    """One dense group of the plan: ``cap`` slots, the first
+    ``min(eligible, cap)`` live."""
+    idx: torch.Tensor      # (cap,) i32 the taken splats in splat order; 0 dead
+    nt_c: torch.Tensor     # (cap,) i32 their num_tiles; 0 in a dead slot
+    off_c: torch.Tensor    # (cap,) int64 exclusive prefix of nt_c
+    pos0: torch.Tensor     # () int64 the group's first emission position
+    width: int             # the tier's width, the giants' the grid's tiles
+
+
+class EmitPlan(NamedTuple):
+    """Where the emission puts each group's pairs (``emit_plan``)."""
+    nt_capped: torch.Tensor   # (P,) i32 base slots; 0 for a taken splat
+    offsets: torch.Tensor     # (P,) int64 their exclusive prefix
+    base_total: torch.Tensor  # () int64 the base group's positions
+    groups: tuple             # EmitGroup of each tier, then the giants
+    total: torch.Tensor       # () int64 every group's positions
+    overflow: torch.Tensor    # () int64 sum of num_tiles less total
+
+
+EMIT_PLAN_MAX_GROUPS = 4    # the kernel's (csrc/emit_plan.cu MAX_GROUPS)
+
+
+def _tiers(cfg: RasterizerConfig, tiers) -> tuple:
+    """The tier ladder: ``tiers`` (default ``cfg.exact_tiers``) less the
+    tiers no wider than the base cap."""
+    if tiers is None:
+        tiers = getattr(cfg, "exact_tiers", ()) or ()
+    return tuple((int(w), int(c)) for (w, c) in tiers
+                 if w > cfg.max_tiles_per_splat)
+
+
+def emit_plan_reference(proj_valid: torch.Tensor, num_tiles: torch.Tensor,
+                        cfg: RasterizerConfig, tiers=None) -> EmitPlan:
+    """Plain version of ``emit_plan``, the JAX package's plan in torch: a
+    tier takes the valid splats wider than the tier before it (the base cap
+    for the first) and at most its width, the giants those wider than the
+    last tier, each the first ``cap`` of them in splat order; a taken
+    splat's base count becomes 0. ``proj_valid`` (P,) bool, ``num_tiles``
+    (P,) i32."""
+    dev = num_tiles.device
+    P = num_tiles.shape[0]
+    max_t = cfg.max_tiles_per_splat
+
+    def rank_of(mask):
+        return torch.cumsum(mask, 0, dtype=torch.int32) - 1
+
+    nt_capped = torch.clamp(num_tiles, max=max_t)
+    ranked = []
+    prev_w = max_t
+    for (w_t, cap_t) in _tiers(cfg, tiers):
+        elig = proj_valid & (num_tiles > prev_w) & (num_tiles <= w_t)
+        trank = rank_of(elig)
+        taken = elig & (trank < cap_t)
+        nt_capped = torch.where(taken, 0, nt_capped)
+        ranked.append((w_t, cap_t, trank))
+        prev_w = w_t
+    gcap = cfg.giant_splat_capacity
+    if gcap:
+        is_giant = proj_valid & (num_tiles > prev_w)
+        grank = rank_of(is_giant)
+        g_taken = is_giant & (grank < gcap)
+        nt_capped = torch.where(g_taken, 0, nt_capped)
+        ranked.append((cfg.num_tiles, gcap, grank))
+    cum = torch.cumsum(nt_capped, 0, dtype=torch.int64)
+    offsets = cum - nt_capped                         # exclusive prefix
+    base_total = (cum[-1] if P
+                  else torch.zeros((), dtype=torch.int64, device=dev))
+    total = base_total
+    groups = []
+    for (width, cap, rank) in ranked:
+        idx, alive = _compact(rank, cap)
+        # no splat: nothing to gather (JAX's gather clamps into the array)
+        picked = num_tiles[idx.to(torch.int64)] if P else torch.zeros_like(idx)
+        nt_c = torch.where(alive, picked, 0)
+        cum_c = torch.cumsum(nt_c, 0, dtype=torch.int64)
+        groups.append(EmitGroup(idx, nt_c, cum_c - nt_c, total, width))
+        total = total + nt_c.sum(dtype=torch.int64)
+    return EmitPlan(nt_capped, offsets, base_total, tuple(groups), total,
+                    num_tiles.sum(dtype=torch.int64) - total)
+
+
+def emit_ladder(cfg: RasterizerConfig, tiers=None) -> tuple:
+    """(lo, hi, cap, width) of each dense group, tiers then giants: a
+    group is eligible for the valid splats with ``lo < num_tiles <= hi``
+    (hi None: no bound). Raises ValueError unless the tiers' widths
+    strictly ascend (the kernel's closed form needs disjoint groups) and
+    there are at most EMIT_PLAN_MAX_GROUPS groups."""
+    lo, ladder = cfg.max_tiles_per_splat, []
+    for (w, cap) in _tiers(cfg, tiers):
+        if w <= lo:
+            raise ValueError(f"emit_plan: the tier widths must strictly "
+                             f"ascend from max_tiles_per_splat, got "
+                             f"{_tiers(cfg, tiers)}")
+        ladder.append((lo, w, cap, w))
+        lo = w
+    if cfg.giant_splat_capacity:
+        ladder.append((lo, None, cfg.giant_splat_capacity, cfg.num_tiles))
+    if len(ladder) > EMIT_PLAN_MAX_GROUPS:
+        raise ValueError(f"emit_plan: {len(ladder)} groups, the kernel "
+                         f"takes at most {EMIT_PLAN_MAX_GROUPS}")
+    return tuple(ladder)
+
+
+def emit_plan(proj_valid: torch.Tensor, num_tiles: torch.Tensor,
+              cfg: RasterizerConfig, tiers=None) -> EmitPlan:
+    """The emission's plan (``EmitPlan``): CUDA tensors go to the scan
+    kernel of csrc/emit_plan.cu (two launches, no host read), CPU tensors
+    to ``emit_plan_reference``."""
+    if num_tiles.device.type == "cpu":
+        return emit_plan_reference(proj_valid, num_tiles, cfg, tiers)
+    return _emit_plan_cuda(proj_valid, num_tiles, cfg, tiers)
+
+
+def _emit_plan_cuda(proj_valid, num_tiles, cfg: RasterizerConfig,
+                    tiers=None) -> EmitPlan:
+    ladder = emit_ladder(cfg, tiers)
+    P = num_tiles.shape[0]
+    if (proj_valid.dtype != torch.bool or num_tiles.dtype != torch.int32
+            or num_tiles.shape != (P,) or proj_valid.shape != (P,)):
+        raise ValueError("emit_plan: expected (P,) bool valid and (P,) int32 "
+                         "num_tiles")
+    if P >= 1 << 31:
+        raise ValueError(f"emit_plan: {P} splats, at most 2^31 - 1")
+    kernels.require_cuda("emit_plan", proj_valid, num_tiles)
+    dev = num_tiles.device
+    lib = kernels.library("emit_plan")
+    caps = [cap for (_, _, cap, _) in ladder]
+    slots = sum(caps)
+
+    def empty(n, dtype):
+        return torch.empty((n,), dtype=dtype, device=dev)
+
+    nt_capped, offsets = empty(P, torch.int32), empty(P, torch.int64)
+    idx, nt_c = empty(slots, torch.int32), empty(slots, torch.int32)
+    off_c = empty(slots, torch.int64)
+    sums = empty(3 + len(ladder), torch.int64)
+    scratch = empty(lib.gs_emit_plan_scratch_words(P), torch.int64)
+    words = [len(ladder), cfg.max_tiles_per_splat]
+    for (lo, hi, cap, _) in ladder:
+        words += [lo, (1 << 31) - 1 if hi is None else hi, cap]
+    host = (ctypes.c_int * len(words))(*words)
+    err = lib.gs_emit_plan(
+        proj_valid.data_ptr(), num_tiles.data_ptr(), nt_capped.data_ptr(),
+        offsets.data_ptr(), idx.data_ptr(), nt_c.data_ptr(),
+        off_c.data_ptr(), sums.data_ptr(), scratch.data_ptr(),
+        ctypes.addressof(host), P, kernels.stream_ptr(dev))
+    kernels.check(err, "emit_plan launch")
+    kernels.count_launch("emit_plan")
+    groups, s = [], 0
+    for g, (_, _, cap, width) in enumerate(ladder):
+        groups.append(EmitGroup(idx[s:s + cap], nt_c[s:s + cap],
+                                off_c[s:s + cap], sums[3 + g], width))
+        s += cap
+    return EmitPlan(nt_capped, offsets, sums[0], tuple(groups), sums[1],
+                    sums[2])
+
+
 def emit_pairs(proj_valid: torch.Tensor, rect: torch.Tensor,
                num_tiles: torch.Tensor, depth16: torch.Tensor,
                cfg: RasterizerConfig, capacity: int | None = None,
@@ -225,56 +385,27 @@ def emit_pairs(proj_valid: torch.Tensor, rect: torch.Tensor,
     (keys, values, num_pairs, num_overflow), keys and values (k_max + 1,)
     int32 (flipped keys; positions [0, min(num_pairs, k_max)) written, the
     rest unwritten), the counts () int64.
-    ``base`` and ``dense`` write the groups (``emit_base`` and
-    ``emit_dense``; a comparison passes their plain versions)."""
+    ``emit_plan`` places the groups; ``base`` and ``dense`` write them
+    (``emit_base`` and ``emit_dense``; a comparison passes their plain
+    versions). The inputs are taken as int32 and contiguous:
+    the projection's are, so these conversions launch nothing on its
+    outputs."""
     dev = rect.device
     P = rect.shape[0]
     gx, _ = cfg.tile_dims
     k_max = capacity if capacity is not None else cfg.sort_buffer_factor * P
-    max_t = cfg.max_tiles_per_splat
-    if tiers is None:
-        tiers = getattr(cfg, "exact_tiers", ()) or ()
-    tiers = tuple((int(w), int(c)) for (w, c) in tiers if w > max_t)
     rect = rect.to(torch.int32).contiguous()
-    num_tiles = num_tiles.to(torch.int32)
     depth16 = depth16.to(torch.int32).contiguous()
     proj_valid = proj_valid.contiguous()
-
-    def rank_of(mask):
-        return torch.cumsum(mask, 0, dtype=torch.int32) - 1
-
-    nt_capped = torch.clamp(num_tiles, max=max_t)
-    groups = []
-    prev_w = max_t
-    for (w_t, cap_t) in tiers:
-        elig = proj_valid & (num_tiles > prev_w) & (num_tiles <= w_t)
-        trank = rank_of(elig)
-        taken = elig & (trank < cap_t)
-        nt_capped = torch.where(taken, 0, nt_capped)
-        groups.append((w_t, cap_t, trank))
-        prev_w = w_t
-    gcap = cfg.giant_splat_capacity
-    if gcap:
-        is_giant = proj_valid & (num_tiles > prev_w)
-        grank = rank_of(is_giant)
-        g_taken = is_giant & (grank < gcap)
-        nt_capped = torch.where(g_taken, 0, nt_capped)
-        groups.append((cfg.num_tiles, gcap, grank))
-    cum = torch.cumsum(nt_capped, 0, dtype=torch.int64)
-    offsets = cum - nt_capped                         # exclusive prefix
-    total = cum[-1] if P else torch.zeros((), dtype=torch.int64, device=dev)
-
+    p = emit_plan(proj_valid, num_tiles.to(torch.int32).contiguous(), cfg,
+                  tiers)
     keys, vals = _pair_buffers(k_max, dev)
-    base(keys, vals, proj_valid, rect, nt_capped, offsets, depth16, gx,
-         max_t)
-    for (width, cap, rank) in groups:
-        idx, alive = _compact(rank, cap)
-        nt_c = torch.where(alive, num_tiles[idx.to(torch.int64)], 0)
-        cum_c = torch.cumsum(nt_c, 0, dtype=torch.int64)
-        dense(keys, vals, idx, nt_c, cum_c - nt_c, total, rect, depth16,
-              width, gx)
-        total = total + nt_c.sum(dtype=torch.int64)
-    return keys, vals, total, num_tiles.sum(dtype=torch.int64) - total
+    base(keys, vals, proj_valid, rect, p.nt_capped, p.offsets, depth16, gx,
+         cfg.max_tiles_per_splat)
+    for g in p.groups:
+        dense(keys, vals, g.idx, g.nt_c, g.off_c, g.pos0, rect, depth16,
+              g.width, gx)
+    return keys, vals, p.total, p.overflow
 
 
 def sort_key_bits(num_tiles: int) -> int:

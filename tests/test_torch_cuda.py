@@ -81,8 +81,9 @@ def test_cpu_frame_launches_no_kernel():
                                      "bin_blocks", "bin_bigs",
                                      "bin_rank", "render_v3",
                                      "render_v3_cooked", "render_v4",
-                                     "render_exact", "emit_exact",
-                                     "sort_pairs", "sfu_probe"}
+                                     "render_exact", "emit_plan",
+                                     "emit_exact", "sort_pairs",
+                                     "sfu_probe"}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -789,6 +790,86 @@ def test_emission_and_sort_kernels_match_plain(cuda, monkeypatch, case):
         assert torch.equal(out[1], ref[1]), end_bit
 
 
+def _plan_fields(plan):
+    """An EmitPlan's tensors by name, the groups' flattened."""
+    out = {f: getattr(plan, f) for f in ("nt_capped", "offsets",
+                                         "base_total", "total", "overflow")}
+    for g, grp in enumerate(plan.groups):
+        out.update({f"{g}.{f}": getattr(grp, f)
+                    for f in ("idx", "nt_c", "off_c", "pos0")})
+        out[f"{g}.width"] = torch.tensor(grp.width)
+    return out
+
+
+def _plan_counts(P, seed, dev, valid_share=0.6, wide=0.05, culled_nt=True):
+    """Seeded (valid, num_tiles): narrow splats, a share wide (up to 700
+    tiles), a share at the default ladder's edges (32, 128, 512 and one
+    past each), culled splats with their counts where ``culled_nt``."""
+    rng = np.random.default_rng(seed)
+    nt = np.where(rng.random(P) < wide, rng.integers(30, 700, P),
+                  rng.integers(0, 6, P))
+    edges = rng.random(P) < 0.05
+    nt[edges] = rng.choice([32, 33, 128, 129, 512, 513], int(edges.sum()))
+    valid = rng.random(P) < valid_share
+    if not culled_nt:
+        nt[~valid] = 0
+    return (torch.as_tensor(valid, device=dev),
+            torch.as_tensor(nt.astype(np.int32), device=dev))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("P", [0, 1, 31, 4095, 4096, 4097, 8191, 8193,
+                               4096 * 33 + 7, 1_000_000])
+@pytest.mark.parametrize("ladder", ["defaults", "caps_bite", "no_tiers",
+                                    "no_giants", "none"])
+def test_emit_plan_kernel_matches_plain(cuda, P, ladder):
+    """The plan's kernel bit-equal to emit_plan_reference in every field,
+    one counted launch a call, across the kernel's tile boundaries (4096
+    splats), with caps that bite and caps never reached, culled splats
+    with and without counts, all splats culled, and inputs that are not
+    16-byte aligned (the scalar loads)."""
+    base = gt.RasterizerConfig(width=1920, height=1080)
+    cfg = {"defaults": base,
+           "caps_bite": base.replace(exact_tiers=((128, 40), (512, 9)),
+                                     giant_splat_capacity=3),
+           "no_tiers": base.replace(exact_tiers=()),
+           "no_giants": base.replace(giant_splat_capacity=0),
+           "none": base.replace(exact_tiers=(), giant_splat_capacity=0),
+           }[ladder]
+    cases = [_plan_counts(P, P, cuda), _plan_counts(P, P + 1, cuda,
+                                                    culled_nt=False)]
+    v, nt = _plan_counts(P + 3, P + 2, cuda)
+    cases.append((v[3:], nt[3:]))                       # not 16-byte aligned
+    cases.append((torch.zeros_like(cases[0][0]), cases[0][1]))  # all culled
+    for valid, nt in cases:
+        kernels.reset_launch_counts()
+        got = _plan_fields(so.emit_plan(valid, nt, cfg))
+        assert kernels.launch_counts()["emit_plan"] == 1
+        want = _plan_fields(so.emit_plan_reference(valid, nt, cfg))
+        assert got.keys() == want.keys()
+        for f in want:
+            assert got[f].dtype == want[f].dtype, f
+            assert torch.equal(got[f].cpu(), want[f].cpu()), f
+
+
+@pytest.mark.gpu
+def test_emit_plan_kernel_holds_wide_prefixes(cuda):
+    """Counts whose base prefix runs past 2^31 (valid splats of 1000 tiles
+    where no group takes them: every count is capped, every offset past
+    2^31 at the end) and a group whose slots all fill: bit-equal."""
+    P = 5_000_000
+    cfg = gt.RasterizerConfig(width=1920, height=1080, max_tiles_per_splat=600,
+                              exact_tiers=(), giant_splat_capacity=256)
+    nt = torch.full((P,), 500, dtype=torch.int32, device=cuda)
+    nt[::1000] = 700                                    # giants
+    valid = torch.ones(P, dtype=torch.bool, device=cuda)
+    got = _plan_fields(so.emit_plan(valid, nt, cfg))
+    want = _plan_fields(so.emit_plan_reference(valid, nt, cfg))
+    assert int(want["offsets"][-1]) > 2**31
+    for f in want:
+        assert torch.equal(got[f].cpu(), want[f].cpu()), f
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("end_bit", [29, 32])
 def test_sort_pairs_kernel_keeps_equal_keys_in_order(cuda, end_bit):
@@ -951,6 +1032,13 @@ def test_sort_kernel_wrappers_refuse_what_they_do_not_take():
     with pytest.raises(ValueError, match="int32"):
         so._emit_base_cuda(keys.long(), keys.clone(), valid, rect, nt, off,
                            nt, 4)
+    cfg = gt.RasterizerConfig(width=64, height=64)
+    with pytest.raises(ValueError, match="CUDA"):
+        so._emit_plan_cuda(valid, nt, cfg)
+    with pytest.raises(ValueError, match="int32"):
+        so._emit_plan_cuda(valid, nt.long(), cfg)
+    with pytest.raises(ValueError, match="bool"):
+        so._emit_plan_cuda(nt, nt, cfg)
     idx = torch.arange(P, dtype=torch.int32)
     pos0 = torch.zeros((), dtype=torch.int64)
     with pytest.raises(ValueError, match="CUDA"):
@@ -978,7 +1066,8 @@ def test_exact_frame_graph_equals_the_eager_frame(cuda):
     cloud = _exact_cloud(cuda)
     values = _orbit_values(cfg, 4)
     graph = ExactFrameGraph(cloud, cfg, values[0], tile_capacity=1024)
-    assert graph.launches == {"projection_readable": 1, "emit_exact": 4,
+    assert graph.launches == {"projection_readable": 1, "emit_plan": 1,
+                              "emit_exact": 4,
                               "sort_pairs": 1, "render_exact": 1}
     kept = graph.render(values[0])
     kept_image = kept.image.clone()
