@@ -8,15 +8,17 @@ The second form runs phase 1's build and phase 6's Binning check alone
 (both kernels bit-equal to their plain versions, timed beside their
 bounds, and torch.profiler over 3 eager Binning stages of fast_defaults()
 and quality="fast"): a quick comparison of two trees' Binning kernels on
-one card. The third runs phase 1's build and phase 6's two sort records
-alone (sort_pairs and screen_sort bit-equal to their plain versions on
-their 1080p inputs and edge cases, timed beside their bounds, with the
-pairs a tile and the passes a row they meet), the 4K exact sort at
-end_bit 31, the Sort and the quality="fast" Blocks profiles; given the
-root of another checkout (for example one unpacked with ``git archive
-<commit> | tar -x -C build/ab_base``), it also holds that checkout's two
-kernels bit-equal to this one's on the same inputs and times them in
-turns, other, this, this, other. Both log their kernels' records and not
+one card. The third runs phase 1's build and phase 6's plan and two sort
+records alone (emit_plan, sort_pairs and screen_sort bit-equal to their
+plain versions on their 1080p inputs and edge cases, timed beside their
+bounds, with the pairs a tile and the passes a row they meet), the 4K
+plan and exact sort at end_bit 31, the Sort and the quality="fast"
+Blocks profiles; given the root of another checkout (for example one
+unpacked with ``git archive <commit> | tar -x -C build/ab_base``), it
+also holds that checkout's emit_plan (at 1080p and at 4K), sort_pairs
+and screen_sort bit-equal to this one's on the same inputs and times
+them in turns, other, this, this, other, the plan with each side's device
+kernels and memsets a call. Both log their kernels' records and not
 the result line of a full run. With no arguments it builds the
 port's CUDA kernels from godotgaussiansplatting_torch/csrc (one
 nvcc per source, all started together), then:
@@ -506,7 +508,13 @@ BOUND_COUNTS = {
         "bytes"),
     "emit_plan": (
         "the exact emission's plan (each splat's capped count and offset, "
-        "each dense group's compacted slots and the totals): bytes: each "
+        "each dense group's compacted slots and the totals; a memset, a "
+        "persistent scan of 4096-splat tiles in ticket order, two CTAs an "
+        "SM of eight worker warps, a sums warp (tickets, TMA bulk copies "
+        "of the inputs, the tile's sums) and a scan warp (a decoupled "
+        "look-back over self-validating 16-byte record words), the vector "
+        "narrowed to the ladder's groups, outputs sent by bulk stores; and "
+        "a finish kernel): bytes: each "
         "splat's valid flag and num_tiles read once (5 B) and its capped "
         "count and offset written once (12 B), each group slot's id, count "
         "and offset (16 B) and the totals written once; operations: not "
@@ -2029,11 +2037,13 @@ def exact_stages_1080p(full, base, worst: dict) -> list:
     return rec
 
 
-def exact_sort_4k(cloud) -> dict:
+def exact_sort_4k(cloud, other_so=None, card: str = "") -> dict:
     """The exact frame's emission and sort_pairs at 3840x2160 (tile 16:
     32,400 tiles, end_bit 31) on benchmarks/configs.py's fifth workload's
-    scene (the reset camera): the sort bit-equal to its plain version and
-    timed, with its pairs a tile. Returns the sort's numbers."""
+    scene (the reset camera): the plan and the sort bit-equal to their
+    plain versions and timed, with its pairs a tile; with ``other_so``
+    (``--sorts OTHER``), the other checkout's plan against this one's
+    (``ab_plan``). Returns the sort's numbers."""
     cfg = gt.RasterizerConfig(width=3840, height=2160)
     uni = gt.make_uniforms(gt.Camera.reset_pose(), cfg)
     prj = project_splats(cloud.means, cloud.cov3d, cloud.opacity, cloud.sh,
@@ -2044,6 +2054,9 @@ def exact_sort_4k(cloud) -> dict:
                                                     cfg), 20)
     log(f"[14 emit_plan 4K] {prj.valid.shape[0]} splats: kernel {ms:.4f} ms "
         f"(graph replays of 20 calls)")
+    if other_so is not None:
+        ab_plan("ab emit_plan 4K", other_so, prj.valid, prj.num_tiles, cfg,
+                card)
     keys, vals, total, _ = so.emit_pairs(prj.valid, prj.rect, prj.num_tiles,
                                          prj.depth16, cfg)
     del prj
@@ -3785,19 +3798,43 @@ def binning_only(card: str) -> int:
     return 0
 
 
-def ab_sorts(root: str, emitted, run, cfg, card: str) -> None:
-    """``--sorts OTHER``: the other checkout's sort_pairs and screen_sort
-    (its package imported beside this one, its kernels built from its own
-    sources) on the same 1080p inputs as this one's: outputs bit-equal
-    between the two, then each kernel timed in turns other, this, this,
-    other (sort_pairs as in sort_vs_plain, screen_sort as graph replays of
-    20 launches)."""
+def ab_plan(tag: str, other_so, valid, num_tiles, cfg, card: str) -> None:
+    """The other checkout's emit_plan against this one's on the same
+    inputs: every EmitPlan field bit-equal, then each timed in turns
+    other, this, this, other as graph replays of 20 calls, with each
+    one's device kernels and memsets a call (``kernel_split``)."""
+    plans = {"other": other_so._emit_plan_cuda, "this": so._emit_plan_cuda}
+    outs = {s: f(valid, num_tiles, cfg) for s, f in plans.items()}
+    torch.cuda.synchronize()
+    bad = plan_differ(outs["other"], outs["this"])
+    check(not bad, f"{tag}: the two checkouts' plans differ {bad}")
+    del outs
+    order = ("other", "this", "this", "other")
+    times = [round(time_graphed_ms(
+        lambda f=plans[s]: f(valid, num_tiles, cfg), 20), 4) for s in order]
+    split = {s: kernel_split(lambda f=plans[s]: f(valid, num_tiles, cfg))
+             for s in ("other", "this")}
+    log(f"[{tag}] {card}: {valid.shape[0]} splats: every field bit-equal "
+        f"between the checkouts; ms in turns "
+        f"{json.dumps(list(zip(order, times)))}; device kernels and memsets "
+        f"a call {json.dumps(split)}")
+
+
+def ab_sorts(root: str, emitted, plan_in, run, cfg, card: str):
+    """``--sorts OTHER``: the other checkout's emit_plan, sort_pairs and
+    screen_sort (its package imported beside this one, its kernels built
+    from its own sources) on the same 1080p inputs as this one's: outputs
+    bit-equal between the two, then each kernel timed in turns other,
+    this, this, other (emit_plan as in ``ab_plan``, sort_pairs as in
+    sort_vs_plain, screen_sort as graph replays of 20 launches). Returns
+    the other checkout's sort module."""
     from godotgaussiansplatting_torch.ab_render import import_other
     _, other_kernels = import_other(Path(root).resolve())
     import importlib
     o_so = importlib.import_module("gsother.ops.sort")
     o_b2 = importlib.import_module("gsother.ops.blocks2")
-    other_kernels.build("sort_pairs", "screen_sort")
+    other_kernels.build("emit_plan", "sort_pairs", "screen_sort")
+    ab_plan("ab emit_plan 1080p", o_so, *plan_in, cfg, card)
     keys, vals, total = emitted
     k_max = keys.shape[0] - 1
     n = min(int(total), k_max)
@@ -3838,6 +3875,7 @@ def ab_sorts(root: str, emitted, run, cfg, card: str) -> None:
     log(f"[ab screen_sort 1080p] {card}: {tuple(a[0].shape)} rows: "
         f"bit-equal between the checkouts; ms in turns "
         f"{json.dumps(list(zip(order, times)))}")
+    return o_so
 
 
 def sorts_only(card: str, other: str | None) -> int:
@@ -3858,6 +3896,7 @@ def sorts_only(card: str, other: str | None) -> int:
                          full.upload_time, uni.view, uni.proj,
                          uni.camera_pos, uni.model_scale, uni.time, base)
     plan = plan_vs_plain("6 emit_plan 1080p", prj, base)
+    plan_in = (prj.valid, prj.num_tiles)
     keys, vals, total, _ = so.emit_pairs(prj.valid, prj.rect, prj.num_tiles,
                                          prj.depth16, base)
     del prj
@@ -3881,9 +3920,9 @@ def sorts_only(card: str, other: str | None) -> int:
     rec.append(screen_sort_record(run))
     sort_ties_vs_plain(run)
     screen_sort_edge_cases()
-    if other:
-        ab_sorts(other, emitted, run, base, card)
-    del emitted, keys, vals, run
+    other_so = (ab_sorts(other, emitted, plan_in, run, base, card)
+                if other else None)
+    del emitted, keys, vals, run, plan_in
     for plain_plan in (True, False):    # Sort ignores the capacity
         profile_sort("6 exact 1080p", full, base, 2048,
                      plain_plan=plain_plan)
@@ -3892,7 +3931,7 @@ def sorts_only(card: str, other: str | None) -> int:
     gc.collect()
     big, setup_s = frame_cloud(10_000_000)
     log(f"[14 5_stress_4K_10M] scene set-up {setup_s:.1f} s")
-    exact_sort_4k(big)
+    exact_sort_4k(big, other_so, card)
     cfg5 = gt.RasterizerConfig(width=3840, height=2160)
     run5 = blocks_vs_plain("14 blocks quality=fast 4K", big,
                            cfg5.replace(quality="fast"))

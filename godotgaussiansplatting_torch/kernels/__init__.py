@@ -76,6 +76,7 @@ SIGNATURES = {
     "emit_plan": {
         "gs_emit_plan": [_P] * 10 + [_L, _P],
         "gs_emit_plan_scratch_words": [_L],
+        "gs_emit_plan_tile": [],
     },
     "emit_exact": {
         "gs_emit_base": [_P] * 7 + [_I] * 2 + [_L, _P],

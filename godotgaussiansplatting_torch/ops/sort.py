@@ -240,6 +240,7 @@ class EmitPlan(NamedTuple):
 
 
 EMIT_PLAN_MAX_GROUPS = 4    # the kernel's (csrc/emit_plan.cu MAX_GROUPS)
+EMIT_PLAN_TILE = 4096       # splats a tile of its scan (TILE there)
 
 
 def _tiers(cfg: RasterizerConfig, tiers) -> tuple:
@@ -323,11 +324,26 @@ def emit_ladder(cfg: RasterizerConfig, tiers=None) -> tuple:
     return tuple(ladder)
 
 
+def emit_plan_widths(ladder: tuple, max_t: int) -> None:
+    """The kernel keeps a tile's sum of min(num_tiles, max_t) and the nt
+    sum of each group but the last in 32 bits: raises ValueError unless
+    EMIT_PLAN_TILE * max_t and EMIT_PLAN_TILE * hi of each such group stay
+    below 2^31 (``ladder`` from ``emit_ladder``)."""
+    widths = [("max_tiles_per_splat", max_t)] + [
+        (f"group {g}'s width", hi) for g, (_, hi, _, _) in
+        enumerate(ladder[:-1])]
+    for what, w in widths:
+        if EMIT_PLAN_TILE * w >= 1 << 31:
+            raise ValueError(f"emit_plan: {what} {w} times the kernel's tile "
+                             f"of {EMIT_PLAN_TILE} splats reaches 2^31")
+
+
 def emit_plan(proj_valid: torch.Tensor, num_tiles: torch.Tensor,
               cfg: RasterizerConfig, tiers=None) -> EmitPlan:
     """The emission's plan (``EmitPlan``): CUDA tensors go to the scan
-    kernel of csrc/emit_plan.cu (two launches, no host read), CPU tensors
-    to ``emit_plan_reference``."""
+    kernel of csrc/emit_plan.cu (a memset and two launches, no host read;
+    ``num_tiles`` counts, >= 0, as the projection's are), CPU tensors to
+    ``emit_plan_reference``."""
     if num_tiles.device.type == "cpu":
         return emit_plan_reference(proj_valid, num_tiles, cfg, tiers)
     return _emit_plan_cuda(proj_valid, num_tiles, cfg, tiers)
@@ -336,6 +352,7 @@ def emit_plan(proj_valid: torch.Tensor, num_tiles: torch.Tensor,
 def _emit_plan_cuda(proj_valid, num_tiles, cfg: RasterizerConfig,
                     tiers=None) -> EmitPlan:
     ladder = emit_ladder(cfg, tiers)
+    emit_plan_widths(ladder, cfg.max_tiles_per_splat)
     P = num_tiles.shape[0]
     if (proj_valid.dtype != torch.bool or num_tiles.dtype != torch.int32
             or num_tiles.shape != (P,) or proj_valid.shape != (P,)):

@@ -16,7 +16,8 @@ import pytest
 import torch
 
 import godotgaussiansplatting_torch as gt
-from godotgaussiansplatting_torch import kernels, sfu_probe, split_render
+from godotgaussiansplatting_torch import (kernels, sfu_probe, split_plan,
+                                          split_render)
 from godotgaussiansplatting_torch.ops import bigbin as bb
 from godotgaussiansplatting_torch.ops import binning2 as bn
 from godotgaussiansplatting_torch.ops import blocks2 as b2
@@ -193,6 +194,19 @@ def test_split_render_edits_match_the_kernel_source(copies):
         changed = [f for f, t in texts.items()
                    if t != (kernels.CSRC / f).read_text()]
         assert bool(changed) == bool(edits), name
+
+
+@pytest.mark.parametrize("copy", sorted(split_plan.VARIANTS) + ["instrumented"])
+def test_split_plan_edits_match_the_kernel_source(copy):
+    """Every copy of csrc/emit_plan.cu that split_plan builds edits this
+    checkout's source where it means to: each edited string occurs once,
+    and a copy with edits differs from the source."""
+    edits = (split_plan.INSTRUMENTED if copy == "instrumented"
+             else split_plan.VARIANTS[copy])
+    source = (kernels.CSRC / split_plan.SOURCE).read_text()
+    for old, _ in edits:
+        assert source.count(old) == 1, (copy, old)
+    assert (split_plan.edited(edits) != source) == bool(edits), copy
 
 
 @pytest.mark.gpu
@@ -817,17 +831,26 @@ def _plan_counts(P, seed, dev, valid_share=0.6, wide=0.05, culled_nt=True):
             torch.as_tensor(nt.astype(np.int32), device=dev))
 
 
+PLAN_TILE = so.EMIT_PLAN_TILE
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("P", [0, 1, 31, 4095, 4096, 4097, 8191, 8193,
-                               4096 * 33 + 7, 1_000_000])
+@pytest.mark.parametrize("P", [
+    0, 1, 31, PLAN_TILE - 1, PLAN_TILE, PLAN_TILE + 1, 2 * PLAN_TILE - 1,
+    2 * PLAN_TILE + 1, PLAN_TILE * 33 + 7,
+    # the persistent grid: k x 132 tiles (an H100's SMs) and one either side
+    PLAN_TILE * 131, PLAN_TILE * 132, PLAN_TILE * 132 + 1,
+    PLAN_TILE * 263 + 9, PLAN_TILE * 264, PLAN_TILE * 264 + PLAN_TILE - 1,
+    1_000_000])
 @pytest.mark.parametrize("ladder", ["defaults", "caps_bite", "no_tiers",
                                     "no_giants", "none"])
 def test_emit_plan_kernel_matches_plain(cuda, P, ladder):
     """The plan's kernel bit-equal to emit_plan_reference in every field,
-    one counted launch a call, across the kernel's tile boundaries (4096
-    splats), with caps that bite and caps never reached, culled splats
-    with and without counts, all splats culled, and inputs that are not
-    16-byte aligned (the scalar loads)."""
+    one counted launch a call, across the kernel's tile boundaries, below
+    one tile, with fewer tiles than SMs and at whole rounds of its
+    persistent grid, with caps that bite and caps never reached, culled
+    splats with and without counts, all splats culled, and inputs that are
+    not 16-byte aligned (the scalar loads)."""
     base = gt.RasterizerConfig(width=1920, height=1080)
     cfg = {"defaults": base,
            "caps_bite": base.replace(exact_tiers=((128, 40), (512, 9)),
@@ -866,6 +889,34 @@ def test_emit_plan_kernel_holds_wide_prefixes(cuda):
     got = _plan_fields(so.emit_plan(valid, nt, cfg))
     want = _plan_fields(so.emit_plan_reference(valid, nt, cfg))
     assert int(want["offsets"][-1]) > 2**31
+    for f in want:
+        assert torch.equal(got[f].cpu(), want[f].cpu()), f
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["tile_n_past_2_31", "tier_e_at_tile_x_hi"])
+def test_emit_plan_kernel_holds_its_widest_fields(cuda, case):
+    """Splats of 2^20 tiles, whose sum over a tile (N, a 64-bit word) and
+    the giants' nt sum pass 2^31; or a tier as wide as its 32-bit tile sum
+    allows (TILE x hi just below 2^31), filled: bit-equal, a few culled."""
+    assert kernels.library("emit_plan").gs_emit_plan_tile() == PLAN_TILE
+    P = PLAN_TILE * 5 + 77
+    base = gt.RasterizerConfig(width=1920, height=1080)
+    if case == "tile_n_past_2_31":
+        cfg, w = base, 2**20
+    else:
+        w = (2**31 - 1) // PLAN_TILE
+        cfg = base.replace(exact_tiers=((128, 32768), (w, 4096)))
+    nt = torch.full((P,), w, dtype=torch.int32, device=cuda)
+    nt[::7] = 3
+    valid = torch.ones(P, dtype=torch.bool, device=cuda)
+    valid[::5] = False
+    kernels.reset_launch_counts()
+    got = _plan_fields(so.emit_plan(valid, nt, cfg))
+    assert kernels.launch_counts()["emit_plan"] == 1
+    want = _plan_fields(so.emit_plan_reference(valid, nt, cfg))
+    if case == "tile_n_past_2_31":
+        assert int(want["overflow"]) > 2**31
     for f in want:
         assert torch.equal(got[f].cpu(), want[f].cpu()), f
 

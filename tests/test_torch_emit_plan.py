@@ -3,12 +3,14 @@ arithmetic held to ``emit_plan_reference`` field by field, and the plain
 version, through ``emit_and_sort``, held to the JAX package's.
 
 The model follows the kernel: each tile of splats is summed into a vector
-(A = sum of min(nt, max_t), N = sum of nt, and for each dense group the
-count C_g and the nt sum E_g of its eligible splats), the vectors' int64
-exclusive prefixes give each splat's prefix, and from those the closed
-form gives the offsets (A - max_t * sum_g min(cap_g, C_g)), the taken
-splats (eligible and C_g < cap_g) and their slots (at C_g, off_c = E_g);
-the finish writes the totals and the dead slots from the last prefix."""
+in the kernel's widths (A = sum of min(nt, max_t) and, for each dense
+group, the count C_g of its eligible splats as int32, their nt sum E_g as
+int32 but the last group's as int64; the sum of nt, N, as one int64 word
+a tile, outside the scan), the vectors' exclusive prefixes (A and E int64,
+C int32) give each splat's prefix, and from those the closed form gives
+the offsets (A - max_t * sum_g min(cap_g, C_g)), the taken splats
+(eligible and C_g < cap_g) and their slots (at C_g, off_c = E_g); the
+finish writes the totals and the dead slots from the last prefix."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -20,12 +22,12 @@ import godotgaussiansplatting_tpu as gj
 from godotgaussiansplatting_torch.ops import sort as ts
 from godotgaussiansplatting_tpu.ops import sort as js
 
-KERNEL_TILE = 4096      # csrc/emit_plan.cu TILE
+KERNEL_TILE = ts.EMIT_PLAN_TILE      # csrc/emit_plan.cu TILE
 
 
 def tile_vectors(valid, nt, max_t, ladder, tile):
     """(tiles, 2 + 2G) int64: each tile's A, N, then C_g and E_g of each
-    group (a splat past P counts nothing)."""
+    group (a splat past P counts nothing), and the per-splat values."""
     P = nt.shape[0]
     tiles = -(-P // tile)
     pad = tiles * tile - P
@@ -39,9 +41,42 @@ def tile_vectors(valid, nt, max_t, ladder, tile):
     return per.sum(1), per
 
 
+def _int32(x):
+    """x as the kernel's 32-bit field: every value must fit."""
+    assert np.all((x >= -2**31) & (x < 2**31)), "a 32-bit field overflows"
+    return x.astype(np.int32)
+
+
+def tile_sums(vec, G):
+    """Each tile's sums in the kernel's widths: A (int32), C (tiles, G)
+    int32, E (a list of G columns: int32 but the last group's, int64) and
+    N (int64, added to one word, not scanned)."""
+    A = _int32(vec[:, 0])
+    C = _int32(vec[:, 2::2]).reshape(vec.shape[0], G)
+    E = [_int32(vec[:, 3 + 2 * g]) if g + 1 < G else vec[:, 3 + 2 * g]
+         for g in range(G)]
+    return A, C, E, vec[:, 1]
+
+
 def exclusive_scan(vectors):
     """The look-back's result: each tile's exclusive prefix, int64."""
     out = np.cumsum(vectors, 0, dtype=np.int64) - vectors
+    return out
+
+
+def tile_prefixes(A, C, E):
+    """The look-back's result in its widths: each tile's exclusive prefix
+    of A and each E as int64, of each C as int32 (a count below P), as one
+    (tiles, 2 + 2G) int64 array in tile_vectors' layout (N left 0)."""
+    G = C.shape[1]
+    Ap = exclusive_scan(A.astype(np.int64))
+    Cp = np.cumsum(C, 0, dtype=np.int64) - C
+    Cp32 = _int32(Cp)
+    out = np.zeros((A.shape[0], 2 + 2 * G), np.int64)
+    out[:, 0] = Ap
+    out[:, 2::2] = Cp32
+    for g in range(G):
+        out[:, 3 + 2 * g] = exclusive_scan(E[g].astype(np.int64))
     return out
 
 
@@ -53,7 +88,8 @@ def plan_model(valid, nt, cfg, tiers=None, tile=KERNEL_TILE):
     P = nt.shape[0]
     G = len(ladder)
     vec, per = tile_vectors(valid, nt, max_t, ladder, tile)
-    prefix = exclusive_scan(vec)
+    A_t, C_t, E_t, N_t = tile_sums(vec, G)
+    prefix = tile_prefixes(A_t, C_t, E_t)
     # each splat's exclusive prefix: its tile's, then the tile's own run
     run = prefix[:, None, :] + np.cumsum(per, 1) - per
     run = run.reshape(-1, per.shape[2])[:P]
@@ -66,6 +102,7 @@ def plan_model(valid, nt, cfg, tiers=None, tile=KERNEL_TILE):
     taken = eligible & (C < caps[None, :])
     capped = np.where(taken.any(1), 0, np.minimum(nt, max_t)).astype(np.int32)
     total_vec = (prefix[-1] + vec[-1]) if P else np.zeros(2 + 2 * G, np.int64)
+    n_total = int(N_t.sum()) if P else 0       # the head's 64-bit word
     live = np.minimum(total_vec[2::2], caps)
     base_total = total_vec[0] - max_t * int(live.sum())
     groups, pos = [], base_total
@@ -88,8 +125,8 @@ def plan_model(valid, nt, cfg, tiers=None, tile=KERNEL_TILE):
         groups.append((idx, nt_c, off_c, pos, width))
         pos += gsum
     return {"nt_capped": capped, "offsets": offsets, "base_total": base_total,
-            "groups": groups, "total": pos,
-            "overflow": total_vec[1] - pos}
+            "groups": groups, "total": pos, "overflow": n_total - pos,
+            "tile_n": N_t, "tile_e": E_t}
 
 
 def assert_model_matches(valid, nt, cfg, tiers=None, tile=KERNEL_TILE):
@@ -216,6 +253,90 @@ def test_model_scan_keeps_int64_prefixes():
         want = [w + int(v) for w, v in zip(want, vec[t])]
     assert want[0] > 2**31 and want[3] > 2**31
     assert prefix.dtype == np.int64
+
+
+# ladders of 0 to 4 groups (the last group's E is the 64-bit one)
+LADDERS = {
+    "0_none": dict(exact_tiers=(), giant_splat_capacity=0),
+    "1_giants": dict(exact_tiers=(), giant_splat_capacity=16),
+    "1_tier": dict(exact_tiers=((8, 64),), giant_splat_capacity=0),
+    "2_tier_giants": dict(exact_tiers=((8, 64),), giant_splat_capacity=16),
+    "3_defaults_shape": {},
+    "4_three_tiers_giants": dict(exact_tiers=((8, 64), (16, 40), (24, 32))),
+    "4_four_tiers": dict(exact_tiers=((8, 64), (16, 40), (24, 32), (40, 8)),
+                         giant_splat_capacity=0),
+}
+
+
+@pytest.mark.parametrize("ladder", sorted(LADDERS))
+def test_model_matches_at_every_number_of_groups(ladder):
+    """Each number of groups the kernel is built for, with caps that bite,
+    across two tiles and a part."""
+    cfg = _cfg(**LADDERS[ladder])
+    assert len(ts.emit_ladder(cfg)) == int(ladder[0])
+    valid, nt = _counts(len(ladder), KERNEL_TILE * 2 + 333)
+    m = assert_model_matches(valid, nt, cfg)
+    assert [e.dtype for e in m["tile_e"]] == (
+        [np.int32] * (len(m["groups"]) - 1) + [np.int64])[:len(m["groups"])]
+
+
+# the widest tier nt whose tile sum the kernel keeps in 32 bits
+HI_32 = (2**31 - 1) // KERNEL_TILE
+
+# (cfg kw, every splat's nt): a tile's N and the giants' E past 2^31; a
+# tier's E at exactly TILE * hi
+WIDE = {
+    "tile_n_and_giants_e_past_2_31": ({}, 2**20),
+    "tier_e_at_tile_times_hi": (dict(exact_tiers=((8, 64), (HI_32, 32))),
+                                HI_32),
+}
+
+
+@pytest.mark.parametrize("case", sorted(WIDE))
+def test_model_holds_the_widest_fields(case):
+    """Every splat as wide as the case says, a few culled: the narrow
+    fields stay exact in 32 bits, the wide ones pass 2^31, and the plan
+    equals the plain one."""
+    kw, w = WIDE[case]
+    cfg = _cfg(**kw)
+    ts.emit_plan_widths(ts.emit_ladder(cfg), cfg.max_tiles_per_splat)
+    P = KERNEL_TILE * 3 + 100
+    nt = np.full(P, w, np.int32)
+    valid = np.ones(P, bool)
+    valid[KERNEL_TILE + 5:KERNEL_TILE + 60] = False
+    m = assert_model_matches(valid, nt, cfg)
+    if case.startswith("tile_n"):
+        assert m["tile_n"].max() >= 2**32
+        assert m["tile_e"][-1].dtype == np.int64
+        assert m["tile_e"][-1].max() >= 2**32
+        assert int(m["overflow"]) > 2**31
+    else:
+        assert m["tile_e"][1].dtype == np.int32
+        assert int(m["tile_e"][1].max()) == KERNEL_TILE * HI_32
+
+
+def test_ladder_check_refuses_fields_past_32_bits():
+    """The wrapper refuses a config where TILE * max_t, or TILE * hi of a
+    group whose E the kernel keeps in 32 bits (every group but the last),
+    reaches 2^31, before any tensor is looked at; one below passes, as does
+    a last group that wide (its E is 64-bit). The plain version takes
+    them all."""
+    valid = torch.ones(8, dtype=torch.bool)
+    nt = torch.arange(8, dtype=torch.int32) * 10
+    wide = 2**31 // KERNEL_TILE
+    refused = (_cfg(max_tiles_per_splat=wide, exact_tiers=()),
+               _cfg(exact_tiers=((8, 64), (wide, 32))))
+    passed = (_cfg(max_tiles_per_splat=wide - 1, exact_tiers=()),
+              _cfg(exact_tiers=((8, 64), (wide - 1, 32))),
+              _cfg(exact_tiers=((8, 64), (wide, 32)), giant_splat_capacity=0))
+    for cfg in refused:
+        with pytest.raises(ValueError, match="2\\^31"):
+            ts._emit_plan_cuda(valid, nt, cfg)
+        ts.emit_plan_reference(valid, nt, cfg)
+    for cfg in passed:
+        with pytest.raises(ValueError, match="CUDA"):
+            ts._emit_plan_cuda(valid, nt, cfg)
+        ts.emit_plan_reference(valid, nt, cfg)
 
 
 def test_ladder_check_refuses_a_ladder_that_does_not_ascend():
