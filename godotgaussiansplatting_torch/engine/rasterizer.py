@@ -3,9 +3,10 @@
 Counterpart of ``godotgaussiansplatting_tpu/engine/rasterizer.py``
 (``GaussianSplattingRasterizer``, util/gaussian_splatting_rasterizer.gd):
 it owns the splat model on the device, the camera-change detection,
-resize, picking, the heatmap and scale knobs, per-stage telemetry and the
-streaming loader, for both qualities: ``"exact"`` (ops/pipeline.py, the
-default) and ``"fast"`` (ops/fast_pipeline.py). Its work runs on the card
+resize, picking, the heatmap and scale knobs, per-stage telemetry, the
+host's phases of each frame and the streaming loader, for both qualities:
+``"exact"`` (ops/pipeline.py, the default) and ``"fast"``
+(ops/fast_pipeline.py). Its work runs on the card
 (``device="cuda"``) unless the caller asks for the CPU, where the plain
 versions of the kernels run; without a card the default raises.
 
@@ -40,9 +41,12 @@ from ..ops.fast_pipeline import (FastFrameGraph, pick_splat_position_fast,
 from ..ops.pipeline import (ExactFrameGraph, FrameUniforms, exact_graph_key,
                             graph_key, pack_uniforms, pick_splat_position,
                             render_frame_staged, uniforms_from_buffer)
+from ..utils import telemetry
 from ..utils.image import hwc
-from ..utils.telemetry import (StageTimings, device_memory_stats,
-                               format_bytes, make_stage_timer)
+from ..utils.telemetry import (CAMERA, CAPTURE, GRAPH, LAUNCH, OVERFLOW,
+                               TIMINGS, UNIFORMS, UPLOAD, WAIT, StageTimings,
+                               device_memory_stats, format_bytes,
+                               make_stage_timer)
 from .loader import StreamingLoader
 
 
@@ -61,6 +65,11 @@ class Rasterizer:
     Live knobs (the reference's panel, main.gd:49-68): render_scale,
     model_scale, should_enable_heatmap, basis_override. Changing
     texture_size or render_scale changes the next frame's target.
+
+    Each frame's host phases (``utils.telemetry.PHASES``), from
+    ``update_camera_matrices`` to the end of ``rasterize``, are one row of
+    ``host_phases`` (the process's ``telemetry.HOST_PHASES`` unless
+    another ``HostPhases`` is set).
     """
 
     def __init__(self, source, texture_size: Tuple[int, int] = (1280, 720),
@@ -114,6 +123,7 @@ class Rasterizer:
             self.cloud = mortonize(self.cloud)
 
         self.timings = StageTimings()
+        self.host_phases = telemetry.HOST_PHASES
         self.last_frame = None
         self._fast_cloud = None
         self._fast_cloud_src = None
@@ -158,7 +168,10 @@ class Rasterizer:
     def update_camera_matrices(self) -> bool:
         """Rebuild view and projection if the camera changed since the last
         call; returns the changed flag (the reference's render-pause power
-        saver, gaussian_splatting_rasterizer.gd:175-195)."""
+        saver, gaussian_splatting_rasterizer.gd:175-195). Its time is the
+        ``camera`` phase of the frame that follows."""
+        was = self.host_phases.phase
+        self.host_phases.mark(CAMERA)
         cam = self._camera_with_override()
         w, h = self.texture_size
         view = cam.view_matrix()
@@ -168,6 +181,7 @@ class Rasterizer:
                    or not np.array_equal(proj, self._cached_proj))
         if changed:
             self._cached_view, self._cached_proj = view, proj
+        self.host_phases.mark(was)
         return changed
 
     def _camera_with_override(self) -> Camera:
@@ -189,8 +203,10 @@ class Rasterizer:
                                                     device=self.device))
 
     def _sync(self) -> None:
+        self.host_phases.mark(WAIT)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+            self.host_phases.synced()
 
     def _lock(self):
         return (self.loader.write_lock if self.loader is not None
@@ -203,63 +219,84 @@ class Rasterizer:
 
         With sync=True it waits for the frame and records its wall time and
         per-stage times (CUDA events on the card), which debug_info shows,
-        and grows the exact path's tile capacity if a tile overflowed."""
-        timer = make_stage_timer(self.device) if sync else None
-        t0 = time.perf_counter()
-        with self._lock():
-            if self.loader is not None:
-                self.cloud = self.loader.cloud
-            if self.quality == "fast":
-                out = self._fast_frame(timer)
-            else:
-                out = self._exact_frame(timer)
-        if sync:
-            self._sync()
-            frame_ms = (time.perf_counter() - t0) * 1e3
-            for name, ms in timer.times_ms().items():
-                self.timings.record(name, ms)
-            self.timings.record("Frame", frame_ms)
-            regrown = self._check_overflow(out)
-            if regrown is not None:
-                out = regrown  # the triggering frame itself is re-rendered
-        self.last_frame = out
-        return out
+        and grows the exact path's tile capacity if a tile overflowed. The
+        ``Frame`` time runs from the call to the end of the wait: the
+        host phases ``uniforms`` to ``wait`` of the frame's row."""
+        phases = self.host_phases
+        t0 = phases.begin(UNIFORMS)
+        try:
+            values = self._uniform_values()
+            phases.mark(GRAPH)
+            timer = make_stage_timer(self.device, phases) if sync else None
+            with self._lock():
+                if self.loader is not None:
+                    self.cloud = self.loader.cloud
+                if self.quality == "fast":
+                    out = self._fast_frame(values, timer)
+                else:
+                    out = self._exact_frame(values, timer)
+            if sync:
+                self._sync()
+                frame_ms = (phases.mark(TIMINGS) - t0) * 1e3
+                for name, ms in timer.times_ms().items():
+                    self.timings.record(name, ms)
+                self.timings.record(telemetry.FRAME, frame_ms)
+                timer = None          # its CUDA events are freed here
+                regrown = self._check_overflow(out)
+                if regrown is not None:
+                    out = regrown  # the triggering frame is re-rendered
+            self.last_frame = out
+            return out
+        finally:
+            phases.end()
 
-    def _exact_frame(self, timer):
+    def _eager_frame(self, values, stages):
+        """The CPU frame: the uniform vector onto the device, then
+        ``stages(uniforms)`` run eagerly."""
+        self.host_phases.mark(UPLOAD)
+        uniforms = uniforms_from_buffer(torch.as_tensor(values,
+                                                        device=self.device))
+        self.host_phases.mark(LAUNCH)
+        return stages(uniforms)
+
+    def _exact_frame(self, values, timer):
         """The exact frame: replayed CUDA graphs on the card (captured anew
         when ``exact_graph_key`` moves: config, splat count, model or tile
         capacity), the eager staged frame on the CPU. A streamed model is
         written into the cloud's tensors in place, so the graphs read each
         chunk the loader has written."""
+        phases = self.host_phases
         cfg = self.config
         if self.device.type != "cuda":
-            return render_frame_staged(self.cloud, self._uniforms(), cfg,
-                                       tile_capacity=self.tile_capacity,
-                                       timer=timer)
-        values = self._uniform_values()
+            return self._eager_frame(values, lambda u: render_frame_staged(
+                self.cloud, u, cfg, tile_capacity=self.tile_capacity,
+                timer=timer))
         if (self.exact_graph is None or self.exact_graph.key
                 != exact_graph_key(self.cloud, cfg, self.tile_capacity)):
+            phases.mark(CAPTURE)
             self.exact_graph = None      # the old pool goes first
             self.exact_graph = ExactFrameGraph(self.cloud, cfg, values,
                                                self.tile_capacity)
             self.graph_captures += 1
-        return self.exact_graph.render(values, timer)
+        return self.exact_graph.render(values, timer, phases)
 
-    def _fast_frame(self, timer):
+    def _fast_frame(self, values, timer):
         """The fast frame: replayed CUDA graphs on the card (captured anew
         when ``graph_key`` moves), the eager staged frame on the CPU."""
+        phases = self.host_phases
         cloud = self._render_cloud()
         cfg = self.config
         if self.device.type != "cuda":
-            return render_frame_fast_staged(cloud, self._uniforms(), cfg,
-                                            timer=timer)
-        values = self._uniform_values()
+            return self._eager_frame(
+                values,
+                lambda u: render_frame_fast_staged(cloud, u, cfg, timer=timer))
         if (self.fast_graph is None
                 or self.fast_graph.key != graph_key(cloud, cfg)):
+            phases.mark(CAPTURE)
             self.fast_graph = None       # the old pool goes first
             self.fast_graph = FastFrameGraph(cloud, cfg, values)
             self.graph_captures += 1
-        return self.fast_graph.render(values, timer)
+        return self.fast_graph.render(values, timer, phases)
 
     def _render_cloud(self) -> SplatCloud:
         """The fast path's view of the model (bf16 SH, splat-minor for the
@@ -288,7 +325,10 @@ class Rasterizer:
         Returns the re-rendered frame, or None."""
         if self.quality != "exact":
             return None
+        self.host_phases.mark(OVERFLOW)
         max_tile = int(out.stats.max_tile_count)
+        if self.device.type == "cuda":
+            self.host_phases.synced()
         if max_tile <= self.tile_capacity:
             return None
         if self.auto_capacity:
@@ -362,7 +402,11 @@ class Rasterizer:
             "is_loaded": self.is_loaded,
             "timings": self.timings.as_dict(),
             "timing_lines": self.timings.lines(),
+            "host_timings": {},
         }
+        last = self.host_phases.last_frames(1)
+        if len(last):
+            info["host_timings"] = telemetry.host_timings(last[-1])
         if self.last_frame is not None:
             stats = self.last_frame.stats
             pairs = int(stats.num_pairs)

@@ -23,13 +23,13 @@ plain-torch version.
 
 from __future__ import annotations
 
-import contextlib
 from typing import NamedTuple
 
 import torch
 
 from ..config import RasterizerConfig
 from ..models.splats import SplatCloud
+from ..utils.telemetry import NO_PHASES, OUTPUTS, StageTimer
 from .bigbin import GROUP, TileBigs, bin_bigs
 from .binning2 import TileBins2, bin_blocks2
 from .blocks2 import (BLOCK_SIZE, DEPTH_INVALID, _unpack_bf16_pair,
@@ -70,31 +70,6 @@ def _slim_projection(prj: ProjectedSplats) -> ProjectedSplats:
     block build."""
     return prj._replace(rect=prj.rect.new_zeros((1, 4)),
                         radius=prj.radius.new_zeros((1,)))
-
-
-class StageTimer:
-    """Per-stage device times of one frame, from CUDA events recorded on the
-    current stream around each stage. It measures the card only: a
-    non-CUDA device raises. ``times_ms()`` waits for the recorded work and
-    returns {stage: ms}."""
-
-    def __init__(self, device: torch.device):
-        if torch.device(device).type != "cuda":
-            raise ValueError("StageTimer times CUDA work only")
-        self._marks = []
-
-    @contextlib.contextmanager
-    def stage(self, name: str):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        yield
-        b.record()
-        self._marks.append((name, a, b))
-
-    def times_ms(self) -> dict:
-        torch.cuda.synchronize()
-        return {n: a.elapsed_time(b) for n, a, b in self._marks}
 
 
 def _frame_stages(cloud: SplatCloud, uniforms: FrameUniforms,
@@ -201,11 +176,13 @@ class FastFrameGraph(StageGraphs):
         super().__init__(lambda uniforms: _frame_stages(cloud, uniforms, cfg),
                          cloud.means.device, uniform_values)
 
-    def render(self, uniform_values,
-               timer: StageTimer | None = None) -> FastFrameOutput:
+    def render(self, uniform_values, timer: StageTimer | None = None,
+               phases=NO_PHASES) -> FastFrameOutput:
         """Replay the frame for one (UNIFORM_WIDTH,) f32 uniform vector,
-        each stage timed by ``timer`` when one is passed."""
-        out = self.replay(uniform_values, timer)
+        each stage timed by ``timer`` when one is passed, its host phases
+        marked on ``phases`` (a ``utils.telemetry.HostPhases``)."""
+        out = self.replay(uniform_values, timer, phases)
+        phases.mark(OUTPUTS)
         return out._replace(
             image=out.image.clone(), tile_t0=out.tile_t0.clone(),
             stats=FrameStats(*(s.clone() for s in out.stats)))

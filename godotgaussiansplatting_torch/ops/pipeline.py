@@ -19,7 +19,6 @@ ops/fast_pipeline.py is the other).
 from __future__ import annotations
 
 import contextlib
-import time
 from typing import NamedTuple
 
 import numpy as np
@@ -27,6 +26,7 @@ import torch
 
 from .. import kernels
 from ..config import RasterizerConfig
+from ..utils.telemetry import LAUNCH, NO_PHASES, OUTPUTS, UPLOAD
 from .projection import project_splats
 from .render_exact import render_tiles
 from .sort import emit_and_sort, tile_boundaries
@@ -201,7 +201,10 @@ class StageGraphs:
     the stages on those views. ``replay`` writes a frame's uniform vector
     (``pack_uniforms``) with one copy from pinned host memory, whose reuse
     waits on the event of the copy before, and returns the last stage's
-    output: the graphs' own buffers, valid until the next replay.
+    output: the graphs' own buffers, valid until the next replay. Given an
+    engine frame's ``utils.telemetry.HostPhases``, a replay marks its
+    ``upload`` and ``launch`` phases there and counts the upload's wait and
+    the graphs it launches.
 
     Launch counts: a capture records its kernels' launches
     (``kernels.recording_launches``) in ``launches``, and each replay adds
@@ -219,12 +222,11 @@ class StageGraphs:
         self._uploaded = torch.cuda.Event()
         stages = make_stages(uniforms_from_buffer(self._dev))
         self._upload(uniform_values)
-        t0 = time.perf_counter()
         self._capture(stages, device)
-        self.capture_seconds = time.perf_counter() - t0
 
-    def _upload(self, values) -> None:
+    def _upload(self, values, phases=NO_PHASES) -> None:
         self._uploaded.synchronize()     # the last copy has left the buffer
+        phases.synced()
         self._host.numpy()[:] = values
         self._dev.copy_(self._host, non_blocking=True)
         self._uploaded.record()
@@ -255,17 +257,20 @@ class StageGraphs:
             self._graphs.append((name, g))
         self._out = out
 
-    def replay(self, uniform_values, timer=None):
+    def replay(self, uniform_values, timer=None, phases=NO_PHASES):
         """Replay the frame for one (UNIFORM_WIDTH,) f32 uniform vector,
-        each stage timed by ``timer`` when one is passed; returns the
-        graphs' output buffers."""
-        self._upload(uniform_values)
+        each stage timed by ``timer`` when one is passed, the host phases
+        marked on ``phases``; returns the graphs' output buffers."""
+        phases.mark(UPLOAD)
+        self._upload(uniform_values, phases)
+        phases.mark(LAUNCH)
         stage = timer.stage if timer is not None else (
             lambda name: contextlib.nullcontext())
         for name, g in self._graphs:
             with stage(name):
                 g.replay()
         kernels.count_launches(self.launches)
+        phases.launched(len(self._graphs))
         return self._out
 
 
@@ -295,10 +300,13 @@ class ExactFrameGraph(StageGraphs):
                                            tile_capacity),
             cloud.means.device, uniform_values)
 
-    def render(self, uniform_values, timer=None) -> FrameOutput:
+    def render(self, uniform_values, timer=None,
+               phases=NO_PHASES) -> FrameOutput:
         """Replay the frame for one (UNIFORM_WIDTH,) f32 uniform vector,
-        each stage timed by ``timer`` when one is passed."""
-        out = self.replay(uniform_values, timer)
+        each stage timed by ``timer`` when one is passed, its host phases
+        marked on ``phases`` (a ``utils.telemetry.HostPhases``)."""
+        out = self.replay(uniform_values, timer, phases)
+        phases.mark(OUTPUTS)
         return out._replace(
             image=out.image.clone(), tile_t0=out.tile_t0.clone(),
             stats=FrameStats(*(s.clone() for s in out.stats)))

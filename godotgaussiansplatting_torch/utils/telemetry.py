@@ -5,9 +5,16 @@ reference times every stage with GPU timestamps
 (gaussian_splatting_rasterizer.gd:135-160) and shows them in its panel
 (main.gd:106-119): the same stage names and ``StageTimings.lines()`` format
 here. On the card a frame's stages are timed by CUDA events
-(``ops.fast_pipeline.StageTimer``); only a caller that asked for the CPU
-gets wall-clock stage times. Device memory comes from
-``torch.cuda.memory_stats`` and ``torch.cuda.mem_get_info``.
+(``StageTimer``); only a caller that asked for the CPU gets wall-clock
+stage times. Device memory comes from ``torch.cuda.memory_stats`` and
+``torch.cuda.mem_get_info``.
+
+The host's part of each engine frame is recorded by ``HostPhases``: the
+frame's contiguous phases (``PHASES``) and its host waits and graph
+launches, one row a frame in a fixed ring. ``HOST_PHASES`` is the
+process's ring, which every ``Rasterizer`` records into unless given
+another; while ``torch.profiler`` records, each phase is also a profiler
+range ``engine.<phase>``, on the clock of the device's kernels.
 
 The JAX package's ``dispatch_overhead_ms`` and its subtraction are left
 out: they calibrate the fixed cost of a dispatch and a readback through the
@@ -18,17 +25,208 @@ are recorded on the stream and measure the device work alone.
 from __future__ import annotations
 
 import contextlib
+import struct
 import time
+from time import perf_counter
 from typing import Dict, List, Optional
 
+import numpy as np
 import torch
-
-from ..ops.fast_pipeline import StageTimer
+from torch.autograd import profiler as _profiler
 
 # Stage names per pipeline (the reference's set is the exact-mode one,
 # gaussian_splatting_rasterizer.gd:135-160).
 STAGE_NAMES = ("Projection", "Sort", "Boundaries", "Render")
 STAGE_NAMES_FAST = ("Projection", "Blocks", "Binning", "Render")
+
+
+# The host's phases of an engine frame, in the order a graphed frame runs
+# them (``Rasterizer.rasterize``): the camera update, the uniform vector,
+# the graph bookkeeping (config, capture key, the fast view), a new capture,
+# the uniform upload (with its wait on the last copy), the four replays
+# with their stage events (the eager stages on the CPU), the output clones,
+# the wait for the frame, the stage times and the exact path's overflow
+# check (a capacity re-render stays in its frame's row).
+PHASES = ("camera", "uniforms", "graph", "capture", "upload", "launch",
+          "outputs", "wait", "timings", "overflow")
+(CAMERA, UNIFORMS, GRAPH, CAPTURE, UPLOAD, LAUNCH, OUTPUTS, WAIT, TIMINGS,
+ OVERFLOW) = range(len(PHASES))
+# A ring row: each phase's seconds, the frame's host waits on the device
+# and graph launches, and 1 if the profiler recorded any of it.
+HOST_COLUMNS = PHASES + ("syncs", "launches", "profiled")
+SYNCS, LAUNCHES, PROFILED = range(len(PHASES), len(HOST_COLUMNS))
+NO_PHASE = len(HOST_COLUMNS)     # the row's scratch slot: between phases
+HOST_RING_FRAMES = 65_536
+_ROW = struct.Struct(f"{len(HOST_COLUMNS)}d")
+_RANGES = tuple(f"engine.{p}" for p in PHASES)
+
+
+class HostPhases:
+    """The host's part of each engine frame as contiguous phases: a
+    ``mark(phase)`` closes the open phase and opens the next at one
+    ``time.perf_counter()`` reading, so the phases tile the frame (float
+    seconds: the clock of ``perf_counter_ns``, whose integer sums cost the
+    hot path about 1 us more a frame). A frame's
+    row opens at its first mark and is written to a ring of ``frames``
+    rows (memory fixed at construction) by the ``end`` that balances the
+    outermost ``begin``, so a frame nested in another (the exact path's
+    capacity re-render) adds to its row. ``mark(NO_PHASE)`` pauses the row
+    between phases (the caller's time between ``update_camera_matrices``
+    and ``rasterize``); ``phase`` is the open one. ``synced`` and
+    ``launched`` count the frame's host waits on the device and its graph
+    launches where they are made.
+
+    While ``torch.profiler`` records, each phase is also a profiler range
+    ``engine.<phase>`` and the row is marked profiled; otherwise a mark
+    costs one clock read, two float adds and one flag read. Frames are
+    assumed to run one at a time (the viewer's render thread): rows of two
+    threads' frames at once would mix."""
+
+    __slots__ = ("_ring", "_size", "_bytes", "_row", "phase", "_depth",
+                 "_range", "frames")
+
+    def __init__(self, frames: int = HOST_RING_FRAMES):
+        self._ring = np.zeros((frames, len(HOST_COLUMNS)), np.float64)
+        self._size = frames
+        self._bytes = memoryview(self._ring).cast("B")
+        # the open row; a phase's slot gains its close's reading and loses
+        # its open's, and NO_PHASE's slot takes what is between phases
+        self._row = [0.0] * (NO_PHASE + 1)
+        self.phase = NO_PHASE
+        self._depth = 0
+        self._range = None
+        self.frames = 0      # rows written since construction
+
+    def mark(self, phase: int) -> int:
+        """Close the open phase and open ``phase`` (``NO_PHASE``: none) at
+        one clock reading, which it returns (s)."""
+        t = perf_counter()
+        row = self._row
+        row[self.phase] += t
+        row[phase] -= t
+        self.phase = phase
+        if _profiler._is_profiler_enabled:
+            self._switch_range(phase)
+        return t
+
+    def begin(self, phase: int) -> int:
+        """Open a frame (or a frame nested in the open one) at ``phase``;
+        returns the clock reading (s)."""
+        self._depth += 1
+        return self.mark(phase)
+
+    def end(self) -> None:
+        """Close the frame ``begin`` opened; the outermost writes the row."""
+        self._depth -= 1
+        if self._depth > 0:
+            return
+        self._depth = 0
+        t = perf_counter()
+        row = self._row
+        row[self.phase] += t
+        row[NO_PHASE] -= t
+        self.phase = NO_PHASE
+        if self._range is not None or _profiler._is_profiler_enabled:
+            self._switch_range(NO_PHASE)
+        self._row = [0.0] * (NO_PHASE + 1)
+        _ROW.pack_into(self._bytes, (self.frames % self._size) * _ROW.size,
+                       *row[:NO_PHASE])
+        self.frames += 1
+
+    def synced(self) -> None:
+        """The host waited on the device (a synchronise or a read)."""
+        self._row[SYNCS] += 1
+
+    def launched(self, graphs: int) -> None:
+        self._row[LAUNCHES] += graphs
+
+    def _switch_range(self, phase: int) -> None:
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
+            self._range = None
+        if _profiler._is_profiler_enabled:
+            self._row[PROFILED] = 1
+            if phase != NO_PHASE:
+                self._range = _profiler.record_function(_RANGES[phase])
+                self._range.__enter__()
+
+    def last_frames(self, n: int) -> np.ndarray:
+        """The last ``n`` rows not marked profiled, oldest first: an
+        (m, len(HOST_COLUMNS)) float64 array, m < n where the ring holds
+        fewer."""
+        if n <= 0:
+            return self._ring[:0].copy()
+        size = self._size
+        idx = np.arange(max(self.frames - size, 0), self.frames) % size
+        idx = idx[self._ring[idx, PROFILED] == 0][-n:]
+        return self._ring[idx]
+
+
+class _Unrecorded:
+    """``HostPhases``' counting interface recording nothing: for graphs
+    replayed and stage timers used outside an engine frame."""
+
+    def mark(self, phase: int) -> int:
+        return 0
+
+    def synced(self) -> None:
+        pass
+
+    def launched(self, graphs: int) -> None:
+        pass
+
+
+HOST_PHASES = HostPhases()
+NO_PHASES = _Unrecorded()
+
+
+def host_timings(row) -> Dict[str, float]:
+    """A ring row as {phase: ms, "syncs": n, "launches": n}."""
+    out = {p: float(row[i]) * 1e3 for i, p in enumerate(PHASES)}
+    out["syncs"] = int(row[SYNCS])
+    out["launches"] = int(row[LAUNCHES])
+    return out
+
+
+def host_lines(timings: Dict[str, float]) -> List[str]:
+    """The panel's Host Timings rows of ``host_timings``: each phase that
+    took time, their total, the host waits and graph launches."""
+    if not timings:
+        return []
+    rows = [f"{p + ':':<16} {timings[p]:.2f}ms" for p in PHASES
+            if timings[p] > 0]
+    rows.append(f"{'Host Total:':<16} "
+                f"{sum(timings[p] for p in PHASES):.2f}ms")
+    rows.append(f"{'Syncs:':<16} {timings['syncs']}, graph launches "
+                f"{timings['launches']}")
+    return rows
+
+
+class StageTimer:
+    """Per-stage device times of one frame, from CUDA events recorded on the
+    current stream around each stage. It measures the card only: a
+    non-CUDA device raises. ``times_ms()`` waits for the recorded work
+    (counted on ``phases``) and returns {stage: ms}."""
+
+    def __init__(self, device: torch.device, phases=NO_PHASES):
+        if torch.device(device).type != "cuda":
+            raise ValueError("StageTimer times CUDA work only")
+        self._marks = []
+        self._phases = phases
+
+    @contextlib.contextmanager
+    def stage(self, name: str):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        yield
+        b.record()
+        self._marks.append((name, a, b))
+
+    def times_ms(self) -> dict:
+        torch.cuda.synchronize()
+        self._phases.synced()
+        return {n: a.elapsed_time(b) for n, a, b in self._marks}
 
 
 class WallStageTimer:
@@ -50,16 +248,21 @@ class WallStageTimer:
         return dict(self._ms)
 
 
-def make_stage_timer(device):
-    """A stage timer for one frame on ``device``: CUDA events on the card,
-    the host's clock on the CPU."""
+def make_stage_timer(device, phases=NO_PHASES):
+    """A stage timer for one frame on ``device``: CUDA events on the card
+    (its wait counted on ``phases``), the host's clock on the CPU."""
     if torch.device(device).type == "cuda":
-        return StageTimer(device)
+        return StageTimer(device, phases)
     return WallStageTimer(device)
 
 
+FRAME = "Frame"
+
+
 class StageTimings:
-    """Rolling per-stage times, formatted like the reference's panel."""
+    """Rolling per-stage times, formatted like the reference's panel; the
+    ``Frame`` entry (the host's time of the whole frame) is kept apart
+    from the stages."""
 
     def __init__(self):
         self._ms: Dict[str, float] = {}
@@ -72,18 +275,22 @@ class StageTimings:
 
     @property
     def total_ms(self) -> float:
-        return sum(self._ms.values())
+        """The stages' sum (``Frame`` left out)."""
+        return sum(ms for name, ms in self._ms.items() if name != FRAME)
 
     def lines(self) -> List[str]:
-        """'Projection:      0.42ms ( 5.31%)' rows and the total, as
-        main.gd:110-119."""
-        total = self.total_ms or 1.0
+        """'Projection:      0.42ms ( 5.31%)' rows, the stages' total and
+        the frame's time on its own line, as main.gd:110-119."""
+        total = self.total_ms
+        share = total or 1.0
         rows = [
             f"{name + ':':<16} {self._ms[name]:.2f}ms "
-            f"({self._ms[name] / total * 1e2:5.2f}%)"
-            for name in self._order
+            f"({self._ms[name] / share * 1e2:5.2f}%)"
+            for name in self._order if name != FRAME
         ]
-        rows.append(f"{'Total Time:':<16} {self.total_ms:.2f}ms")
+        rows.append(f"{'Total Time:':<16} {total:.2f}ms")
+        if FRAME in self._ms:
+            rows.append(f"{FRAME + ':':<16} {self._ms[FRAME]:.2f}ms")
         return rows
 
     def as_dict(self) -> Dict[str, float]:

@@ -71,6 +71,7 @@ import numpy as np
 
 from ..engine.rasterizer import Rasterizer
 from ..models.ply import PlyFile, check_properties
+from ..utils import telemetry
 from ..utils.image import encode_jpeg_fallback_png
 from .controller import FreeLookController, InputState
 
@@ -510,6 +511,8 @@ class ViewerState:
             f"VRAM Used:       {info.get('memory_used', 'n/a')}",
             "", "Stage Timings",
         ] + info["timing_lines"] + [
+            "", "Host Timings",
+        ] + telemetry.host_lines(info["host_timings"]) + [
             "", "Camera",
             "Cursor Position: "
             f"{np.round(self.ctl.orbit_position, 2).tolist()}",

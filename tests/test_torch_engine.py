@@ -170,8 +170,15 @@ def test_stage_timings_recorded(quality, stages):
     t = r.debug_info()["timings"]
     for name in stages + ("Frame",):
         assert name in t, f"missing stage {name}: {sorted(t)}"
-    lines = "\n".join(r.debug_info()["timing_lines"])
+    rows = r.debug_info()["timing_lines"]
+    lines = "\n".join(rows)
     assert "Projection" in lines and "%" in lines and "Total Time" in lines
+    # the total is the stages' sum, the frame on its own line, outside it
+    stage_sum = sum(t[name] for name in stages)
+    assert rows[len(stages)] == f"{'Total Time:':<16} {stage_sum:.2f}ms"
+    assert rows[-1] == f"{'Frame:':<16} {t['Frame']:.2f}ms"
+    shares = [float(row.split("(")[1].rstrip("%)")) for row in rows[:-2]]
+    assert sum(shares) == pytest.approx(100.0, abs=0.05)
 
 
 def test_stage_timer_refuses_the_wrong_clock():
