@@ -18,9 +18,14 @@ RasterizerConfig(kernel="v4").fast_defaults() (the cooked payload into
 ``gs_render_v4`` at GT 4) and the default exact quality (the readable
 projection, emit_and_sort and tile_boundaries into ``gs_render_exact`` at
 tile 16, with tile capacity 2048 at 512x512 and 16384, where the engine
-settles, at 1080p). A side whose ``_render_cuda`` or ``_render_v4_cuda``
-takes the big log-alpha maps (``bigla``) computes them with its own
-``prepass_big_la`` inside each timed call, as its frame does. The script
+settles, at 1080p). ``main(argv, views)`` compares further inputs from a
+caller, each a (tag, fast cloud view, cfg, camera) through
+``frame_inputs`` into the configuration's fast kernel; with views and no
+ENTRY only the views run (``python3 -m portbench.render_views ab
+OTHER_CHECKOUT`` hands it the benchmark's fast cells). A side whose
+``_render_cuda`` or ``_render_v4_cuda`` takes the big log-alpha maps
+(``bigla``) computes them with its own ``prepass_big_la`` inside each
+timed call, as its frame does. The script
 prints both sides' ptxas reports (registers, stack frame, spills) and
 ``render_exact``'s instructions per evaluation (``cuobjdump -sass``,
 ``render_exact.sass_per_evaluation``), the RGB PSNR, the largest
@@ -94,12 +99,12 @@ def import_other(root: Path):
             importlib.import_module("gsother.kernels"))
 
 
-def frame_inputs(cloud, cfg):
-    """(rows, payload, bigpay, cfg, U, max_batches) of the reset camera
-    through the configuration's projection and payload (the readable
-    projection's kernel takes (P, 16, 3) SH)."""
+def frame_inputs(cloud, cfg, camera=None):
+    """(rows, payload, bigpay, cfg, U, max_batches) of ``camera`` (the
+    reset camera unless given) through the configuration's projection and
+    payload (the readable projection's kernel takes (P, 16, 3) SH)."""
     cloud = gt.fast_cloud_view(cloud, planar_sh=cfg.projection_kernel)
-    uni = gt.make_uniforms(gt.Camera.reset_pose(), cfg)
+    uni = gt.make_uniforms(camera or gt.Camera.reset_pose(), cfg)
     args = (cloud.means, cloud.cov3d, cloud.opacity, cloud.sh,
             cloud.upload_time, uni.view, uni.proj, uni.camera_pos,
             uni.model_scale, uni.time, cfg)
@@ -207,11 +212,13 @@ def _compare_exact(a, b) -> str:
             f"{torch.equal(a.image, b.image)}")
 
 
-def main(argv) -> int:
+def main(argv, views=()) -> int:
+    """``views``: further inputs, (tag, fast cloud view, cfg, camera)
+    each; with views, only the ENTRYs named in ``argv`` run besides."""
     if not argv or not torch.cuda.is_available() or any(
             e not in ENTRIES for e in argv[1:]):
         raise SystemExit(__doc__)
-    entries = argv[1:] or ENTRIES
+    entries = argv[1:] or (() if views else ENTRIES)
     other_rv, other_kernels = import_other(Path(argv[0]).resolve())
     other_r4 = importlib.import_module("gsother.ops.render_v4")
     other_rx = importlib.import_module("gsother.ops.render_exact")
@@ -224,7 +231,7 @@ def main(argv) -> int:
           json.dumps(exact_sass(other_kernels)))
     print("render_exact SASS per evaluation, this:",
           json.dumps(exact_sass(kernels)))
-    for tag in SCENES:
+    for tag in SCENES if entries else ():
         full, base = scene_cloud(tag)
         cloud = gt.fast_cloud_view(full)
         for entry, cfg in (("words", base.fast_defaults()),
@@ -249,6 +256,13 @@ def main(argv) -> int:
                 _compare_exact(fns["other"](), fns["this"]()))
             del args, fns
         del cloud, full
+    for tag, cloud, cfg, camera in views:
+        args = frame_inputs(cloud, cfg, camera)
+        fns = {"other": lambda: _call(other_rv, other_r4, args),
+               "this": lambda: _call(rv, r4, args)}
+        _ab(f"{tag} {cfg.kernel} (tile {cfg.tile_size}, U={args[4]})", fns,
+            _compare(fns["other"](), fns["this"](), cfg))
+        del args, fns
     return 0
 
 

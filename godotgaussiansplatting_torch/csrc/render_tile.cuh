@@ -6,15 +6,16 @@
 // decode of both chain payloads (lane_key, lane_store), the 1D TMA fetch of
 // a batch's chain blocks (fetch_batch), the rank count into a ring of three
 // batches, the per-pixel composite with its lag-1 and big-lane merges
-// (composite_batch, emit_batch), the resident big lanes evaluated in the
-// kernel (load_big, finish_tile) and the present. The two kernels differ
-// only in their output: v3's is (TG, 8, NPX) channel-major; v4's is the
+// (composite_batch, emit_batch, whose merge with the next batch is that
+// batch's total), the resident big lanes evaluated in the kernel
+// (load_big, finish_tile) and the present. The two kernels differ only in
+// their output: v3's is (TG, 8, NPX) channel-major; v4's is the
 // JAX v4 kernel's (T4, GT * NPX, 8) pixel-major layout, with the tile list
 // padded to T4 * GT slots by empty tiles. The design, and what bounds both
 // (the issue of the per-(pixel, lane) exp and log), are in render_v3.cu's
 // header. Built with --fmad=false, so every recomputation of a lane's
-// alpha is bit-identical to the others, and both kernels give bit-identical
-// outputs for the same tile.
+// log-alpha is bit-identical to the others, and both kernels give
+// bit-identical outputs for the same tile.
 
 #pragma once
 
@@ -37,6 +38,28 @@ constexpr int PPT_TILE16 = 1;
 constexpr int PPT_TILE32 = 4;
 constexpr int MIN_BLOCKS_TILE16 = 2;
 constexpr int MIN_BLOCKS_TILE32 = 2;
+// Each warp owns a compact block of its 32 * PPT pixels, WARP_COLS wide (the
+// tile's width where that is less; PERF.md section 6 has the measurement
+// that chose it). Thread tid's pixel i is pixel_base(tid) + i * pixel_step.
+constexpr int WARP_COLS = 32;
+
+template <int T>
+__host__ __device__ constexpr int warp_cols() {
+  return T < WARP_COLS ? T : WARP_COLS;
+}
+
+template <int T>
+__host__ __device__ constexpr int pixel_step() {
+  return 32 / warp_cols<T>() * T;
+}
+
+template <int T, int PPT>
+__device__ __forceinline__ int pixel_base(int tid) {
+  constexpr int WC = warp_cols<T>(), WR = 32 * PPT / WC, BX = T / WC;
+  static_assert(WC * WR == 32 * PPT && T % WC == 0, "warp block");
+  const int w = tid >> 5, l = tid & 31;
+  return ((w / BX) * WR + l / WC) * T + (w % BX) * WC + l % WC;
+}
 
 // TG tiles in row-major order (gx a row), U chain blocks a batch, OB
 // resident big-lane slots a tile; v4 writes `slots` tile slots (TG rounded
@@ -289,26 +312,57 @@ __device__ __forceinline__ Feat feat_at(const float* f, int stride, int j) {
               f[3 * stride + j], f[4 * stride + j], f[5 * stride + j]};
 }
 
-__device__ __forceinline__ float alpha_at(const Feat& f, const Pix& q) {
-  const float power = f.f0 + q.x * f.f1 + q.y * f.f2 + q.xx * f.f3 +
-                      q.yy * f.f4 + q.xy * f.f5;
-  return fminf(__expf(power), ALPHA_MAX);
+__device__ __forceinline__ float power_at(const Feat& f, const Pix& q) {
+  return f.f0 + q.x * f.f1 + q.y * f.f2 + q.xx * f.f3 + q.yy * f.f4 +
+         q.xy * f.f5;
 }
+
+__device__ __forceinline__ float alpha_at(const Feat& f, const Pix& q) {
+  return fminf(__expf(power_at(f, q)), ALPHA_MAX);
+}
+
+// The special-function instructions of __expf and __logf in their
+// flush-to-zero form. The kernels are built without -ftz, so __expf(x) is
+// ex2.approx.f32(fl(x * log2 e)) and __logf(x) is fl(lg2.approx.f32(x) *
+// ln 2), each with a guard that rescales a subnormal argument or result:
+// three instructions on top of the SFU's one. Where the argument and the
+// result are normal floats, the .ftz form is the same instruction on the
+// same bits (design item G, render_v3.cu).
+__device__ __forceinline__ float ex2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float lg2_ftz(float x) {
+  float y;
+  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// fl(log2 e) and fl(ln 2), the factors of __expf and __logf.
+constexpr float LOG2E_F = 1.44269502162933349609375f;
+constexpr float LN2_F = 0.693147182464599609375f;
 
 // log(1 - alpha) on the SFU: log1pf costs about as much as the rest of an
-// evaluation; alpha <= ALPHA_MAX keeps the argument >= 6e-5.
+// evaluation; alpha <= ALPHA_MAX keeps the argument >= 6e-5, a normal
+// float, so this is __logf(1 - alpha) bit for bit.
 __device__ __forceinline__ float log_transmit(float alpha) {
-  return __logf(1.0f - alpha);
+  return lg2_ftz(1.0f - alpha) * LN2_F;
 }
 
+// log_transmit(alpha_at(f, q)) bit for bit. The exp may flush: where
+// fl(power * log2 e) < -126 __expf's alpha is about 2^-126 or less and the
+// flushed one 0, and 1 - alpha rounds to 1 either way.
 __device__ __forceinline__ float la_at(const Feat& f, const Pix& q) {
-  return log_transmit(alpha_at(f, q));
+  return log_transmit(fminf(ex2_ftz(power_at(f, q) * LOG2E_F), ALPHA_MAX));
 }
 
 // A tile's tables, and where this thread's pixels are.
 struct Tile {
   const int32_t* row;       // its (8, 128) header rows
   int nbig, US, OB, tid;
+  int px;                   // this thread's first pixel (pixel_base)
   float* ring;              // 3 lane slots
   const int* nact;          // active lanes of each ring slot
   const int* prefix;        // [128] big depth-bucket prefix (straddle gate)
@@ -343,32 +397,33 @@ struct TileState {
 template <int T, int PPT>
 __device__ __forceinline__ void add_dz(const Tile& tl, int b,
                                        const float (&v)[PPT]) {
-  constexpr int NT = T * T / PPT;
 #pragma unroll
   for (int i = 0; i < PPT; ++i)
-    tl.dz[(size_t)b * T * T + tl.tid + i * NT] += v[i];
+    tl.dz[(size_t)b * T * T + tl.px + i * pixel_step<T>()] += v[i];
   if (tl.tid == 0) tl.touched[b] = 1;
 }
 
 // Emit one batch (slot m) for this thread's pixels. A (the batch before
 // it) and C (the batch after it) take part only when useA / useC say that
-// their depth ranges overlap this batch's (the lag-1 corrections). With
-// strad, the big lanes from jb on are merged by rank, on top of bfb (the
-// big lanes before jb); otherwise bfb is part of base. The slots are
-// passed by value with flags, not as nullable pointers: a pointer to a
-// local Slot would keep it in local memory.
+// their depth ranges overlap this batch's (the lag-1 corrections). C's
+// log-alphas are summed in rank order into accC, which the caller zeroes:
+// the prefix of C's total over the lanes it returns the count of (0
+// without useC). With strad, the big lanes from jb on are merged by rank,
+// on top of bfb (the big lanes before jb); otherwise bfb is part of base.
+// The slots are passed by value with flags, not as nullable pointers: a
+// pointer to a local Slot would keep it in local memory.
 template <int PPT>
-__device__ __forceinline__ void emit_batch(
+__device__ __forceinline__ int emit_batch(
     const Tile& tl, const Slot m, int nm, const float (&base)[PPT],
     const Slot A, bool useA, int nA, const float (&totA)[PPT], const Slot C,
-    bool useC, int nC, bool strad, int jb, const float (&bfb)[PPT],
-    const Pix (&q)[PPT], float (&acc)[PPT][3]) {
+    bool useC, int nC, float (&accC)[PPT], bool strad, int jb,
+    const float (&bfb)[PPT], const Pix (&q)[PPT], float (&acc)[PPT][3]) {
   const int US = tl.US;
   int ia = 0, ic = 0, ib = jb;
-  float accA[PPT], accC[PPT], accB[PPT], run[PPT], grp[PPT];
+  float accA[PPT], accB[PPT], run[PPT], grp[PPT];
 #pragma unroll
   for (int i = 0; i < PPT; ++i) {
-    accA[i] = accC[i] = run[i] = grp[i] = 0.0f;
+    accA[i] = run[i] = grp[i] = 0.0f;
     accB[i] = strad ? bfb[i] : 0.0f;
   }
   uint32_t grank = nm > 0 ? m.rank[0] : 0u;
@@ -417,21 +472,24 @@ __device__ __forceinline__ void emit_batch(
       grp[i] += la;
     }
   }
+  return ic;
 }
 
 // The per-pixel part of batch k of a tile, once its n active lanes are
-// rank-sorted in ring slot k % 3: the big lanes in front of it, its total
-// mass and its exchange with the big lanes behind it, then the emit of
-// batch k-1, whose successor is now known. Returns the early-exit vote:
-// whether one of the thread's pixels still sees more than 1/255.
+// rank-sorted in ring slot k % 3: the emit of batch k-1, whose successor is
+// now known, then the big lanes in front of batch k, the rest of its total
+// mass and its exchange with the big lanes behind it. Returns the
+// early-exit vote: whether one of the thread's pixels still sees more than
+// 1/255. Nothing of batch k but its overlap with k-1 is decided before the
+// emit: a flag live across the emit's loops would hold one of the few
+// predicate registers that the loops' exp and log guards interleave on.
 template <int T, int PPT>
 __device__ __forceinline__ bool composite_batch(const Tile& tl, int k, int U,
                                                 int n, const Pix (&q)[PPT],
                                                 PixState<PPT>& ps,
                                                 TileState& ts) {
   const int32_t* row = tl.row;
-  const int nb = row[0], nbig = tl.nbig, US = tl.US;
-  const bool has_big = nbig > 0;
+  const int nb = row[0], US = tl.US;
   int bmin = 0x10000, bmax = -1;
   for (int u = 0; u < U; ++u) {
     const int pos = k * U + u;
@@ -442,11 +500,34 @@ __device__ __forceinline__ bool composite_batch(const Tile& tl, int k, int U,
     }
   }
   const Slot cur = slot_at(tl.ring, k % 3, US);
+  const bool ovl = k > 0 && bmin <= ts.pbmax && bmax >= ts.pbmin;
+
+  // --- the emit of batch k-1 ----------------------------------------------
+  // Where the two overlap, its merge sums this batch's log-alphas in rank
+  // order from 0, as the batch's total does: the total takes that prefix
+  // over and goes on from the first lane the merge left (design item F).
+  float tot[PPT];
+#pragma unroll
+  for (int i = 0; i < PPT; ++i) tot[i] = 0.0f;
+  int j0 = 0;
+  if (k > 0) {
+    const int sm = (k - 1) % 3, sa = (k + 1) % 3;  // batches k-1 and k-2
+    float base[PPT];
+#pragma unroll
+    for (int i = 0; i < PPT; ++i)
+      base[i] = ps.T1[i] + (ts.strad1 ? 0.0f : ps.bf1[i]);
+    j0 = emit_batch<PPT>(tl, slot_at(tl.ring, sm, US), tl.nact[sm], base,
+                         slot_at(tl.ring, sa, US), ts.ovl1, tl.nact[sa],
+                         ps.tot2, cur, ovl, n, tot, ts.strad1, ts.jf1,
+                         ps.bf1, q, ps.acc);
+  }
+
+  const int nbig = tl.nbig;
+  const bool has_big = nbig > 0;
   const int b0 = min(max(bmin >> 9, 0), 127), b1 = min(max(bmax >> 9, 0), 127);
   const int n_hi = tl.prefix[b1];
   const int n_lo = b0 > 0 ? tl.prefix[b0 - 1] : 0;
   const bool strad = has_big && bmax >= bmin && (n_hi - n_lo) != 0;
-  const bool ovl = k > 0 && bmin <= ts.pbmax && bmax >= ts.pbmin;
 
   // --- the big lanes in front of the batch: a growing prefix -------------
   if (has_big) {
@@ -466,9 +547,6 @@ __device__ __forceinline__ bool composite_batch(const Tile& tl, int k, int U,
   }
 
   // --- the batch's mass, and what the big lanes behind it see ------------
-  float tot[PPT];
-#pragma unroll
-  for (int i = 0; i < PPT; ++i) tot[i] = 0.0f;
   if (strad) {
     // Lane j counts for every big lane of larger rank: it is added to the
     // entry of the first such lane (b), per rank segment.
@@ -476,7 +554,7 @@ __device__ __forceinline__ bool composite_batch(const Tile& tl, int k, int U,
     bool any = false;
     float seg[PPT];
 #pragma unroll
-    for (int i = 0; i < PPT; ++i) seg[i] = 0.0f;
+    for (int i = 0; i < PPT; ++i) tot[i] = seg[i] = 0.0f;
     for (int j = 0; j < n; ++j) {
       const uint32_t r = cur.rank[j];
       if (b < nbig && tl.brank[b] <= r) {
@@ -498,7 +576,7 @@ __device__ __forceinline__ bool composite_batch(const Tile& tl, int k, int U,
     }
     if (any && b < nbig) add_dz<T, PPT>(tl, b, seg);
   } else {
-    for (int j = 0; j < n; ++j) {
+    for (int j = j0; j < n; ++j) {
       const Feat f = feat_at(cur.f, US, j);
 #pragma unroll
       for (int i = 0; i < PPT; ++i) tot[i] += la_at(f, q[i]);
@@ -511,31 +589,15 @@ __device__ __forceinline__ bool composite_batch(const Tile& tl, int k, int U,
     }
   }
 
-  float Tk[PPT];
   bool more = false;
-#pragma unroll
-  for (int i = 0; i < PPT; ++i) {
-    Tk[i] = ps.tcar[i];
-    ps.tcar[i] += tot[i];
-    more |= (ps.tcar[i] + ps.bf[i]) > LOG_MIN_ALPHA;
-  }
-
-  if (k > 0) {
-    const int sm = (k - 1) % 3, sa = (k + 1) % 3;  // batches k-1 and k-2
-    float base[PPT];
-#pragma unroll
-    for (int i = 0; i < PPT; ++i)
-      base[i] = ps.T1[i] + (ts.strad1 ? 0.0f : ps.bf1[i]);
-    emit_batch<PPT>(tl, slot_at(tl.ring, sm, US), tl.nact[sm], base,
-                    slot_at(tl.ring, sa, US), ts.ovl1, tl.nact[sa], ps.tot2,
-                    cur, ovl, n, ts.strad1, ts.jf1, ps.bf1, q, ps.acc);
-  }
 #pragma unroll
   for (int i = 0; i < PPT; ++i) {
     ps.tot2[i] = ps.tot1[i];
     ps.tot1[i] = tot[i];
-    ps.T1[i] = Tk[i];
+    ps.T1[i] = ps.tcar[i];
     ps.bf1[i] = ps.bf[i];
+    ps.tcar[i] += tot[i];
+    more |= (ps.tcar[i] + ps.bf[i]) > LOG_MIN_ALPHA;
   }
   ts.jf1 = ts.jf;
   ts.ovl1 = ovl;
@@ -555,7 +617,7 @@ __device__ __forceinline__ void finish_tile(const Tile& tl, int k,
                                             PixState<PPT>& ps,
                                             const TileState& ts,
                                             float (&bigtot)[PPT]) {
-  constexpr int NPX = T * T, NT = NPX / PPT;
+  constexpr int NPX = T * T;
   const int US = tl.US;
   if (k > 0) {
     const int sm = (k - 1) % 3, sa = (k + 1) % 3;
@@ -564,9 +626,12 @@ __device__ __forceinline__ void finish_tile(const Tile& tl, int k,
 #pragma unroll
     for (int i = 0; i < PPT; ++i)
       base[i] = ps.T1[i] + (ts.strad1 ? 0.0f : ps.bf1[i]);
+    float none[PPT];  // no batch follows: no merge with one
+#pragma unroll
+    for (int i = 0; i < PPT; ++i) none[i] = 0.0f;
     emit_batch<PPT>(tl, prv, tl.nact[sm], base, slot_at(tl.ring, sa, US),
-                    ts.ovl1, tl.nact[sa], ps.tot2, prv, false, 0, ts.strad1,
-                    ts.jf1, ps.bf1, q, ps.acc);
+                    ts.ovl1, tl.nact[sa], ps.tot2, prv, false, 0, none,
+                    ts.strad1, ts.jf1, ps.bf1, q, ps.acc);
   }
   float dsum[PPT];
 #pragma unroll
@@ -575,7 +640,7 @@ __device__ __forceinline__ void finish_tile(const Tile& tl, int k,
     if (tl.touched[b]) {
 #pragma unroll
       for (int i = 0; i < PPT; ++i) {
-        float* d = tl.dz + (size_t)b * NPX + tl.tid + i * NT;
+        float* d = tl.dz + (size_t)b * NPX + tl.px + i * pixel_step<T>();
         dsum[i] += *d;
         *d = 0.0f;
       }
@@ -679,7 +744,7 @@ __device__ __forceinline__ void render_tiles(
     const int32_t* __restrict__ rows, const void* __restrict__ payload,
     const float* __restrict__ bigpay, float* __restrict__ out,
     float* __restrict__ dz, Params P) {
-  constexpr int NPX = T * T, NT = NPX / PPT;
+  constexpr int NPX = T * T, NT = NPX / PPT, PSTEP = pixel_step<T>();
   constexpr int BB = Payload<COOKED>::BLOCK_BYTES;
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ __align__(8) uint64_t s_bar;
@@ -696,9 +761,10 @@ __device__ __forceinline__ void render_tiles(
   uint32_t* brank = (uint32_t*)(smem + L.brank);
   int* prefix = (int*)(smem + L.prefix);
   unsigned char* bon = smem + L.bon;
+  const int px = pixel_base<T, PPT>(tid);
   Pix q[PPT];
 #pragma unroll
-  for (int i = 0; i < PPT; ++i) q[i] = pixel_of(tid + i * NT, T);
+  for (int i = 0; i < PPT; ++i) q[i] = pixel_of(px + i * PSTEP, T);
   const uint32_t bar = smem_u32(&s_bar);
   if (tid == 0) {
     mbar_init(bar);
@@ -715,9 +781,10 @@ __device__ __forceinline__ void render_tiles(
     if (tid == 0 && nbatch > 0) fetch_batch<COOKED>(payload, row, 0, U, buf, bar);
     const float ox = (float)((t % P.gx) * T);
     const float oy = (float)((t / P.gx) * T + yoff);
-    const Tile tl{row,   nbig,  US,    OB,    tid,  (float*)(smem + L.ring),
-                  s_nact, prefix, bigf, brgb, bd,   brank,
-                  bon,   smem + L.touched, dz + (size_t)blockIdx.x * OB * NPX};
+    const Tile tl{row,    nbig,   US,   OB,   tid,   px,
+                  (float*)(smem + L.ring), s_nact, prefix, bigf, brgb, bd,
+                  brank,  bon,    smem + L.touched,
+                  dz + (size_t)blockIdx.x * OB * NPX};
     for (int i = tid; i < 128; i += NT) prefix[i] = row[5 * 128 + i];
     const float* bp = bigpay + (size_t)t * 16 * OB;
     for (int b = tid; b < nbig; b += NT)
@@ -783,10 +850,10 @@ __device__ __forceinline__ void render_tiles(
     for (int i = 0; i < PPT; ++i) {
       if (V4)
         present(row, k, U, bigtot[i], ps.acc[i], ps.tcar[i],
-                out + ((size_t)t * NPX + tid + i * NT) * 8, 1);
+                out + ((size_t)t * NPX + px + i * PSTEP) * 8, 1);
       else
         present(row, k, U, bigtot[i], ps.acc[i], ps.tcar[i],
-                out + (size_t)t * 8 * NPX + tid + i * NT, NPX);
+                out + (size_t)t * 8 * NPX + px + i * PSTEP, NPX);
     }
     __syncthreads();  // shared tile state is rewritten by the next tile
   }

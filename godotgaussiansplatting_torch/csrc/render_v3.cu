@@ -24,19 +24,21 @@
 // What bounds it on Hopper. Only 8-17% of a processed block's lanes pass
 // the tile's coverage gate, so the least time the card could take is small
 // (chip_smoke's `render_bound`: about 0.1 ms at 1080p, set by the f32 rate
-// on the work this kernel does). The kernel is 17-29x above that. Neither
+// on the work this kernel does). The kernel is 14-25x above that. Neither
 // bytes nor multiply-adds hold it back, but the instruction issue of the
 // per-pixel evaluations: every (pixel, active lane) pair costs a six-term
 // power, an exp and a log at each of its 2-4 evaluations (batch total, emit,
-// lag-1 merges), and so does every (pixel, big lane) in front of, inside or
-// behind the tile's batches. Measured at 1080p, word payload, one stage
-// dropped at a time (PERF.md section 5). The previous design (one thread a
-// pixel, a bitonic sort, log-alpha maps) took 6.3 ms: 5.0 ms of per-pixel
-// composite, 0.3 ms of passes over the maps and 1.3 ms of decode and sort,
-// plus 3.7-3.9 ms of prepass_big_la. This one takes 2.1 ms: 0.49 ms of
+// lag-1 merges; item F below shares the total with a merge), and so does
+// every (pixel, big lane) in front of, inside or behind the tile's
+// batches. Measured at 1080p, word payload, one stage dropped at a time
+// (PERF.md section 5). The previous design (one thread a pixel, a bitonic
+// sort, log-alpha maps) took 6.3 ms: 5.0 ms of per-pixel composite, 0.3
+// ms of passes over the maps and 1.3 ms of decode and sort, plus 3.7-3.9
+// ms of prepass_big_la. This one took 2.1 ms: 0.49 ms of
 // fetch, decode and rank count, 1.07 ms of chain composite and 0.58 ms of
-// big-lane evaluation (cooked, tile 16: 0.75, 1.21 and 1.02 of 3.0 ms).
-// With expf and log1pf in place of part E it takes 3.8 ms.
+// big-lane evaluation (cooked, tile 16: 0.75, 1.21 and 1.02 of 3.0 ms);
+// 1.78 ms with items F and G. With expf and log1pf in place of part E it
+// took 3.8 ms.
 //
 // Design. The TPU kernel keeps (NPX, U*128) per-pixel, per-lane scratch in
 // several MB of vector memory; a Hopper block has at most 227 KB of shared
@@ -75,10 +77,38 @@
 //      PERF.md section 6): one shared-memory read of a lane's features
 //      feeds PPT pixels, and smaller blocks let several tiles share an SM.
 //      Tile 32 takes 4 pixels a thread, 256 threads and 2 blocks an SM
-//      (127 registers, no stack); tile 16 takes 1 pixel, 2 blocks an SM,
+//      (128 registers, no stack); tile 16 takes 1 pixel, 2 blocks an SM,
 //      as many as the cooked payload's U=4 staging and ring leave room for.
+//      Each warp owns a compact block of pixels (32 x 4 at tile 32, in
+//      place of the tile's rows w, w + 8, w + 16 and w + 24; the big
+//      lanes' walk is faster so, PERF.md section 6).
 //   E. exp and log(1 - alpha) on the special function unit (__expf,
 //      __logf) in place of expf and log1pf.
+//   F. The batch total shares the emit's merge with it. Batch k's total is
+//      the sum of its lanes' log-alphas in rank order from 0; the emit of
+//      batch k-1, where the two overlap, forms the same sum lane for lane
+//      (accC, from 0, over batch k's lanes in rank order) up to the first
+//      lane of rank at or above its own last. So batch k runs that emit
+//      first, takes its accC over as the total and adds the lanes the
+//      merge left: each of those pairs is evaluated once where it was
+//      twice, the same floats in the same order, so the total's bits are
+//      unchanged. A batch that straddles a big lane sums its rank segments
+//      beside the total and does not take the prefix over.
+//   G. A log-alpha takes the flush-to-zero forms of the SFU's ex2 and lg2
+//      (la_at, log_transmit in render_tile.cuh). Without -ftz, __expf and
+//      __logf guard against a subnormal argument or result with a compare
+//      and two predicated instructions each, which issue whether they run
+//      or not: 6 of the 22 instructions of a log-alpha, and the guards
+//      take one predicate register a pixel. lg2's argument, 1 - alpha, is
+//      at least 1 - ALPHA_MAX, a normal float, so its .ftz form is the
+//      same instruction on the same bits. ex2's result is alpha before the
+//      clamp: where fl(power * log2 e) >= -126 both forms run the one SFU
+//      instruction on the same argument; below it the guarded form's
+//      alpha is about 2^-126 or less and the flushed one 0, and 1 - alpha
+//      rounds to 1 for any alpha under 2^-25, so the log-alpha is
+//      bit-equal. The emit's alpha, which weights the colour, and its exp
+//      of the transmittance keep __expf: their subnormal results can reach
+//      an accumulator near 0.
 // Tensor cores are not used: the power is a 6-deep product per
 // (pixel, lane), the work is bound by exp/log and their issue, not by
 // multiply-adds, and the 50 dB / 1e-3 gates against the f32 plain version

@@ -2,29 +2,36 @@
 one stage dropped or one constant changed, each built and timed on the same
 inputs; and the v4 kernel launched as plain thread blocks or as clusters.
 
-    python3 -m godotgaussiansplatting_torch.split_render [OTHER_CHECKOUT]
+    python3 -m godotgaussiansplatting_torch.split_render [SECTION ...] \
+        [OTHER_CHECKOUT]
 
-The inputs are those of chip_smoke.py's phase 6: the 5.8M-splat scene at
-1920x1080 and the reset camera, under fast_defaults() (word payload, tile
-32, U=2) and RasterizerConfig(quality="fast") (cooked payload, tile 16,
-U=4). For each, the script prints the distribution of resident big lanes
-per tile (nbig), of batches per tile and the share of batches that
-straddle a big lane. Then every copy of csrc/render_v3.cu listed in STAGES
-and VARIANTS, and of csrc/render_v4.cu in V4_VARIANTS (each edit must
-match the source), is built with the kernels' nvcc flags into
-build/split/, the copies of one source all started together, and its
-ptxas report printed. A stage copy runs on the rows cut to the blocks the
-kernel processes with early exit, without early exit, so every copy does
-the same batches; a variant runs as the frame does. Each is timed over 10
-calls (CUDA events, after a warm-up call). The v4 copies (launched as
-plain CTAs, or in clusters of GT CTAs) run on the inputs of
-RasterizerConfig(kernel="v4").fast_defaults() (cooked, tile 32, U=2) and
-of RasterizerConfig(quality="fast", kernel="v4") (tile 16, U=4) at GT 1,
-2 and 4, in the order A, B, B, A, beside this checkout's cooked v3 kernel
-on the same inputs. With OTHER_CHECKOUT, a tree of
-this repository whose v3 kernel reads prepass_big_la's maps (the design
-before the in-kernel big lanes), its copies in OTHER_STAGES are timed the
-same way, and so is prepass_big_la. Needs a CUDA device.
+SECTION names the input sets to run (any of SECTIONS; all by default).
+``words`` and ``cooked`` are chip_smoke.py's phase 6: the 5.8M-splat scene
+at 1920x1080 and the reset camera, under fast_defaults() (word payload,
+tile 32, U=2) and RasterizerConfig(quality="fast") (cooked payload, tile
+16, U=4). ``main(argv, views)`` takes further input sets from a caller,
+each a (tag, fast cloud view, cfg, camera) under the word payload
+(``frame_inputs``'s arguments); with views and no
+SECTION only the views run (``python3 -m portbench.render_views split``
+hands it the benchmark's fast cells). For each input set, the script
+prints the distribution of resident big lanes per tile (nbig), of batches
+per tile and the share of batches that straddle a big lane. Then every
+copy of csrc/render_v3.cu listed in STAGES and VARIANTS, and of
+csrc/render_v4.cu in V4_VARIANTS (each edit must match the source), is
+built with the kernels' nvcc flags into build/split/, the copies of one
+source all started together, and its ptxas report printed (only the
+copies the chosen input sets time). A stage copy runs on the rows cut to
+the blocks the kernel processes with early exit, without early exit, so
+every copy does the same batches; a variant runs as the frame does. Each
+is timed over 10 calls (CUDA events, after a warm-up call). The ``v4``
+section's copies (launched as plain CTAs, or in clusters of GT CTAs) run
+on the inputs of RasterizerConfig(kernel="v4").fast_defaults() (cooked,
+tile 32, U=2) and of RasterizerConfig(quality="fast", kernel="v4") (tile
+16, U=4) at GT 1, 2 and 4, in the order A, B, B, A, beside this
+checkout's cooked v3 kernel on the same inputs. With OTHER_CHECKOUT, a
+tree of this repository whose v3 kernel reads prepass_big_la's maps (the
+design before the in-kernel big lanes), its copies in OTHER_STAGES are
+timed the same way, and so is prepass_big_la. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -45,12 +52,15 @@ from godotgaussiansplatting_torch.ab_render import (
 from godotgaussiansplatting_torch.ops import render_v3 as rv
 
 SPLIT_DIR = Path(__file__).resolve().parent.parent / "build" / "split"
+# The input sets, each chosen by naming it (all of them by default).
+SECTIONS = ("words", "cooked", "v4")
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 _COMPOSITE = ("const bool more = composite_batch<T, PPT>(tl, k, U, n, q, ps, "
               "ts);", "const bool more = true;")
 _EXACT = [("__expf(", "expf("),
-          ("return __logf(1.0f - alpha);", "return log1pf(-alpha);")]
+          ("ex2_ftz(power_at(f, q) * LOG2E_F)", "expf(power_at(f, q))"),
+          ("return lg2_ftz(1.0f - alpha) * LN2_F;", "return log1pf(-alpha);")]
 
 
 def _consts(tile: int, ppt: int, min_blocks: int) -> list:
@@ -65,14 +75,33 @@ STAGES = {
     "no big lanes (front sum, exchange, finish)": [
         ("const bool has_big = nbig > 0;", "const bool has_big = false;"),
         ("for (int b = 0; b < tl.nbig; ++b) {", "for (int b = 0; b < 0; ++b) {")],
+    "no emit": [("    j0 = emit_batch<PPT>(", "    if (false) j0 = emit_batch<PPT>("),
+                ("    emit_batch<PPT>(tl, prv,", "    if (false) emit_batch<PPT>(tl, prv,")],
     "fetch, decode and rank count only": [_COMPOSITE],
     "fetch and decode only": [
         _COMPOSITE,
         ("for (int c2 = 0; c2 < n; ++c2) r += keys[c2] < key;", "r = c;")],
 }
-# Variants of this checkout's kernel: name -> (edits, payloads timed).
+# Design items D (the warp's block of pixels), F and G of render_v3.cu
+# undone: each warp owns the tile's rows w, w + 8, w + 16 and w + 24; the
+# log-alphas take __expf and __logf; the batch total is summed apart from
+# the emit's merge with the batch. The kernel so edited walks a tile as it
+# did before those items, and must give the same bits.
+_ROW_WARPS = [
+    ("return ((w / BX) * WR + l / WC) * T + (w % BX) * WC + l % WC;",
+     "return tid;"),
+    ("return 32 / warp_cols<T>() * T;", "return T * T / (T == 32 ? 4 : 1);")]
+_GUARDED_SFU = [
+    ("ex2_ftz(power_at(f, q) * LOG2E_F)", "__expf(power_at(f, q))"),
+    ("return lg2_ftz(1.0f - alpha) * LN2_F;", "return __logf(1.0f - alpha);")]
+_TOTAL_APART = [
+    ("for (int j = j0; j < n; ++j) {",
+     "for (int i = 0; i < PPT; ++i) tot[i] = 0.0f;\n"
+     "    for (int j = 0; j < n; ++j) {")]
+BEFORE_D_F_G = _ROW_WARPS + _GUARDED_SFU + _TOTAL_APART
+# Variants of this checkout's kernel: name -> (edits, inputs timed).
 VARIANTS = {
-    "as built": ([], ("words", "cooked")),
+    "as built": ([], ("words", "cooked", "views")),
     "exact expf and log1pf": (_EXACT, ("words", "cooked")),
     **{f"tile 32: {p} px/thread, {m} blocks/SM":
        (_consts(32, p, m), ("words",))
@@ -81,6 +110,16 @@ VARIANTS = {
         (_consts(32, 2, 1) + _EXACT, ("words",)),
     **{f"tile 16: {p} px/thread, {m} blocks/SM":
        (_consts(16, p, m), ("cooked",)) for p, m in ((1, 1), (2, 2))},
+    "tile 32: each warp's pixels 16 x 8": (
+        [("constexpr int WARP_COLS = 32;", "constexpr int WARP_COLS = 16;")],
+        ("words", "views")),
+    "tile 32: warp w's pixels in rows w, w + 8, w + 16, w + 24": (
+        _ROW_WARPS, ("words", "views")),
+    "log-alphas through __expf and __logf": (_GUARDED_SFU,
+                                             ("words", "views")),
+    "batch total apart from the emit's merge": (_TOTAL_APART,
+                                                ("words", "views")),
+    "without items D, F and G": (BEFORE_D_F_G, ("words", "views")),
 }
 # A copy of csrc/render_v4.cu whose entry point launches each group of GT
 # tiles as one thread-block cluster of GT CTAs (the walk then gives cluster
@@ -292,51 +331,95 @@ def straddling(rows, processed, U) -> tuple[int, int]:
     return n, ns
 
 
-def main(argv) -> int:
-    if len(argv) > 1 or not torch.cuda.is_available():
+def _time_copies(libs, entry, args, cut):
+    """{copy: ms per call} of each copy in ``libs`` on one input set: the
+    stage copies on the cut rows without early exit (the other checkout's
+    only where ``args`` hold its big log-alpha maps), the variants timed on
+    ``entry`` as the frame runs them."""
+    ms = {}
+    for name, (lib, _) in libs.items():
+        other = name.startswith("other")
+        call = launcher(lib, other)
+        if name.startswith("variant"):
+            if entry in VARIANTS[name.split(": ", 1)[1]][1]:
+                ms[name] = time_ms(lambda: call(*args, True), 10)
+        elif not other or args[3] is not None:
+            ms[name] = time_ms(lambda: call(cut, *args[1:], False), 10)
+    return ms
+
+
+def _walked(tag, rows, payload, bigpay, cfg, U, mb):
+    """The rows cut to the blocks the kernel processes with early exit,
+    after printing the tiles' big lanes, batches walked and straddling
+    batches."""
+    processed = rv._render_cuda(rows, payload, bigpay, cfg, U, mb,
+                                True)[:, 5, 0]
+    cut = rows.clone()
+    cut[:, 0, 0] = processed.to(torch.int32)
+    n, ns = straddling(rows, processed, U)
+    print(f"[{tag}] tile {cfg.tile_size} U={U}: {rows.shape[0]} tiles; "
+          f"nbig {json.dumps(_quantiles(rows[:, 0, 4]))}; batches per "
+          f"tile {json.dumps(_quantiles(torch.ceil(processed / U)))}; "
+          f"{n} batches, {ns} straddle a big lane", flush=True)
+    return cut
+
+
+def main(argv, views=()) -> int:
+    """``views``: further input sets, (tag, fast cloud view, cfg, camera)
+    each, timed as ``words``; with views, only the SECTIONs named in
+    ``argv`` run."""
+    sections = ([a for a in argv if a in SECTIONS]
+                or ([] if views else list(SECTIONS)))
+    others = [a for a in argv if a not in SECTIONS]
+    if len(others) > 1 or not torch.cuda.is_available():
         raise SystemExit(__doc__)
+    inputs = set(sections) | ({"views"} if views else set())
     csrc = Path(kernels.CSRC)
-    copies = {f"stage: {k}": v for k, v in STAGES.items()}
-    copies.update({f"variant: {k}": v[0] for k, v in VARIANTS.items()})
+    copies = ({f"stage: {k}": v for k, v in STAGES.items()}
+              if inputs - {"v4"} else {})
+    copies.update({f"variant: {k}": v[0] for k, v in VARIANTS.items()
+                   if set(v[1]) & inputs})
     libs = build_copies(csrc, copies, "this")
-    v4libs = build_copies(csrc, V4_VARIANTS, "v4", "render_v4")
+    v4libs = (build_copies(csrc, V4_VARIANTS, "v4", "render_v4")
+              if "v4" in sections else {})
     other_rv = None
-    if argv:
-        other_rv, _ = import_other(Path(argv[0]).resolve())
+    if others:
+        other_rv, _ = import_other(Path(others[0]).resolve())
         libs.update({f"other stage: {k}": v for k, v in build_copies(
-            Path(argv[0]).resolve() / "godotgaussiansplatting_torch" / "csrc",
-            OTHER_STAGES, "other").items()})
+            Path(others[0]).resolve() / "godotgaussiansplatting_torch"
+            / "csrc", OTHER_STAGES, "other").items()})
     for name, (_, ptxas) in {**libs, **v4libs}.items():
         print(f"ptxas {name}: {json.dumps(ptxas)}", flush=True)
+    if {"words", "cooked"} & set(sections):
+        cloud, base = scene_cloud("5.8M 1920x1080")
+        for entry, cfg in (("words", base.fast_defaults()),
+                           ("cooked", base.replace(quality="fast"))):
+            if entry not in sections:
+                continue
+            rows, payload, bigpay, _, U, mb = frame_inputs(cloud, cfg)
+            bigla = (other_rv.prepass_big_la(bigpay, cfg) if other_rv
+                     else None)
+            args = (rows, payload, bigpay, bigla, cfg, U, mb)
+            cut = _walked(entry, rows, payload, bigpay, cfg, U, mb)
+            ms = _time_copies(libs, entry, args, cut)
+            if other_rv:
+                ms["other: prepass_big_la"] = time_ms(
+                    lambda: other_rv.prepass_big_la(bigpay, cfg), 10)
+            print(f"[{entry}] ms per call {json.dumps(ms, indent=0)}",
+                  flush=True)
+            del args, bigla, cut
+        del cloud
+    for tag, cloud, cfg, camera in views:
+        rows, payload, bigpay, _, U, mb = frame_inputs(cloud, cfg, camera)
+        args = (rows, payload, bigpay, None, cfg, U, mb)
+        cut = _walked(tag, rows, payload, bigpay, cfg, U, mb)
+        print(f"[{tag}] ms per call "
+              f"{json.dumps(_time_copies(libs, 'views', args, cut), indent=0)}",
+              flush=True)
+        del args, cut
+    if "v4" not in sections:
+        return 0
     cloud, base = scene_cloud("5.8M 1920x1080")
-    for entry, cfg in (("words", base.fast_defaults()),
-                       ("cooked", base.replace(quality="fast"))):
-        rows, payload, bigpay, _, U, mb = frame_inputs(cloud, cfg)
-        bigla = other_rv.prepass_big_la(bigpay, cfg) if other_rv else None
-        args = (rows, payload, bigpay, bigla, cfg, U, mb)
-        processed = rv._render_cuda(rows, payload, bigpay, cfg, U, mb,
-                                    True)[:, 5, 0]
-        cut = rows.clone()
-        cut[:, 0, 0] = processed.to(torch.int32)
-        n, ns = straddling(rows, processed, U)
-        print(f"[{entry}] tile {cfg.tile_size} U={U}: {rows.shape[0]} tiles; "
-              f"nbig {json.dumps(_quantiles(rows[:, 0, 4]))}; batches per "
-              f"tile {json.dumps(_quantiles(torch.ceil(processed / U)))}; "
-              f"{n} batches, {ns} straddle a big lane", flush=True)
-        ms = {}
-        for name, (lib, _) in libs.items():
-            call = launcher(lib, name.startswith("other"))
-            if name.startswith("variant"):
-                if entry not in VARIANTS[name.split(": ", 1)[1]][1]:
-                    continue
-                ms[name] = time_ms(lambda: call(*args, True), 10)
-            else:
-                ms[name] = time_ms(lambda: call(cut, *args[1:], False), 10)
-        if other_rv:
-            ms["other: prepass_big_la"] = time_ms(
-                lambda: other_rv.prepass_big_la(bigpay, cfg), 10)
-        print(f"[{entry}] ms per call {json.dumps(ms, indent=0)}", flush=True)
-        del args, bigla, cut
     calls = {name: v4_launcher(lib, name != "plain CTAs (as built)")
              for name, (lib, _) in v4libs.items()}
     names = list(calls)

@@ -11,6 +11,8 @@ path without touching a kernel and that a kernel wrapper refuses CPU
 tensors instead of falling back.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -230,7 +232,7 @@ def _cfg(tile, batch_u, **kw):
     return cfg
 
 
-def _render_inputs(cloud, cfg, batch_u, words):
+def _render_inputs(cloud, cfg, batch_u, words, need_bigs=True):
     # the readable projection's kernel takes (P, 16, 3) SH
     cloud = gt.fast_cloud_view(cloud, planar_sh=cfg.projection_kernel)
     uni = gt.make_uniforms(gt.Camera.reset_pose(), cfg, device=cloud.device,
@@ -254,7 +256,8 @@ def _render_inputs(cloud, cfg, batch_u, words):
                                 tile_big_prefix=tbig.big_prefix)
     bigla = rv.prepass_big_la(tbig.bigpay, cfg)
     mb = -(-bins.tile_blocks.shape[1] // batch_u)
-    assert int((rows[:, 0, 4] > 0).sum()) > 0, "no resident big lanes"
+    if need_bigs:
+        assert int((rows[:, 0, 4] > 0).sum()) > 0, "no resident big lanes"
     return (rows, bf.payload, tbig.bigpay, bigla, cfg, batch_u, mb)
 
 
@@ -345,6 +348,57 @@ def test_render_v4_kernel_matches_plain_and_v3(cuda, tile, batch_u, gt_):
     args = _render_inputs(_cloud(cuda), cfg, batch_u, False)
     for early_exit in (True, False):
         _hold_v4(args, gt_, early_exit)
+
+
+@pytest.fixture(scope="module")
+def walk_before():
+    """(v3 call, v4 call) of split_render's copies of render_v3.cu and
+    render_v4.cu with design items D (the warp's block of pixels), F (the
+    batch total shared with the emit's merge) and G (flush-to-zero
+    log-alphas) undone: the kernels' walk before those items."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    copies = {"before D, F, G": split_render.BEFORE_D_F_G}
+    v3 = split_render.build_copies(kernels.CSRC, copies, "test_v3")
+    v4 = split_render.build_copies(kernels.CSRC, copies, "test_v4",
+                                   "render_v4")
+    return (split_render.launcher(v3["before D, F, G"][0], False),
+            split_render.v4_launcher(v4["before D, F, G"][0], False))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scene", ["opaque", "straddle"])
+def test_render_kernels_keep_the_bits_of_the_walk_before_d_f_g(
+        cuda, walk_before, scene):
+    """Design items D, F and G of render_v3.cu change no bit: v3 on the
+    word and the cooked payload, with and without early exit, and v4 at
+    GT 1 and 4, all 8 channels torch.equal to the same kernels built with
+    the three items undone. ``opaque``: 160K splats at opacity 0.99, long
+    lists of overlapping batches (item F takes most of each total over);
+    ``straddle``: big lanes that batches straddle (item F stands aside)."""
+    v3_before, v4_before = walk_before
+    if scene == "opaque":
+        cloud = _cloud(cuda, n=160_000)
+        cloud = dataclasses.replace(
+            cloud, opacity=torch.full_like(cloud.opacity, 0.99))
+    else:
+        cloud = _cloud(cuda, scale=0.2)
+    for tile, batch_u, words in ((32, 2, True), (32, 2, False),
+                                 (16, 4, False)):
+        cfg = _cfg(tile, batch_u, kernel="v3" if words else "v4")
+        straddle = scene == "straddle" and tile == 32
+        args = _render_inputs(cloud, cfg, batch_u, words, need_bigs=straddle)
+        rows, payload, bigpay, _, cfg, U, mb = args
+        if straddle:
+            assert split_render.straddling(rows, rows[:, 0, 0], U)[1] > 0
+        for early_exit in (False, True):
+            assert torch.equal(_v3(args, early_exit),
+                               v3_before(*args, early_exit)), (
+                tile, words, early_exit)
+        for gt_ in ((1, 4) if tile == 32 and not words else ()):
+            assert torch.equal(_v4(args, gt_, True),
+                               v4_before(rows, payload, bigpay, cfg, U, mb,
+                                         gt_)), gt_
 
 
 @pytest.mark.gpu
